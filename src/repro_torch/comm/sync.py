@@ -1,0 +1,175 @@
+"""Gradient synchronization policies on ``torch.distributed``.
+
+Counterpart of :mod:`repro.comm.sync`:
+
+* ``at_end`` (CNTK): every gradient leaf mean-reduced after the whole
+  backward pass, one blocking collective phase;
+* ``wfbp`` (Caffe-MPI / MXNet / TensorFlow): :class:`PsumInBackward`, an
+  identity on the forward pass, is applied to each unit's parameter slice
+  inside the unit loop; its backward issues that slice's all-reduce
+  (``async_op=True``) the moment the slice's gradient is complete, so the
+  all-reduces run while the rest of the backward pass computes.  They are
+  waited for, and their means written into the gradients, before the
+  update (:meth:`WfbpHook.finish`);
+* ``bucketed``: gradients fused into flat f32 buckets closed at
+  ``bucket_bytes``, in :func:`repro_torch.models.transformer.leaf_order`
+  (the reference's leaf order), one all-reduce per bucket.
+
+Every all-reduce of the port goes through :meth:`Comm.all_reduce`, which
+counts the bytes it hands over — the port's counterpart of the
+reference's HLO collective-bytes harvest (``launch/hlo.py``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.models.transformer import Params, get_path, leaf_order, map_leaves
+
+SYNC_POLICIES = ("none", "at_end", "wfbp", "bucketed")
+
+#: Default gradient-bucket fusion threshold in bytes (DDP's 25 MB); a copy
+#: of ``repro.comm.sync.DEFAULT_BUCKET_BYTES``.
+DEFAULT_BUCKET_BYTES = 25e6
+
+
+@dataclass
+class Comm:
+    """A process group plus a plain-integer count of the bytes (and calls)
+    handed to ``all_reduce`` through it."""
+
+    group: object = None
+    bytes: int = 0
+    calls: int = 0
+
+    @property
+    def world(self) -> int:
+        return dist.get_world_size(self.group)
+
+    def reset(self) -> None:
+        self.bytes = 0
+        self.calls = 0
+
+    def all_reduce(self, t: torch.Tensor, async_op: bool = False):
+        """Sum ``t`` in place over the group; counts its bytes."""
+        self.bytes += t.numel() * t.element_size()
+        self.calls += 1
+        return dist.all_reduce(t, group=self.group, async_op=async_op)
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """Mean of ``t`` over the group (a new tensor)."""
+        out = t.detach().clone()
+        self.all_reduce(out)
+        return out / self.world
+
+
+# ----------------------------------------------------------------------
+# WFBP: all-reduce in the backward pass
+# ----------------------------------------------------------------------
+class PsumInBackward(torch.autograd.Function):
+    """Identity forward; the backward starts the cotangent's all-reduce on
+    a copy and records it in ``hook`` for :meth:`WfbpHook.finish`.  The
+    local cotangent flows on unchanged (autograd must not wait for the
+    network), and is overwritten by the mean once the all-reduce is done."""
+
+    @staticmethod
+    def forward(ctx, x, hook, path, unit):
+        ctx.hook, ctx.path, ctx.unit = hook, path, unit
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf = g.detach().clone()
+        work = ctx.hook.comm.all_reduce(buf, async_op=True)
+        ctx.hook.pending.append((ctx.path, ctx.unit, buf, work))
+        return g, None, None, None
+
+
+@dataclass
+class WfbpHook:
+    """``param_hook`` for :func:`repro_torch.models.transformer.loss_fn`
+    tagging every leaf of the tree it is given with :class:`PsumInBackward`."""
+
+    comm: Comm
+    pending: list = field(default_factory=list)
+
+    def __call__(self, tree: Params, path: tuple, unit: int | None = None) -> Params:
+        return map_leaves(
+            lambda sub, leaf: PsumInBackward.apply(leaf, self, path + sub, unit), tree)
+
+    def finish(self, grads: Params) -> Params:
+        """Wait for every all-reduce started in the backward pass and
+        write its mean into ``grads`` (``grads[path][unit]`` for a unit
+        slice); ``psum / world`` in the gradient's dtype, as the
+        reference's ``psum_in_backward``."""
+        world = self.comm.world
+        for path, unit, buf, work in self.pending:
+            work.wait()
+            target = get_path(grads, path)
+            (target if unit is None else target[unit]).copy_(buf.div_(world))
+        self.pending.clear()
+        return grads
+
+
+# ----------------------------------------------------------------------
+# at_end and bucketed
+# ----------------------------------------------------------------------
+def pmean_at_end(grads: Params, comm: Comm) -> Params:
+    """Mean-reduce every gradient leaf after the backward pass: all
+    all-reduces started, then all waited for (one collective phase)."""
+    works = [(leaf, comm.all_reduce(leaf, async_op=True)) for _, leaf in leaf_order(grads)]
+    world = comm.world
+    for leaf, work in works:
+        work.wait()
+        leaf.div_(world)
+    return grads
+
+
+def bucket_partition(leaves: list[torch.Tensor],
+                     bucket_bytes: float = DEFAULT_BUCKET_BYTES) -> list[list[int]]:
+    """Leaf indices per bucket: a bucket closes once its leaves reach
+    ``bucket_bytes`` in their own dtype (``repro.comm.sync.bucketed_pmean``)."""
+    buckets: list[list[int]] = [[]]
+    size = 0.0
+    for i, leaf in enumerate(leaves):
+        buckets[-1].append(i)
+        size += leaf.numel() * leaf.element_size()
+        if size >= bucket_bytes:
+            buckets.append([])
+            size = 0.0
+    if not buckets[-1]:
+        buckets.pop()
+    return buckets
+
+
+def bucketed_pmean(grads: Params, comm: Comm,
+                   bucket_bytes: float = DEFAULT_BUCKET_BYTES) -> Params:
+    """One f32 all-reduce per bucket, then scattered back in each leaf's
+    dtype."""
+    leaves = [leaf for _, leaf in leaf_order(grads)]
+    world = comm.world
+    for members in bucket_partition(leaves, bucket_bytes):
+        flat = torch.cat([leaves[i].reshape(-1).float() for i in members])
+        comm.all_reduce(flat)
+        flat.div_(world)
+        off = 0
+        for i in members:
+            n = leaves[i].numel()
+            leaves[i].copy_(flat[off:off + n].view(leaves[i].shape))
+            off += n
+    return grads
+
+
+def sync_gradients(grads: Params, policy: str, comm: Comm | None,
+                   bucket_bytes: float = DEFAULT_BUCKET_BYTES) -> Params:
+    """Post-backward sync; ``wfbp`` gradients were reduced during the
+    backward pass (:class:`WfbpHook`) and pass through."""
+    if policy in ("none", "wfbp") or comm is None:
+        return grads
+    if policy == "at_end":
+        return pmean_at_end(grads, comm)
+    if policy == "bucketed":
+        return bucketed_pmean(grads, comm, bucket_bytes)
+    raise ValueError(f"unknown sync policy {policy!r}")

@@ -1,0 +1,23 @@
+"""Architecture config registry (``--arch <id>``) for the archs ported so far.
+
+Counterpart of :mod:`repro.configs`; the other archs of the reference
+registry join as their slices are ported (``ROADMAP.md``, queue 1).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import ModelConfig
+
+_MODULES = {
+    "qwen1.5-4b": "repro_torch.configs.qwen15_4b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
+                       f"one of {sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[arch]).CONFIG

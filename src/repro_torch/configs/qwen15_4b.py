@@ -1,0 +1,17 @@
+"""qwen1.5-4b [dense]: 40L d_model=2560 20H (kv=20) d_ff=6912
+vocab=151936, QKV bias.  [hf:Qwen/Qwen1.5-4B]"""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-4b",
+    arch_type="dense",
+    num_layers=40,
+    d_model=2560,
+    num_heads=20,
+    num_kv_heads=20,
+    d_ff=6912,
+    vocab_size=151936,
+    qkv_bias=True,
+    layer_pattern="G",
+    source="hf:Qwen/Qwen1.5-4B",
+).validate()

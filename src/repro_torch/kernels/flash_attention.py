@@ -1,0 +1,333 @@
+"""Flash attention for Hopper: forward and backward CUDA kernels.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
+_flash_kernel`` (Pallas, forward only).  The kernels live in
+``repro_torch/csrc/flash_attention.cu``: built at first use with ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes`` and launched on PyTorch's current stream.  The source's header
+says what bounds them on the card and what the design does about it.
+
+Four wrappers, one per kernel, each with a launch counter in
+:data:`LAUNCHES` and a plain PyTorch version beside it:
+
+==================  ======================  ============================
+wrapper             kernel                  plain version
+==================  ======================  ============================
+:func:`fwd`         ``flash_fwd``           :func:`plain_fwd`
+:func:`bwd_delta`   ``flash_bwd_delta``     :func:`plain_bwd_delta`
+:func:`bwd_dq`      ``flash_bwd_dq``        :func:`plain_bwd` (dq)
+:func:`bwd_dkdv`    ``flash_bwd_dkdv``      :func:`plain_bwd` (dk, dv)
+==================  ======================  ============================
+
+A wrapper given CPU tensors computes its plain version; given CUDA tensors
+it launches its kernel or raises (no fallback).  :func:`flash_attention` is
+the differentiable entry point (:class:`FlashAttention`).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.ref import NEG_INF, repeat_kv
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
+SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Kernel launches per kernel name, counted by the wrappers where they
+#: launch (plain-version calls on the CPU are not counted).
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_delta": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkdv": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ----------------------------------------------------------------------
+# Build and load
+# ----------------------------------------------------------------------
+#: ``build/kernels`` at the checkout root (listed in ``.gitignore``).
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
+                           "the flash-attention kernels cannot be built")
+    return str(path)
+
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build() -> Path:
+    """Compile the kernels (if the library for this source is not built
+    yet) and return the library's path.  The name carries the source's
+    hash, and the library is written under a temporary name and renamed,
+    so a stale or half-written build is never loaded."""
+    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
+    out = BUILD_DIR / f"flash_attention-{digest}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / f"flash_attention-{digest}.log").write_text(r.stdout + r.stderr)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc={r.returncode}):\n{r.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once) and load the kernels' shared library."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+            lib.flash_bwd_delta.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+            lib.flash_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f,
+                                           i, p]
+            for fn in (lib.flash_fwd, lib.flash_bwd_delta, lib.flash_bwd_dq,
+                       lib.flash_bwd_dkdv):
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+# ----------------------------------------------------------------------
+# Checks shared by the wrappers
+# ----------------------------------------------------------------------
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on anything the kernels do not take."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B,S,H,hd) and k, v (B,S,K,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
+        raise ValueError("the kernels take self-attention with aligned q/kv "
+                         f"positions: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"H={H} not a multiple of K={k.shape[2]}")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+    _check_same(q, k, v)
+
+
+def _check_same(*ts: torch.Tensor) -> None:
+    dt, dev = ts[0].dtype, ts[0].device
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"dtype {dt} not supported (float32 or bfloat16)")
+    for t in ts:
+        if t.dtype != dt or t.device != dev:
+            raise ValueError("inputs must share one dtype and one device")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+
+
+def _window_arg(window: int | None) -> int:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    return 0 if window is None else int(window)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+# ----------------------------------------------------------------------
+# Plain versions (float32 math, scores materialized)
+# ----------------------------------------------------------------------
+def _visible(S: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    pos = torch.arange(S, device=device)
+    qp, kp = pos[:, None], pos[None, :]
+    mask = torch.ones(S, S, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return mask
+
+
+def _scores(q, k, causal, window):
+    """Scaled, masked scores (B, H, S, S) in f32, the scaled q, the
+    expanded k and the mask."""
+    B, S, H, hd = q.shape
+    qs = q.float() * (1.0 / math.sqrt(hd))
+    kf = repeat_kv(k.float(), H // k.shape[2])
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    mask = _visible(S, causal, window, q.device)
+    return s.masked_fill(~mask, NEG_INF), qs, kf, mask
+
+
+def plain_fwd(q, k, v, causal=True, window=None):
+    """(o in q's dtype, lse (B, H, S) f32): what ``flash_fwd`` computes."""
+    s, _, _, mask = _scores(q, k, causal, window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    lc = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    vf = repeat_kv(v.float(), q.shape[2] // v.shape[2])
+    o = torch.einsum("bhqk,bkhd->bqhd", p / lc, vf)
+    lse = (m + torch.log(lc)).squeeze(-1)
+    return o.to(q.dtype).contiguous(), lse.contiguous()
+
+
+def plain_bwd_delta(o, do):
+    """delta = rowsum(dO * O) as (B, H, S) f32: ``flash_bwd_delta``."""
+    return (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def plain_bwd(q, k, v, do, lse, delta, causal=True, window=None):
+    """(dq, dk, dv) in the inputs' dtype: ``flash_bwd_dq`` and
+    ``flash_bwd_dkdv`` together."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    s, qs, kf, mask = _scores(q, k, causal, window)
+    vf = repeat_kv(v.float(), H // K)
+    dof = do.float()
+    p = torch.exp(s - lse[..., None]) * mask
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * (1.0 / math.sqrt(hd))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs).reshape(B, S, K, H // K, hd).sum(3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(B, S, K, H // K, hd).sum(3)
+    return (dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
+            dv.to(v.dtype).contiguous())
+
+
+# ----------------------------------------------------------------------
+# Wrappers: one per kernel
+# ----------------------------------------------------------------------
+def fwd(q, k, v, causal=True, window=None):
+    """(o, lse).  ``flash_fwd`` on CUDA tensors, :func:`plain_fwd` on CPU."""
+    check_inputs(q, k, v)
+    w = _window_arg(window)
+    if not q.is_cuda:
+        return plain_fwd(q, k, v, causal, window)
+    B, S, H, hd = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    err = load_library().flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        B, S, H, k.shape[2], hd, int(causal), w, 1.0 / math.sqrt(hd),
+        _DTYPE_CODE[q.dtype], _stream())
+    LAUNCHES["flash_fwd"] += 1
+    _raise_on(err, "flash_fwd")
+    return o, lse
+
+
+def bwd_delta(o, do):
+    """delta (B, H, S) f32.  ``flash_bwd_delta`` on CUDA tensors."""
+    if o.dim() != 4 or o.shape != do.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must match")
+    _check_same(o, do)
+    if not o.is_cuda:
+        return plain_bwd_delta(o, do)
+    B, S, H, hd = o.shape
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=o.device)
+    err = load_library().flash_bwd_delta(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                                         B, S, H, hd, _DTYPE_CODE[o.dtype], _stream())
+    LAUNCHES["flash_bwd_delta"] += 1
+    _raise_on(err, "flash_bwd_delta")
+    return delta
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    check_inputs(q, k, v)
+    _check_same(q, do)
+    if do.shape != q.shape:
+        raise ValueError("dO must have q's shape")
+    B, S, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, S) or t.dtype != torch.float32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (B, H, S) float32 tensor")
+
+
+def bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
+    """dq.  ``flash_bwd_dq`` on CUDA tensors."""
+    _check_bwd(q, k, v, do, lse, delta)
+    w = _window_arg(window)
+    if not q.is_cuda:
+        return plain_bwd(q, k, v, do, lse, delta, causal, window)[0]
+    B, S, H, hd = q.shape
+    dq = torch.empty_like(q)
+    err = load_library().flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), B, S, H, k.shape[2], hd, int(causal), w,
+        1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _stream())
+    LAUNCHES["flash_bwd_dq"] += 1
+    _raise_on(err, "flash_bwd_dq")
+    return dq
+
+
+def bwd_dkdv(q, k, v, do, lse, delta, causal=True, window=None):
+    """(dk, dv).  ``flash_bwd_dkdv`` on CUDA tensors."""
+    _check_bwd(q, k, v, do, lse, delta)
+    w = _window_arg(window)
+    if not q.is_cuda:
+        return plain_bwd(q, k, v, do, lse, delta, causal, window)[1:]
+    B, S, H, hd = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = load_library().flash_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
+        int(causal), w, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _stream())
+    LAUNCHES["flash_bwd_dkdv"] += 1
+    _raise_on(err, "flash_bwd_dkdv")
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Self-attention through the kernels; the backward recomputes the
+    probabilities from the saved row logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = bwd_delta(o, do)
+        dk, dv = bwd_dkdv(q, k, v, do, lse, delta, ctx.causal, ctx.window)
+        dq = bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
+    """q: (B, S, H, hd); k, v: (B, S, K, hd) with H % K == 0.  Returns
+    (B, S, H, hd) in q's dtype; differentiable in q, k and v."""
+    return FlashAttention.apply(q, k, v, causal, window)

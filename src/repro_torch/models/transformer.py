@@ -1,0 +1,150 @@
+"""Decoder-only LM over ``layer_pattern`` block sequences.
+
+Counterpart of :mod:`repro.models.transformer` lines 25-137.  The
+parameters are nested dicts keyed exactly like the JAX pytree, with the
+stacked ``units`` leaves keeping their leading unit axis, so payload
+bytes and bucket partitions match the reference by construction.  The
+reference's ``lax.scan`` over units is a Python loop over unit slices;
+``param_hook`` is applied to each unit's slice inside the loop and to the
+unscanned leaves at their use sites, as in the reference.  ``constrain``
+(sharding annotations) has no counterpart here.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.models import blocks as B
+from repro_torch.models.common import ModelConfig, Params, apply_norm, dense_init, init_norm
+
+#: ``hook(tree, path, unit)`` -> tree: ``path`` is the key path of the
+#: tree's root in the parameter dict, ``unit`` the unit index for slices of
+#: the stacked ``units`` leaves (None for unscanned leaves).
+ParamHook = Callable[[Params, tuple, "int | None"], Params]
+
+
+# ----------------------------------------------------------------------
+# Init
+# ----------------------------------------------------------------------
+def init_lm(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
+    """Random parameters from ``seed`` (a ``torch.Generator`` on
+    ``device``; ``device="meta"`` gives shapes only).  The layout equals
+    ``repro.models.transformer.init_lm``'s; the values do not (the two
+    RNGs differ; :func:`from_reference` carries the reference's over)."""
+    device = torch.device(device)
+    # the meta device (shapes only) takes no generator
+    gen = None if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
+    params: Params = {
+        "embedding": dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.dtype, device,
+                                in_axis_size=cfg.d_model),
+        "final_norm": init_norm(cfg, device),
+    }
+    if cfg.num_units > 0:
+        lead = (cfg.num_units,)
+        params["units"] = {f"b{i}": B.init_block(cfg, kind, gen, device, lead)
+                           for i, kind in enumerate(cfg.layer_pattern)}
+    for i, kind in enumerate(cfg.remainder_pattern):
+        params[f"rem{i}"] = B.init_block(cfg, kind, gen, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), cfg.dtype, device)
+    return params
+
+
+def leaf_order(params: Params, prefix: tuple = ()) -> Iterator[tuple[tuple, torch.Tensor]]:
+    """``(key path, leaf)`` in ``jax.tree_util.tree_flatten`` order (dict
+    keys sorted at every level)."""
+    if isinstance(params, dict):
+        for key in sorted(params):
+            yield from leaf_order(params[key], prefix + (key,))
+    else:
+        yield prefix, params
+
+
+def get_path(params: Params, path: tuple):
+    for key in path:
+        params = params[key]
+    return params
+
+
+def map_leaves(fn, params: Params, prefix: tuple = ()) -> Params:
+    """A tree of ``fn(path, leaf)`` with ``params``' keys."""
+    if isinstance(params, dict):
+        return {k: map_leaves(fn, v, prefix + (k,)) for k, v in params.items()}
+    return fn(prefix, params)
+
+
+def param_count(params: Params) -> int:
+    return sum(leaf.numel() for _, leaf in leaf_order(params))
+
+
+def unit_slice(units: Params, i: int) -> Params:
+    return map_leaves(lambda _, leaf: leaf[i], units)
+
+
+# ----------------------------------------------------------------------
+# Forward (train)
+# ----------------------------------------------------------------------
+def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+                  param_hook: ParamHook | None = None):
+    ph = param_hook or (lambda p, path, unit=None: p)
+    emb = ph(params["embedding"], ("embedding",), None)
+    x = emb[tokens]
+    for u in range(cfg.num_units):
+        unit_params = ph(unit_slice(params["units"], u), ("units",), u)
+        for i, kind in enumerate(cfg.layer_pattern):
+            x = B.apply_block(cfg, kind, unit_params[f"b{i}"], x)
+    for i, kind in enumerate(cfg.remainder_pattern):
+        x = B.apply_block(cfg, kind, ph(params[f"rem{i}"], (f"rem{i}",), None), x)
+    x = apply_norm(cfg, ph(params["final_norm"], ("final_norm",), None), x)
+    head = emb.T if cfg.tie_embeddings else ph(params["lm_head"], ("lm_head",), None)
+    return x, head
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            param_hook: ParamHook | None = None) -> torch.Tensor:
+    """tokens: (B, S) int -> logits (B, S, V) in logit_dtype.  The
+    reference also returns the MoE aux loss, 0 without MoE."""
+    x, head = _final_hidden(cfg, params, tokens, param_hook=param_hook)
+    return (x @ head).to(cfg.logit_dtype)
+
+
+# Vocab sizes at or above this use the chunked cross-entropy.
+CHUNKED_XENT_MIN_VOCAB = 16_384
+
+
+def loss_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            labels: torch.Tensor, *,
+            param_hook: ParamHook | None = None) -> tuple[torch.Tensor, dict]:
+    """(total loss, {"loss": ...}).  Without MoE the reference's total is
+    the cross-entropy itself (its aux term is 0), so the two are one."""
+    x, head = _final_hidden(cfg, params, tokens, param_hook=param_hook)
+    if cfg.vocab_size >= CHUNKED_XENT_MIN_VOCAB:
+        from repro_torch.models.loss import chunked_cross_entropy
+        loss = chunked_cross_entropy(x, head, labels)
+    else:
+        logits = (x @ head).to(cfg.logit_dtype)
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
+    return loss, {"loss": loss}
+
+
+# ----------------------------------------------------------------------
+# Parameter bridge from the reference
+# ----------------------------------------------------------------------
+def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)
+
+
+def from_reference(tree: Params, device="cpu") -> Params:
+    """The port's parameters from the reference's parameter pytree given as
+    nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
+    params)``), key path for key path, dtypes kept."""
+    return map_leaves(lambda _, arr: _to_tensor(arr, device), tree)

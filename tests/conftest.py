@@ -37,3 +37,8 @@ def _install_hypothesis_fallback() -> None:
 
 
 _install_hypothesis_fallback()
+
+
+def pytest_configure(config) -> None:
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips with a reason elsewhere")

@@ -1,0 +1,227 @@
+"""The port's measurement loop and its copies of the reference's pure
+functions, on the CPU.
+
+* The copies (``segment_from_depths``, ``fit_alpha_beta``,
+  ``comm_scale_from_fit``, the trace writer) equal the originals on
+  random inputs, exactly: they are the same float64 arithmetic.
+* A smoke measurement (``python -m repro_torch.measure --smoke --device
+  cpu``, the reference's ``SMOKE_GEOMETRY``, 2 gloo ranks) writes a trace
+  that ``repro.traces.format.read_trace`` reads and that the unchanged
+  sweep evaluates as ``trace:<path>`` through the closed form
+  (``caffe-mpi``) and the bucket timeline (``bucketed-25mb``).
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.core.scenarios import Scenario
+from repro.core.sweep import evaluate_scenario
+from repro.measure import calibrate as jcal
+from repro.measure import harness as jharness
+from repro.measure import run as jrun
+from repro.traces import format as jformat
+from repro_torch.configs import get_config as torch_get_config
+from repro_torch.device import resolve_device
+from repro_torch.measure import calibrate as tcal
+from repro_torch.measure import harness as tharness
+from repro_torch.measure import run as trun
+from repro_torch.traces import format as tformat
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+ARCH = "qwen1.5-4b"
+
+
+class TestCopies:
+    @pytest.mark.parametrize("seed", range(5))
+    def test_segment_from_depths_equals_reference(self, seed):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(2, 5))
+        units = sorted(rng.choice(np.arange(1, 20), n, replace=False).tolist())
+        fwd = rng.uniform(-0.01, 1.0, n).tolist()
+        full = rng.uniform(-0.01, 3.0, n).tolist()
+        assert dataclasses.asdict(tharness.segment_from_depths(units, fwd, full)) == \
+            dataclasses.asdict(jharness.segment_from_depths(units, fwd, full))
+
+    def test_segment_from_depths_rejects_like_reference(self):
+        for args in (([2], [1.0], [2.0]), ([2, 2], [1.0, 1.0], [2.0, 2.0])):
+            with pytest.raises(ValueError):
+                jharness.segment_from_depths(*args)
+            with pytest.raises(ValueError):
+                tharness.segment_from_depths(*args)
+
+    @pytest.mark.parametrize("seed", range(5))
+    def test_fit_alpha_beta_equals_reference(self, seed):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(0, 6))
+        sizes = rng.choice([1e3, 4e5, 2e6, 3e7, 1e9], n).tolist()
+        samples = [(b, float(rng.uniform(-1e-4, 0.5))) for b in sizes]
+        got, want = tcal.fit_alpha_beta(samples), jcal.fit_alpha_beta(samples)
+        assert got == want
+        for total in (0.0, 1e3, 5e8):
+            assert tcal.comm_scale_from_fit(*got)(total, 0.0) == \
+                jcal.comm_scale_from_fit(*want)(total, 0.0)
+
+    def test_fit_alpha_beta_degenerate_cases(self):
+        for samples in ([], [(1e6, 0.01)], [(1e6, 0.01), (1e6, 0.02)],
+                        [(1e6, 0.02), (2e6, 0.01)]):
+            assert tcal.fit_alpha_beta(samples) == jcal.fit_alpha_beta(samples)
+
+    def test_depth_variants_equal_reference(self):
+        for arch_cfg in (dict(num_layers=2), dict(num_layers=5)):
+            jcfg = jax_get_config(ARCH).reduced(**arch_cfg)
+            tcfg = torch_get_config(ARCH).reduced(**arch_cfg)
+            assert tharness._default_depths(tcfg) == jharness._default_depths(jcfg)
+            for u in (1, 3):
+                j, t = jharness._depth_variant(jcfg, u), tharness._depth_variant(tcfg, u)
+                assert (t.name, t.num_layers, t.num_units) == (j.name, j.num_layers, j.num_units)
+
+    def test_trace_writer_is_byte_identical(self, tmp_path):
+        rng = np.random.default_rng(0)
+        rows = [(i, f"l{i}", *rng.uniform(0, 1e4, 3).tolist(), float(rng.integers(0, 1e9)))
+                for i in range(4)]
+        for batch, bps in ((0, 0.0), (2, 256.0)):
+            jt = jformat.Trace("net", "clu", (tuple(jformat.LayerRecord(*r) for r in rows),) * 2,
+                               batch_per_gpu=batch, bytes_per_sample=bps)
+            tt = tformat.Trace("net", "clu", (tuple(tformat.LayerRecord(*r) for r in rows),) * 2,
+                               batch_per_gpu=batch, bytes_per_sample=bps)
+            jformat.write_trace(jt, tmp_path / "j.trace")
+            tformat.write_trace(tt, tmp_path / "t.trace")
+            assert (tmp_path / "t.trace").read_bytes() == (tmp_path / "j.trace").read_bytes()
+            assert jformat.read_trace(tmp_path / "t.trace") == jt
+
+    def test_trace_rejects_ragged_like_reference(self):
+        a = (tformat.LayerRecord(0, "a", 1, 1, 1, 1),)
+        with pytest.raises(ValueError, match="ragged"):
+            tformat.Trace("n", "c", (a, a + a))
+        with pytest.raises(ValueError):
+            tformat.Trace("n", "c", ())
+
+
+class TestCalibrate:
+    def test_metric_bytes_and_cluster_name(self):
+        assert tcal.METRIC_COLLECTIVE_BYTES == jcal.METRIC_COLLECTIVE_BYTES
+        assert tcal.cluster_name("cuda", "gloo", 2) == "torch-cuda-gloo-x2"
+        assert tcal.cluster_name("cpu", "gloo", 2) == "torch-cpu-gloo-x2"
+
+    def test_full_width_payloads(self):
+        """qwen1.5-4b at its published widths: one unit is 79.3 M
+        parameters (158.6 MB in bf16), embedding + untied head 777.9 M."""
+        cfg = dataclasses.replace(torch_get_config(ARCH), num_layers=2)
+        unit, rest = tcal.grad_payload_bytes(cfg)
+        assert unit / 2 == pytest.approx(79.3e6, rel=1e-3)
+        assert rest / 2 == pytest.approx(777.9e6, rel=1e-3)
+
+
+class TestRunner:
+    def test_smoke_geometry_is_the_reference_preset(self):
+        assert dataclasses.asdict(trun.SMOKE_GEOMETRY) == dataclasses.asdict(jrun.SMOKE_GEOMETRY)
+
+    def test_config_for_published_width_and_reduced(self):
+        full = trun.config_for(ARCH, trun.Geometry(num_layers=2))
+        assert (full.d_model, full.num_heads, full.d_ff, full.vocab_size, full.num_layers) == \
+            (2560, 20, 6912, 151_936, 2)
+        assert full.dtype == torch.bfloat16
+        small = trun.config_for(ARCH, trun.SMOKE_GEOMETRY)
+        assert (small.d_model, small.num_layers, small.dtype) == (128, 4, torch.float32)
+
+    def test_cli_parses_geometry_flags(self):
+        args = trun.build_parser().parse_args(
+            ["--arch", ARCH, "--seq-len", "64", "--devices", "3", "--device", "cpu"])
+        assert (args.seq_len, args.n_devices, args.device, args.num_layers) == \
+            (64, 3, "cpu", None)
+        with pytest.raises(SystemExit):
+            trun.build_parser().parse_args(["--arch", "gemma3-1b"])
+
+    def test_cuda_is_the_default_and_never_falls_back(self):
+        if torch.cuda.is_available():
+            pytest.skip("checks the behaviour without a GPU")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trun.run_measurement(ARCH, "unused", trun.SMOKE_GEOMETRY)
+        assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.fixture(scope="module")
+def smoke_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("measure")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.measure", "--arch", ARCH,
+                        "--smoke", "--device", "cpu", "--out-dir", str(out)],
+                       env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return out, json.loads((out / f"{ARCH}.json").read_text())
+
+
+class TestSmokeMeasurement:
+    def test_trace_reads_back_with_the_layers_and_payloads(self, smoke_run):
+        out, doc = smoke_run
+        trace = jformat.read_trace(out / f"{ARCH}.trace")
+        cfg = trun.config_for(ARCH, trun.SMOKE_GEOMETRY)
+        unit, rest = tcal.grad_payload_bytes(cfg)
+        assert trace.cluster == "torch-cpu-gloo-x2"
+        assert trace.batch_per_gpu == 2 and trace.bytes_per_sample == 8.0 * 32
+        recs = trace.iterations[0]
+        assert [r.name for r in recs] == ["embed_head"] + [f"unit{i}" for i in range(4)]
+        assert [r.size_bytes for r in recs] == [rest] + [unit] * 4
+        assert all(r.forward_us >= 0 and r.backward_us >= 0 and r.comm_us > 0 for r in recs)
+        assert recs[1].forward_us > 0
+
+    def test_json_records_the_run(self, smoke_run):
+        _, doc = smoke_run
+        assert doc["device"] == "cpu" and doc["n_devices"] == 2
+        assert set(doc["policy_times_s"]) == {"at_end", "wfbp", "bucketed"}
+        assert all(t > 0 for t in doc["policy_times_s"].values())
+        losses = list(doc["policy_losses"].values())
+        assert len(losses) == 3 and all(np.isfinite(losses))
+        assert max(losses) - min(losses) < 1e-4 * max(losses)
+        assert doc["t_update_s"] > 0
+        jcfg = jax_get_config(ARCH).reduced(num_layers=4, d_model=128, num_heads=4,
+                                            d_ff=256, vocab_size=512)
+        for pol, chk in doc["bytes_crosscheck"].items():
+            assert chk["counted_bytes"] == chk["expected_bytes"] == \
+                jcal.expected_collective_bytes(jcfg, pol)
+        assert doc["kernel_launches"] == {"flash_fwd": 0, "flash_bwd_delta": 0,
+                                          "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+        lat, bw = doc["allreduce_fit"].values()
+        assert lat >= 0 and bw > 0
+
+    def test_policies_leave_the_same_momentum(self, smoke_run):
+        """The f32 momentum after the timed steps sums the synchronized
+        gradients: every policy leaves the same per-leaf norms (float32 on
+        the CPU, reduced in different orders)."""
+        _, doc = smoke_run
+        norms = doc["policy_momentum_norms"]
+        assert set(norms) == {"at_end", "wfbp", "bucketed"}
+        leaves = list(norms["at_end"])
+        assert "embedding" in leaves and "units/b0/attn/wq" in leaves
+        for leaf in leaves:
+            vals = [norms[pol][leaf] for pol in norms]
+            assert min(vals) > 0 and max(vals) - min(vals) <= 1e-5 * max(vals), leaf
+
+    @pytest.mark.parametrize("policy,method", [("caffe-mpi", "analytical"),
+                                               ("bucketed-25mb", "timeline")])
+    def test_sweep_evaluates_the_trace(self, smoke_run, policy, method):
+        out, _ = smoke_run
+        row = evaluate_scenario(Scenario(f"trace:{out / f'{ARCH}.trace'}",
+                                         "k80-pcie-10gbe", 2, policy))
+        assert row["method"] == method
+        assert np.isfinite(row["iteration_time_s"]) and row["iteration_time_s"] > 0
+
+    def test_sweep_cli_takes_the_trace(self, smoke_run, capsys):
+        from repro.launch.sweep import main
+
+        out, _ = smoke_run
+        rc = main(["--workloads", f"trace:{out / f'{ARCH}.trace'}", "--clusters",
+                   "k80-pcie-10gbe", "--workers", "2,4", "--policies",
+                   "caffe-mpi,bucketed-25mb"])
+        assert rc == 0
+        assert "trace:" in capsys.readouterr().out
