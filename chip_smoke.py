@@ -3,22 +3,31 @@
 Phases, in order; any failure ends the script with a non-zero code:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the flash-attention kernels from ``src/repro_torch/csrc``;
-3. hold every kernel (forward, delta, dq, dk/dv) against its plain
-   PyTorch version on the card, element by element, at the slice's shape
-   and at a GQA + window (hd 256) shape in bfloat16 and in float32, and at
-   a ragged and two more float32 shapes; hold the differentiable
-   attention against autograd through ``ref.attention``; hold a reduced
-   qwen1.5-4b's loss and gradients on the card (through the kernels)
-   against the same model on the CPU (plain versions);
+2. build every kernel library from ``src/repro_torch/csrc`` (flash
+   attention and RG-LRU, one ``nvcc`` each, at once);
+3. hold every flash kernel (forward, delta, dq, dk/dv) against its plain
+   PyTorch version on the card, element by element, at qwen1.5-4b's
+   shape, at recurrentgemma-2b's local-attention shape (hd 256, one KV
+   head) and at a GQA + window (hd 256) shape in bfloat16 and in float32,
+   and at a ragged and two more float32 shapes; hold the differentiable
+   attention against autograd through ``ref.attention``; hold the RG-LRU
+   forward against its plain version and its backward against autograd
+   through ``ref.rglru``, at recurrentgemma-2b's shape in bfloat16 and
+   float32, at a ragged shape with a carried state and where sigmoid(r) ~ 0;
+   hold a reduced qwen1.5-4b's and a reduced recurrentgemma-2b's loss and
+   gradients on the card (through the kernels) against the same model on
+   the CPU (plain versions);
 4. time each kernel, its plain version, its bound and the PyTorch library
    call that computes the same function (``scaled_dot_product_attention``
-   and its backward, timed here only and never called by the port);
-5. run ``repro_torch.measure`` for qwen1.5-4b at its published widths
-   (depth cut to 2 units) with 2 gloo ranks on the card and all three sync
-   policies, check the written trace, the counted all-reduce bytes and
-   that the three policies leave the same momentum;
-6. check that every kernel's launch counter rose during that run;
+   and its backward, timed here only and never called by the port; none
+   for the RG-LRU scan), at the main paths' shapes;
+5. run ``repro_torch.measure`` for qwen1.5-4b (2 units) and for
+   recurrentgemma-2b (one RRL unit) at their published widths with 2 gloo
+   ranks on the card and all three sync policies; check each written
+   trace, the counted all-reduce bytes and that the three policies leave
+   the same momentum;
+6. check that every kernel of each path launched during its run (the
+   counters are set to 0 before each);
 7. print the ``kernels`` line, then the ``ok`` line last.
 
 It imports nothing of JAX and nothing of the reference package ``repro``.
@@ -63,10 +72,14 @@ AUTOGRAD_BF16_LIMIT = (1e-2, 1e-1)
 #: gradient instead of the mean over both shards.
 MOMENTUM_RTOL = 1e-2
 
-# The slice's attention shape: qwen1.5-4b at batch_per_gpu 2, seq 1024.
+# The main paths' attention shapes at batch_per_gpu 2, seq 1024: qwen1.5-4b's
+# G blocks, and recurrentgemma-2b's L blocks (window 2048 >= S: causal only).
 SLICE = dict(B=2, S=1024, H=20, K=20, hd=128, window=None, dtype=torch.bfloat16)
+L_BLOCK = dict(B=2, S=1024, H=10, K=1, hd=256, window=2048, dtype=torch.bfloat16)
 CHECK_SHAPES = [
     ("slice", SLICE),
+    ("l_block", L_BLOCK),
+    ("f32_l_block", dict(L_BLOCK, dtype=torch.float32)),
     ("gqa_window", dict(B=1, S=2048, H=4, K=1, hd=256, window=512, dtype=torch.bfloat16)),
     ("ragged", dict(B=2, S=1000, H=8, K=4, hd=128, window=None, dtype=torch.bfloat16)),
     ("f32_slice", dict(SLICE, dtype=torch.float32)),
@@ -74,9 +87,28 @@ CHECK_SHAPES = [
     ("f32_hd64", dict(B=2, S=512, H=4, K=2, hd=64, window=100, dtype=torch.float32)),
     ("f32_hd32_ragged", dict(B=1, S=300, H=2, K=1, hd=32, window=32, dtype=torch.float32)),
 ]
-MEASURE_ARGS = ["--arch", "qwen1.5-4b", "--seq-len", "1024", "--batch-per-gpu", "2",
-                "--num-layers", "2", "--devices", "2", "--repeats", "3",
-                "--step-iters", "3"]
+# recurrentgemma-2b's RG-LRU shape at batch_per_gpu 2, seq 1024 (W = rnn_width).
+RGLRU_SLICE = dict(B=2, S=1024, W=2560, dtype=torch.bfloat16)
+RGLRU_SHAPES = [
+    ("slice", RGLRU_SLICE),
+    ("f32_slice", dict(RGLRU_SLICE, dtype=torch.float32)),
+    ("f32_ragged_h0", dict(B=2, S=1000, W=200, dtype=torch.float32, h0=True)),
+    ("f32_a_near_1", dict(B=2, S=1024, W=256, dtype=torch.float32, h0=True, r_shift=-40.0)),
+]
+_COMMON = ["--seq-len", "1024", "--batch-per-gpu", "2", "--devices", "2", "--repeats", "3",
+           "--step-iters", "3"]
+#: The main paths, each run with the kernel counters set to 0 just before:
+#: arch -> (CLI arguments, the kernels its run must launch).
+MAIN_PATHS = {
+    "qwen1.5-4b": (["--arch", "qwen1.5-4b", "--num-layers", "2", *_COMMON],
+                   ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
+    "recurrentgemma-2b": (["--arch", "recurrentgemma-2b", "--num-layers", "3", *_COMMON],
+                          ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv",
+                           "rglru_fwd", "rglru_bwd")),
+}
+#: kernel module -> the TPU kernel its kernels replace (file:line)
+REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:35",
+            "rglru": "src/repro/kernels/rglru.py:30"}
 
 
 def phase(name):
@@ -116,6 +148,18 @@ def close(got: torch.Tensor, want: torch.Tensor, rtol: float,
     return float(err.max()), rms, need, float((err / limit).max())
 
 
+def report(label: str, name: str, got, want, rtol: float, atol: float) -> bool:
+    """Print one comparison; True when every entry is finite and within
+    its limit."""
+    err, rms, need, ratio = close(got, want, rtol, atol)
+    ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
+    print(f"  {label:15s} {name:15s} {str(got.dtype)[6:]:8s} max_abs_err "
+          f"{err:.3e} rms {rms:.3e} atol needed {need:.2e} rms; "
+          f"{ratio:.3f} of limit (rtol {rtol:.0e}, atol {atol:.0e} rms)"
+          f"{'' if ok else '  FAIL'}", flush=True)
+    return ok
+
+
 # ----------------------------------------------------------------------
 # 3. correctness against the plain versions
 # ----------------------------------------------------------------------
@@ -142,23 +186,19 @@ def check_kernels() -> dict:
                  "flash_bwd_delta": [(delta, p_delta)],
                  "flash_bwd_dq": [(dq, p_dq)],
                  "flash_bwd_dkdv": [(dk, p_dk), (dv, p_dv)]}
-        if label in ("slice", "gqa_window", "f32_slice", "f32_gqa_window"):
+        if label in ("slice", "l_block", "gqa_window", "f32_slice", "f32_l_block",
+                     "f32_gqa_window"):
             pairs["autograd_vs_ref"] = list(zip(*autograd_vs_ref(q, k, v, do, window)))
         for name, items in pairs.items():
             for got, want in items:
                 # lse and delta are float32 outputs of float32 math
                 rtol, atol = AUTOGRAD_BF16_LIMIT if name == "autograd_vs_ref" and \
                     dt == torch.bfloat16 else LIMITS[got.dtype]
-                err, rms, need, ratio = close(got, want, rtol, atol)
-                ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
-                print(f"  {label:15s} {name:15s} {str(got.dtype)[6:]:8s} max_abs_err "
-                      f"{err:.3e} rms {rms:.3e} atol needed {need:.2e} rms; "
-                      f"{ratio:.3f} of limit (rtol {rtol:.0e}, atol {atol:.0e} rms)"
-                      f"{'' if ok else '  FAIL'}", flush=True)
-                if not ok:
+                if not report(label, name, got, want, rtol, atol):
                     failed.append(f"{name} at {label}")
                 if label == "slice" and name in fa.LAUNCHES:
-                    worst[name] = max(worst.get(name, 0.0), err)
+                    worst[name] = max(worst.get(name, 0.0),
+                                      float((got.float() - want.float()).abs().max()))
         del q, k, v, do, o, lse, delta, dq, dk, dv, pairs
         torch.cuda.empty_cache()
     if failed:
@@ -182,41 +222,107 @@ def autograd_vs_ref(q, k, v, do, window):
     return got, want
 
 
+def rglru_inputs(B, S, W, dtype, h0=False, r_shift=0.0, seed=0, **_):
+    """x, r, i, dout (B, S, W) in ``dtype``; lam = linspace(0.1, 2, W) as
+    the model's init; h0 and dh_last (B, W) f32 (h0 None unless asked)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, r, i, dout = (torch.randn(B, S, W, generator=g, device="cuda") for _ in range(4))
+    lam = torch.linspace(0.1, 2.0, W, device="cuda")
+    h_0 = torch.randn(B, W, generator=g, device="cuda") if h0 else None
+    dh_last = torch.randn(B, W, generator=g, device="cuda")
+    return (x.to(dtype), (r + r_shift).to(dtype), i.to(dtype), lam, h_0, dout.to(dtype),
+            dh_last)
+
+
+@phase("rglru kernels vs plain")
+def check_rglru() -> dict:
+    """``rglru_fwd`` (out, h_last, the f32 states) against the plain
+    forward, and ``rglru_bwd`` (dx, dr, di, dlam, dh0) against autograd
+    through ``ref.rglru`` on the same inputs, element by element with
+    ``LIMITS`` by each output's dtype (the scan is float32 math on both
+    sides; bf16 outputs round once)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru as rg
+
+    worst: dict[str, float] = {}
+    failed: list[str] = []
+    for label, shp in RGLRU_SHAPES:
+        x, r, i, lam, h0, dout, dh_last = rglru_inputs(**shp)
+        out, h_last, states = rg.fwd(x, r, i, lam, h0, save_states=True)
+        got_bwd = rg.bwd(x, r, i, lam, h0, states, dout, dh_last)
+        torch.cuda.synchronize()
+        p_out, p_h, p_states = rg.plain_fwd(x, r, i, lam, h0, save_states=True)
+        leaves = [t.detach().requires_grad_() for t in (x, r, i, lam)]
+        if h0 is not None:
+            leaves.append(h0.detach().requires_grad_())
+        o, h = ref.rglru(*leaves[:4], leaves[4] if h0 is not None else None)
+        want_bwd = torch.autograd.grad((o, h), leaves, (dout, dh_last))
+        pairs = {"rglru_fwd": [(out, p_out), (h_last, p_h), (states, p_states)],
+                 "rglru_bwd": list(zip(got_bwd, want_bwd))}
+        for name, items in pairs.items():
+            for got, want in items:
+                if not report(label, name, got, want, *LIMITS[got.dtype]):
+                    failed.append(f"{name} at {label}")
+                if label == "slice":
+                    worst[name] = max(worst.get(name, 0.0),
+                                      float((got.float() - want.float()).abs().max()))
+        del x, r, i, dout, out, states, got_bwd, p_out, p_states, leaves, o, want_bwd, pairs
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"RG-LRU kernels disagree with their plain versions: {failed}")
+    return worst
+
+
+#: reduced models of the model check: arch -> (depth, kernel -> launches
+#: per unit in one forward)
+MODEL_CHECKS = {"qwen1.5-4b": (2, {"flash_fwd": 1}),
+                "recurrentgemma-2b": (3, {"flash_fwd": 1, "rglru_fwd": 2})}
+
+
 @phase("model on the card vs the CPU")
 def check_model() -> None:
-    """Reduced qwen1.5-4b (float32, 2 layers, head dim 64): loss and every
-    gradient leaf through the kernels on the card against the plain
-    versions on the CPU, from the same parameters and batch.  Tolerance
-    1e-4 of each leaf's scale: both sides are float32 (TF32 off), summed
-    in different orders."""
+    """Reduced qwen1.5-4b (float32, 2 layers, head dim 64) and reduced
+    recurrentgemma-2b (float32, RRL, rnn width 256, window 64 under 256
+    tokens): loss and every gradient leaf through the kernels on the card
+    against the plain versions on the CPU, from the same parameters and
+    batch.  Tolerance 1e-4 of each leaf's scale: both sides are float32
+    (TF32 off), summed in different orders."""
+    from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("qwen1.5-4b").reduced(num_layers=2)
-    g = torch.Generator().manual_seed(0)
-    tokens, labels = (torch.randint(0, cfg.vocab_size, (2, 256), generator=g)
-                      for _ in range(2))
-    params = T.init_lm(cfg, seed=0)
-    results = []
-    for dev in ("cpu", "cuda"):
-        p = T.map_leaves(lambda _, t: t.to(dev).requires_grad_(), params)
-        leaves = [t for _, t in T.leaf_order(p)]
-        before = fa.LAUNCHES["flash_fwd"]
-        loss = T.loss_fn(cfg, p, tokens.to(dev), labels.to(dev))[0]
-        grads = torch.autograd.grad(loss, leaves)
-        results.append((float(loss.detach()), [gr.cpu() for gr in grads]))
-        if dev == "cuda" and fa.LAUNCHES["flash_fwd"] - before != cfg.num_units:
-            raise SystemExit("the model on the card did not go through flash_fwd")
-    (l_cpu, g_cpu), (l_gpu, g_gpu) = results
-    worst = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-6)
-                for a, b in zip(g_cpu, g_gpu))
-    print(f"  loss cpu {l_cpu:.6f} card {l_gpu:.6f}; worst gradient leaf "
-          f"error {worst:.3e} of its scale (tol 1e-4)", flush=True)
-    if not (math.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)) \
-            or worst > 1e-4:
-        raise SystemExit("model on the card disagrees with the CPU")
+    failed = []
+    for arch, (depth, per_unit) in MODEL_CHECKS.items():
+        cfg = get_config(arch).reduced(num_layers=depth)
+        g = torch.Generator().manual_seed(0)
+        tokens, labels = (torch.randint(0, cfg.vocab_size, (2, 256), generator=g)
+                          for _ in range(2))
+        params = T.init_lm(cfg, seed=0)
+        results = []
+        for dev in ("cpu", "cuda"):
+            p = T.map_leaves(lambda _, t: t.to(dev).requires_grad_(), params)
+            leaves = [t for _, t in T.leaf_order(p)]
+            before = kernels.all_launches()
+            loss = T.loss_fn(cfg, p, tokens.to(dev), labels.to(dev))[0]
+            launched = {k: n - before[k] for k, n in kernels.all_launches().items()}
+            grads = torch.autograd.grad(loss, leaves)
+            results.append((float(loss.detach()), [gr.cpu() for gr in grads]))
+            want = {k: n * cfg.num_units for k, n in per_unit.items()}
+            if dev == "cuda" and any(launched[k] != n for k, n in want.items()):
+                raise SystemExit(f"{arch} on the card: forward launches {launched}, "
+                                 f"want {want}")
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = results
+        worst, leaf = max((float((a - b).abs().max()) / max(float(a.abs().max()), 1e-6),
+                           "/".join(path))
+                          for (path, _), a, b in zip(T.leaf_order(params), g_cpu, g_gpu))
+        print(f"  {arch}: loss cpu {l_cpu:.6f} card {l_gpu:.6f}; worst gradient leaf "
+              f"{leaf} error {worst:.3e} of its scale (tol 1e-4)", flush=True)
+        if not (math.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)) \
+                or worst > 1e-4:
+            failed.append(arch)
+    if failed:
+        raise SystemExit(f"model on the card disagrees with the CPU: {failed}")
 
 
 # ----------------------------------------------------------------------
@@ -261,13 +367,39 @@ def bounds(B, S, H, K, hd, window, dtype, **_) -> dict:
     return out
 
 
+def rglru_bounds(B, S, W, dtype, **_) -> dict:
+    """Least time per RG-LRU kernel at this shape, as on the main path (no
+    h0; the forward saves the f32 states; autograd hands the backward a
+    zero dh_last): bytes count each input read once and each output
+    written once; operations are the scan's float32 arithmetic per element
+    and step (21 forward, 38 backward, counted from the kernels) at the
+    CUDA cores' float32 rate."""
+    n, es = B * S * W, torch.finfo(dtype).bits // 8
+    work = {  # name: (float32 operations, bytes)
+        "rglru_fwd": (21 * n, 3 * n * es + W * 4 + n * es + B * W * 4 + n * 4),
+        "rglru_bwd": (38 * n, 4 * n * es + W * 4 + n * 4 + B * W * 4 + 3 * n * es + W * 4
+                      + B * W * 4),
+    }
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+    return out
+
+
 def library_times(q, k, v, o, do) -> dict:
     """scaled_dot_product_attention forward, its flash backward (one call
     giving dq, dk, dv), and ``torch.linalg.vecdot`` for delta (rowsum(dO *
     O), (B, S, H) in bf16 where the kernel writes (B, H, S) in f32), on the
-    slice's inputs; (B, H, S, hd) views for SDPA."""
+    same inputs; (B, H, S, hd) views for SDPA, with k and v expanded to the
+    H query heads beforehand where K < H (the library's flash kernels take
+    equal head counts)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.ref import repeat_kv
+
+    H, K = q.shape[2], k.shape[2]
+    k, v = repeat_kv(k, H // K).contiguous(), repeat_kv(v, H // K).contiguous()
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     out = {"flash_fwd": time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True)),
@@ -283,21 +415,26 @@ def library_times(q, k, v, o, do) -> dict:
     return out
 
 
-@phase("timing")
-def time_kernels() -> dict:
+def print_row(label: str, name: str, row: dict) -> None:
+    print(f"  {label:8s} {name:16s} " + " ".join(
+        f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
+        for key, val in row.items()), flush=True)
+
+
+def time_flash(shp: dict, label: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
-    shp = SLICE
     q, k, v, do = make_inputs(**shp, seed=1)
-    o, lse = fa.fwd(q, k, v)
+    w = shp["window"]
+    o, lse = fa.fwd(q, k, v, True, w)
     delta = fa.bwd_delta(o, do)
     runs = {
-        "flash_fwd": (lambda: fa.fwd(q, k, v), lambda: fa.plain_fwd(q, k, v)),
+        "flash_fwd": (lambda: fa.fwd(q, k, v, True, w), lambda: fa.plain_fwd(q, k, v, True, w)),
         "flash_bwd_delta": (lambda: fa.bwd_delta(o, do), lambda: fa.plain_bwd_delta(o, do)),
-        "flash_bwd_dq": (lambda: fa.bwd_dq(q, k, v, do, lse, delta),
-                         lambda: fa.plain_bwd(q, k, v, do, lse, delta)),
-        "flash_bwd_dkdv": (lambda: fa.bwd_dkdv(q, k, v, do, lse, delta),
-                           lambda: fa.plain_bwd(q, k, v, do, lse, delta)),
+        "flash_bwd_dq": (lambda: fa.bwd_dq(q, k, v, do, lse, delta, True, w),
+                         lambda: fa.plain_bwd(q, k, v, do, lse, delta, True, w)),
+        "flash_bwd_dkdv": (lambda: fa.bwd_dkdv(q, k, v, do, lse, delta, True, w),
+                           lambda: fa.plain_bwd(q, k, v, do, lse, delta, True, w)),
     }
     bnd = bounds(**shp)
     lib = library_times(q, k, v, o, do)
@@ -306,29 +443,65 @@ def time_kernels() -> dict:
         out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
                      "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
                      "library_ms": lib.get(name)}
-        print(f"  {name:16s} " + " ".join(
-            f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
-            for key, val in out[name].items()), flush=True)
+        print_row(label, name, out[name])
+    del q, k, v, do, o, lse, delta, runs
+    torch.cuda.empty_cache()
     return out
+
+
+def time_rglru(shp: dict, label: str) -> dict:
+    """No single PyTorch call computes a gated linear recurrence, so there
+    is no library time."""
+    from repro_torch.kernels import rglru as rg
+
+    x, r, i, lam, _, dout, dh_last = rglru_inputs(**shp, seed=1)
+    _, _, states = rg.fwd(x, r, i, lam, None, save_states=True)
+    dh_last = torch.zeros_like(dh_last)
+    runs = {
+        "rglru_fwd": (lambda: rg.fwd(x, r, i, lam, None, save_states=True),
+                      lambda: rg.plain_fwd(x, r, i, lam, None, save_states=True)),
+        "rglru_bwd": (lambda: rg.bwd(x, r, i, lam, None, states, dout, dh_last),
+                      lambda: rg.plain_bwd(x, r, i, lam, None, states, dout, dh_last)),
+    }
+    bnd = rglru_bounds(**shp)
+    out = {}
+    for name, (kern, plain) in runs.items():
+        out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=3, warmup=1),
+                     "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": None}
+        print_row(label, name, out[name])
+    return out
+
+
+@phase("timing")
+def time_kernels() -> dict:
+    """Each kernel at its main path's shape (the kernels line); the flash
+    kernels also at recurrentgemma-2b's local-attention shape (printed
+    rows of their own)."""
+    timing = {**time_flash(SLICE, "slice"), **time_rglru(RGLRU_SLICE, "slice")}
+    time_flash(L_BLOCK, "l_block")
+    return timing
 
 
 # ----------------------------------------------------------------------
 # 5-6. the main path: the measurement loop through the kernels
 # ----------------------------------------------------------------------
-@phase("measure qwen1.5-4b")
-def run_measure() -> dict:
-    from repro_torch.kernels import flash_attention as fa
+def run_measure(arch: str, args: list[str]) -> dict:
+    from repro_torch import kernels
     from repro_torch.measure.run import main as measure_main
 
-    with tempfile.TemporaryDirectory() as tmp:
-        fa.reset_launches()
-        rc = measure_main(MEASURE_ARGS + ["--out-dir", tmp])
-        if rc != 0:
-            raise SystemExit(f"repro_torch.measure exited {rc}")
-        doc = json.loads((Path(tmp) / "qwen1.5-4b.json").read_text())
-        trace_text = (Path(tmp) / "qwen1.5-4b.trace").read_text()
-    check_measurement(doc, trace_text)
-    return doc
+    @phase(f"measure {arch}")
+    def run() -> dict:
+        with tempfile.TemporaryDirectory() as tmp:
+            kernels.reset_launches()
+            rc = measure_main(args + ["--out-dir", tmp])
+            if rc != 0:
+                raise SystemExit(f"repro_torch.measure exited {rc}")
+            doc = json.loads((Path(tmp) / f"{arch}.json").read_text())
+            trace_text = (Path(tmp) / f"{arch}.trace").read_text()
+        check_measurement(doc, trace_text)
+        return doc
+
+    return run()
 
 
 def check_measurement(doc: dict, trace_text: str) -> None:
@@ -380,7 +553,7 @@ def check_measurement(doc: dict, trace_text: str) -> None:
 
 def main() -> int:
     # the port first: without it (the script alone) nothing is printed
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch import kernels
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -389,24 +562,27 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    phase("build kernels")(fa.load_library)()
-    worst = check_kernels()
+    phase("build kernels")(kernels.load_libraries)()
+    worst = {**check_kernels(), **check_rglru()}
     check_model()
     timing = time_kernels()
-    doc = run_measure()
 
-    launches = doc["kernel_launches"]
-    missing = [name for name in fa.LAUNCHES if launches.get(name, 0) <= 0]
-    if missing:
-        raise SystemExit(f"kernels not launched on the main path: {missing}")
-    replaces = "src/repro/kernels/flash_attention.py:35"
-    kernels = [{"name": name, "route": "cuda",
-                "source": "src/repro_torch/csrc/flash_attention.cu",
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": worst[name], **timing[name]} for name in fa.LAUNCHES]
+    launches: dict[str, int] = {}
+    for arch, (args, must) in MAIN_PATHS.items():
+        counts = run_measure(arch, args)["kernel_launches"]
+        print(f"  {arch}: launches {counts}", flush=True)
+        missing = [name for name in must if counts.get(name, 0) <= 0]
+        if missing:
+            raise SystemExit(f"kernels not launched on the {arch} path: {missing}")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),
+             "replaces": REPLACES[mod.__name__.rsplit(".", 1)[1]], "launches": launches[name],
+             "max_abs_err": worst[name], **timing[name]}
+            for mod in kernels.kernel_modules() for name in mod.LAUNCHES]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,8 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
 _flash_kernel`` (Pallas, forward only).  The kernels live in
 ``repro_torch/csrc/flash_attention.cu``: built at first use with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` and launched on PyTorch's current stream.  The source's header
+``ctypes`` and launched on PyTorch's current stream
+(:mod:`repro_torch.kernels.build`).  The source's header
 says what bounds them on the card and what the design does about it.
 
 Four wrappers, one per kernel, each with a launch counter in
@@ -26,21 +27,17 @@ the differentiable entry point (:class:`FlashAttention`).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import DTYPE_CODE, check_same, load, raise_on, stream
 from repro_torch.kernels.ref import NEG_INF, repeat_kv
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches per kernel name, counted by the wrappers where they
 #: launch (plain-version calls on the CPU are not counted).
@@ -54,47 +51,10 @@ def reset_launches() -> None:
 
 
 # ----------------------------------------------------------------------
-# Build and load
+# Load
 # ----------------------------------------------------------------------
-#: ``build/kernels`` at the checkout root (listed in ``.gitignore``).
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
-                           "the flash-attention kernels cannot be built")
-    return str(path)
-
-
 _lib = None
 _lib_lock = threading.Lock()
-
-
-def build() -> Path:
-    """Compile the kernels (if the library for this source is not built
-    yet) and return the library's path.  The name carries the source's
-    hash, and the library is written under a temporary name and renamed,
-    so a stale or half-written build is never loaded."""
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"flash_attention-{digest}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / f"flash_attention-{digest}.log").write_text(r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={r.returncode}):\n{r.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
 
 
 def load_library() -> ctypes.CDLL:
@@ -102,17 +62,13 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
-            lib.flash_bwd_delta.argtypes = [p, p, p, i, i, i, i, i, p]
-            lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
-            lib.flash_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f,
-                                           i, p]
-            for fn in (lib.flash_fwd, lib.flash_bwd_delta, lib.flash_bwd_dq,
-                       lib.flash_bwd_dkdv):
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(SOURCE, {
+                "flash_fwd": [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p],
+                "flash_bwd_delta": [p, p, p, i, i, i, i, i, p],
+                "flash_bwd_dq": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p],
+                "flash_bwd_dkdv": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p],
+            })
         return _lib
 
 
@@ -132,33 +88,13 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"H={H} not a multiple of K={k.shape[2]}")
     if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
-    _check_same(q, k, v)
-
-
-def _check_same(*ts: torch.Tensor) -> None:
-    dt, dev = ts[0].dtype, ts[0].device
-    if dt not in _DTYPE_CODE:
-        raise ValueError(f"dtype {dt} not supported (float32 or bfloat16)")
-    for t in ts:
-        if t.dtype != dt or t.device != dev:
-            raise ValueError("inputs must share one dtype and one device")
-        if not t.is_contiguous():
-            raise ValueError("inputs must be contiguous")
+    check_same(q, k, v)
 
 
 def _window_arg(window: int | None) -> int:
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     return 0 if window is None else int(window)
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 # ----------------------------------------------------------------------
@@ -236,9 +172,9 @@ def fwd(q, k, v, causal=True, window=None):
     err = load_library().flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, S, H, k.shape[2], hd, int(causal), w, 1.0 / math.sqrt(hd),
-        _DTYPE_CODE[q.dtype], _stream())
+        DTYPE_CODE[q.dtype], stream())
     LAUNCHES["flash_fwd"] += 1
-    _raise_on(err, "flash_fwd")
+    raise_on(err, "flash_fwd")
     return o, lse
 
 
@@ -246,21 +182,21 @@ def bwd_delta(o, do):
     """delta (B, H, S) f32.  ``flash_bwd_delta`` on CUDA tensors."""
     if o.dim() != 4 or o.shape != do.shape:
         raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must match")
-    _check_same(o, do)
+    check_same(o, do)
     if not o.is_cuda:
         return plain_bwd_delta(o, do)
     B, S, H, hd = o.shape
     delta = torch.empty(B, H, S, dtype=torch.float32, device=o.device)
     err = load_library().flash_bwd_delta(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                                         B, S, H, hd, _DTYPE_CODE[o.dtype], _stream())
+                                         B, S, H, hd, DTYPE_CODE[o.dtype], stream())
     LAUNCHES["flash_bwd_delta"] += 1
-    _raise_on(err, "flash_bwd_delta")
+    raise_on(err, "flash_bwd_delta")
     return delta
 
 
 def _check_bwd(q, k, v, do, lse, delta):
     check_inputs(q, k, v)
-    _check_same(q, do)
+    check_same(q, do)
     if do.shape != q.shape:
         raise ValueError("dO must have q's shape")
     B, S, H, _ = q.shape
@@ -281,9 +217,9 @@ def bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
     err = load_library().flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), B, S, H, k.shape[2], hd, int(causal), w,
-        1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _stream())
+        1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
     LAUNCHES["flash_bwd_dq"] += 1
-    _raise_on(err, "flash_bwd_dq")
+    raise_on(err, "flash_bwd_dq")
     return dq
 
 
@@ -299,9 +235,9 @@ def bwd_dkdv(q, k, v, do, lse, delta, causal=True, window=None):
     err = load_library().flash_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
-        int(causal), w, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _stream())
+        int(causal), w, 1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
     LAUNCHES["flash_bwd_dkdv"] += 1
-    _raise_on(err, "flash_bwd_dkdv")
+    raise_on(err, "flash_bwd_dkdv")
     return dk, dv
 
 

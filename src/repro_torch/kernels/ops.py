@@ -3,28 +3,34 @@
 Counterpart of :mod:`repro.kernels.ops`.  ``impl``:
   * ``"ref"``    — plain PyTorch oracle (:mod:`repro_torch.kernels.ref`)
   * ``"kernel"`` — the Hopper kernels (:mod:`repro_torch.kernels.
-    flash_attention`); on CPU tensors their plain versions
+    flash_attention`, :mod:`repro_torch.kernels.rglru`); on CPU tensors
+    their plain versions
   * ``"auto"``   — ``kernel`` for CUDA tensors, ``ref`` for CPU tensors
 
-The reference's TPU gates (``S % 128``, ``hd % 128``) are not carried
-over: on CUDA a case the kernel does not take raises, it never quietly
-takes ``ref``.
+The reference's TPU gates (``S % 128``, ``hd % 128``, ``W % 128``) are not
+carried over: the kernels mask ragged edges, and on CUDA a case a kernel
+does not take raises, it never quietly takes ``ref``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as rg
 
 IMPLS = ("auto", "ref", "kernel")
 
 
-def attention(q, k, v, *, q_positions=None, kv_positions=None, causal=True,
-              window=None, impl: str = "auto"):
+def _resolve(impl: str, t) -> str:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
     if impl == "auto":
-        impl = "kernel" if q.is_cuda else "ref"
-    if impl == "ref":
+        return "kernel" if t.is_cuda else "ref"
+    return impl
+
+
+def attention(q, k, v, *, q_positions=None, kv_positions=None, causal=True,
+              window=None, impl: str = "auto"):
+    if _resolve(impl, q) == "ref":
         return ref.attention(q, k, v, q_positions=q_positions,
                              kv_positions=kv_positions, causal=causal,
                              window=window)
@@ -32,3 +38,10 @@ def attention(q, k, v, *, q_positions=None, kv_positions=None, causal=True,
         raise ValueError("the attention kernel takes aligned self-attention "
                          "positions only (pass none)")
     return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rglru(x, r_gate, i_gate, lam, h0=None, impl: str = "auto"):
+    """(out (B, S, W) in x's dtype, h_final (B, W) f32)."""
+    if _resolve(impl, x) == "ref":
+        return ref.rglru(x, r_gate, i_gate, lam, h0=h0)
+    return rg.rglru(x, r_gate, i_gate, lam, h0)

@@ -1,10 +1,11 @@
-"""Plain PyTorch oracle for the attention kernel.
+"""Plain PyTorch oracles for the kernels.
 
-Counterpart of :func:`repro.kernels.ref.repeat_kv` and
-:func:`repro.kernels.ref.attention`: the default implementation on the
-CPU, and the plain version the kernels in
-:mod:`repro_torch.kernels.flash_attention` are held against on the card.
-Its backward is autograd's.
+Counterpart of :func:`repro.kernels.ref.repeat_kv`,
+:func:`repro.kernels.ref.attention` and :func:`repro.kernels.ref.rglru`:
+the default implementation on the CPU, and the plain versions the kernels
+in :mod:`repro_torch.kernels.flash_attention` and
+:mod:`repro_torch.kernels.rglru` are held against on the card.  Their
+backward is autograd's.
 """
 from __future__ import annotations
 
@@ -46,3 +47,43 @@ def attention(q, k, v, *, q_positions=None, kv_positions=None,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", probs, v.float())
     return out.to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# RG-LRU (RecurrentGemma / Griffin):
+#   a_t = exp(-c * softplus(Lambda) * sigmoid(r_t))
+#   h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (sigmoid(i_t) * x_t)
+# x, r_gate, i_gate: (B, S, W); lam: (W,); h: (B, W).
+# ----------------------------------------------------------------------
+RGLRU_C = 8.0
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as ``jax.nn.softplus`` (``logaddexp(x, 0)``), with no
+    threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def rglru_states(x, r_gate, i_gate, lam, h0=None):
+    """(every state h_t as (B, S, W) f32, the last state (B, W) f32): the
+    reference's f32 scan over time."""
+    B, S, W = x.shape
+    h = torch.zeros(B, W, dtype=torch.float32, device=x.device) if h0 is None \
+        else h0.float()
+    log_a_base = -RGLRU_C * softplus(lam.float())
+    xs, rs, gs = (t.float() for t in (x, r_gate, i_gate))
+    states = []
+    for t in range(S):
+        log_a = log_a_base * torch.sigmoid(rs[:, t])
+        a = torch.exp(log_a)
+        gated = torch.sigmoid(gs[:, t]) * xs[:, t]
+        mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+        h = a * h + mult * gated
+        states.append(h)
+    return torch.stack(states, dim=1), h
+
+
+def rglru(x, r_gate, i_gate, lam, h0=None):
+    """(out (B, S, W) in x's dtype, h_final (B, W) f32)."""
+    states, h = rglru_states(x, r_gate, i_gate, lam, h0)
+    return states.to(x.dtype), h

@@ -31,7 +31,7 @@ import torch.distributed as dist
 
 from repro_torch.comm.ddp import make_ddp_train_step
 from repro_torch.comm.sync import DEFAULT_BUCKET_BYTES, Comm
-from repro_torch.kernels import flash_attention as fa
+from repro_torch import kernels
 from repro_torch.measure.calibrate import cluster_name, grad_payload_bytes
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
@@ -273,7 +273,7 @@ def measure_model(cfg: ModelConfig, *, device: torch.device, arch: str = "",
     t_start = time.perf_counter()
     rank, world = dist.get_rank(), dist.get_world_size()
     depths = depths or _default_depths(cfg)
-    fa.reset_launches()
+    kernels.reset_launches()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -310,7 +310,8 @@ def measure_model(cfg: ModelConfig, *, device: torch.device, arch: str = "",
         if nbytes > 0 and t > 0:
             samples.append((nbytes, t))
 
-    launches = torch.tensor([fa.LAUNCHES[n] for n in fa.LAUNCHES], dtype=torch.int64)
+    counts = kernels.all_launches()
+    launches = torch.tensor(list(counts.values()), dtype=torch.int64)
     dist.all_reduce(launches)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     # rank 0's numbers to every rank
@@ -344,5 +345,5 @@ def measure_model(cfg: ModelConfig, *, device: torch.device, arch: str = "",
         counted_bytes=counted,
         t_update_s=t_update, allreduce_samples=samples,
         unit_grad_bytes=unit_bytes, rest_grad_bytes=rest_bytes,
-        kernel_launches=dict(zip(fa.LAUNCHES, (int(x) for x in launches))),
+        kernel_launches=dict(zip(counts, (int(x) for x in launches))),
         peak_memory_bytes=int(peak), elapsed_s=time.perf_counter() - t_start)

@@ -13,7 +13,8 @@ artifacts into the output directory:
   their cross-check, the alpha-beta fit, segmentation, kernel launches.
 
 By default the model is the arch at its published widths with the depth
-cut to ``--num-layers`` (the slice measures qwen1.5-4b so); giving any of
+cut to ``--num-layers`` (default: one whole layer pattern and at least two
+layers; qwen1.5-4b and recurrentgemma-2b are measured so); giving any of
 ``--d-model``, ``--num-heads``, ``--d-ff`` or ``--vocab-size`` measures a
 ``reduced()`` variant instead, and ``--smoke`` picks the reference's tiny
 CI preset.  The ranks share one device: the backend is gloo, which also
@@ -33,7 +34,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-MEASURABLE_ARCHS = ("qwen1.5-4b",)
+MEASURABLE_ARCHS = ("qwen1.5-4b", "recurrentgemma-2b")
 BACKEND = "gloo"
 
 _WIDTHS = ("d_model", "num_heads", "d_ff", "vocab_size")
@@ -42,9 +43,9 @@ _WIDTHS = ("d_model", "num_heads", "d_ff", "vocab_size")
 @dataclasses.dataclass(frozen=True)
 class Geometry:
     """Model and measurement geometry; widths left None are the arch's
-    published ones."""
+    published ones, and ``num_layers`` None is :func:`default_num_layers`."""
 
-    num_layers: int = 2
+    num_layers: int | None = None
     d_model: int | None = None
     num_heads: int | None = None
     d_ff: int | None = None
@@ -62,16 +63,24 @@ SMOKE_GEOMETRY = Geometry(num_layers=4, d_model=128, num_heads=4, d_ff=256,
                           n_devices=2, repeats=3, step_iters=4)
 
 
+def default_num_layers(cfg) -> int:
+    """One whole pattern unit, and at least two layers: qwen1.5-4b (``G``)
+    gets 2 layers (2 units), recurrentgemma-2b (``RRL``) 3 (one unit), so
+    segmentation has a unit at both of its depths."""
+    return max(2, len(cfg.layer_pattern))
+
+
 def config_for(arch: str, g: Geometry):
     """The measured config: published widths at depth ``g.num_layers``, or
     ``reduced()`` when any width is given."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
+    num_layers = default_num_layers(cfg) if g.num_layers is None else g.num_layers
     widths = {f: getattr(g, f) for f in _WIDTHS if getattr(g, f) is not None}
     if widths:
-        return cfg.reduced(num_layers=g.num_layers, **widths)
-    return dataclasses.replace(cfg, num_layers=g.num_layers).validate()
+        return cfg.reduced(num_layers=num_layers, **widths)
+    return dataclasses.replace(cfg, num_layers=num_layers).validate()
 
 
 def _rank_main(rank: int, world: int, init_file: str, arch: str, out_dir: str,
@@ -140,8 +149,8 @@ def run_measurement(arch: str, out_dir: str | Path, geometry: Geometry,
     dev = resolve_device(device)
     if dev.type == "cuda":
         # build once here, so the ranks never race on the build directory
-        from repro_torch.kernels import flash_attention as fa
-        fa.load_library()
+        from repro_torch.kernels import load_libraries
+        load_libraries()
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(_rank_main, nprocs=geometry.n_devices, join=True,
                  args=(geometry.n_devices, os.path.join(tmp, "rendezvous"), arch,
@@ -168,9 +177,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="output directory (default: results/measure_torch)")
     full, smoke = Geometry(), SMOKE_GEOMETRY
     for f in dataclasses.fields(Geometry):
+        default = "max(2, len(layer_pattern))" if f.name == "num_layers" else \
+            getattr(full, f.name)
         p.add_argument(_geometry_flag(f.name), type=int, default=None, dest=f.name,
-                       help=f"default {getattr(full, f.name)} "
-                            f"(--smoke: {getattr(smoke, f.name)})")
+                       help=f"default {default} (--smoke: {getattr(smoke, f.name)})")
     p.add_argument("--policies", default=None,
                    help="comma-separated sync policies (default: at_end,wfbp,bucketed)")
     p.add_argument("--smoke", action="store_true",

@@ -1,10 +1,10 @@
-"""Block registry for the ported kinds: ``G`` (global attention + MLP) and
-``L`` (sliding-window attention + MLP), pre-norm residual, with the dense
-(gated SiLU or GELU) MLP.
+"""Block registry for the ported kinds: ``G`` (global attention + MLP),
+``L`` (sliding-window attention + MLP) and ``R`` (RG-LRU recurrent block +
+MLP), pre-norm residual, with the dense (gated SiLU or GELU) MLP.
 
-Counterpart of :mod:`repro.models.blocks` lines 28-122.  The ``R``, ``W``
-and ``C`` kinds and MoE raise ``NotImplementedError`` until their slices
-land (``ROADMAP.md`` queue 1, items 9, 10 and 13).
+Counterpart of :mod:`repro.models.blocks` lines 28-122.  The ``W`` and
+``C`` kinds and MoE raise ``NotImplementedError`` until their slices land
+(``ROADMAP.md`` queue 1, items 9, 10 and 13).
 """
 from __future__ import annotations
 
@@ -12,11 +12,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
+from repro_torch.models import recurrent as rec
 from repro_torch.models.common import (ModelConfig, Params, apply_norm, dense_init,
                                        init_norm)
 
 _NOT_PORTED = {
-    "R": "the RG-LRU block waits for ROADMAP.md queue 1 item 9 (recurrent blocks)",
     "W": "the RWKV6 block waits for ROADMAP.md queue 1 item 9 (recurrent blocks)",
     "C": "the cross-attention block waits for ROADMAP.md queue 1 item 13 (encoder-decoder)",
 }
@@ -25,7 +25,7 @@ _NOT_PORTED = {
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"block kind {kind!r}: {_NOT_PORTED[kind]}")
-    if kind not in ("G", "L"):
+    if kind not in ("G", "L", "R"):
         raise ValueError(f"unknown block kind {kind!r}")
     if cfg.num_experts:
         raise NotImplementedError("MoE waits for ROADMAP.md queue 1 item 10")
@@ -60,8 +60,11 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
                lead: tuple[int, ...] = ()) -> Params:
     _check_kind(cfg, kind)
-    return {"norm1": init_norm(cfg, device, lead),
-            "attn": attn.init_attention(cfg, gen, device, lead),
+    if kind == "R":
+        mixer = {"rglru": rec.init_rglru_block(cfg, gen, device, lead)}
+    else:
+        mixer = {"attn": attn.init_attention(cfg, gen, device, lead)}
+    return {"norm1": init_norm(cfg, device, lead), **mixer,
             "norm2": init_norm(cfg, device, lead),
             "mlp": init_mlp(cfg, gen, device, lead)}
 
@@ -70,8 +73,11 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor) -> torc
     """The block's output.  The reference's MoE aux loss is 0 for the dense
     MLP, the only one ported, so it is not returned."""
     _check_kind(cfg, kind)
-    window = cfg.sliding_window if kind == "L" else None
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + attn.attention_fwd(cfg, p["attn"], h, causal=True, window=window)
+    if kind == "R":
+        x = x + rec.rglru_block(cfg, p["rglru"], h)
+    else:
+        window = cfg.sliding_window if kind == "L" else None
+        x = x + attn.attention_fwd(cfg, p["attn"], h, causal=True, window=window)
     h = apply_norm(cfg, p["norm2"], x)
     return x + mlp_apply(cfg, p["mlp"], h)

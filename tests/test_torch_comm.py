@@ -1,4 +1,6 @@
-"""The port's data-parallel S-SGD step on a 2-process gloo group (CPU).
+"""The port's data-parallel S-SGD step on a 2-process gloo group (CPU),
+for each measured arch (qwen1.5-4b; recurrentgemma-2b, whose tied embedding
+is one leaf with two uses and is all-reduced once).
 
 Two ranks (separate processes, a ``file://`` rendezvous) each take their
 half of a global batch and run one step of
@@ -41,8 +43,9 @@ from repro_torch.measure import calibrate as tcal
 from repro_torch.models import transformer as TT
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
-ARCH = "qwen1.5-4b"
-REDUCED = dict(num_layers=2)
+ARCHS = ("qwen1.5-4b", "recurrentgemma-2b")
+#: one whole layer pattern at least: recurrentgemma's RRL needs 3 layers
+REDUCED = {"qwen1.5-4b": dict(num_layers=2), "recurrentgemma-2b": dict(num_layers=3)}
 POLICIES = ("at_end", "wfbp", "bucketed")
 BUCKET_BYTES = 2e5          # several buckets at the reduced size
 LR, MOMENTUM = 0.1, 0.9
@@ -105,12 +108,18 @@ def _flat(tree) -> dict[str, np.ndarray]:
             for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.fixture(scope="module")
-def dp_run(tmp_path_factory):
+def _cfgs(arch):
+    return (jax_get_config(arch).reduced(**REDUCED[arch]),
+            torch_get_config(arch).reduced(**REDUCED[arch]))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def dp_run(request, tmp_path_factory):
     """Run the 2-rank step once for all policies; return the reference's
     step, the port's parameters per policy and the ranks' report."""
+    arch = request.param
     work = tmp_path_factory.mktemp("dp")
-    jcfg = jax_get_config(ARCH).reduced(**REDUCED)
+    jcfg, _ = _cfgs(arch)
     params = JT.init_lm(jcfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, jcfg.vocab_size, (2 * PER_RANK, SEQ)).astype(np.int32)
@@ -118,7 +127,7 @@ def dp_run(tmp_path_factory):
     np.savez(work / "params.npz", **_flat(params))
     np.savez(work / "batch.npz", tokens=tokens, labels=labels)
     (work / "spec.json").write_text(json.dumps(dict(
-        arch=ARCH, reduced=REDUCED, policies=POLICIES, bucket_bytes=BUCKET_BYTES,
+        arch=arch, reduced=REDUCED[arch], policies=POLICIES, bucket_bytes=BUCKET_BYTES,
         lr=LR, momentum=MOMENTUM, per_rank=PER_RANK)))
     script = work / "worker.py"
     script.write_text(WORKER)
@@ -147,7 +156,7 @@ def dp_run(tmp_path_factory):
     want, _ = opt.update(grads, opt.init(params), params)
     got = {pol: dict(np.load(work / f"out_{pol}.npz")) for pol in POLICIES}
     report = json.loads((work / "report.json").read_text())
-    return dict(want=_flat(want), loss=float(jloss), got=got, report=report,
+    return dict(arch=arch, want=_flat(want), loss=float(jloss), got=got, report=report,
                 params=params)
 
 
@@ -176,8 +185,7 @@ def test_reported_loss_is_global_mean(dp_run, policy):
 
 @pytest.mark.parametrize("policy", POLICIES)
 def test_counted_bytes_equal_expected_and_reference(dp_run, policy):
-    jcfg = jax_get_config(ARCH).reduced(**REDUCED)
-    tcfg = torch_get_config(ARCH).reduced(**REDUCED)
+    jcfg, tcfg = _cfgs(dp_run["arch"])
     expected = tcal.expected_collective_bytes(tcfg, policy)
     assert expected == jcal.expected_collective_bytes(jcfg, policy)
     assert dp_run["report"][policy]["bytes"] == expected
@@ -186,8 +194,9 @@ def test_counted_bytes_equal_expected_and_reference(dp_run, policy):
 def test_all_reduce_calls_follow_each_schedule(dp_run):
     """at_end: one per leaf; wfbp: one per unscanned leaf and per unit
     slice of each stacked leaf; bucketed: one per bucket; plus the two
-    metric means."""
-    tcfg = torch_get_config(ARCH).reduced(**REDUCED)
+    metric means.  A tied embedding is one leaf: one all-reduce of the sum
+    of its two uses' gradients."""
+    _, tcfg = _cfgs(dp_run["arch"])
     leaves = list(TT.leaf_order(TT.init_lm(tcfg, device="meta")))
     n_units = sum(1 for p, _ in leaves if p[0] == "units")
     n_buckets = len(tsync.bucket_partition([leaf for _, leaf in leaves], BUCKET_BYTES))
@@ -198,12 +207,12 @@ def test_all_reduce_calls_follow_each_schedule(dp_run):
                      "bucketed": n_buckets + 2}
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("bucket_bytes", [1e4, BUCKET_BYTES, tsync.DEFAULT_BUCKET_BYTES])
-def test_bucket_partition_follows_reference_leaf_order(bucket_bytes):
+def test_bucket_partition_follows_reference_leaf_order(bucket_bytes, arch):
     """The reference's rule (``repro.comm.sync.bucketed_pmean``) over its
     flattened leaves, against the port's partition of its leaf order."""
-    jcfg = jax_get_config(ARCH).reduced(**REDUCED)
-    tcfg = torch_get_config(ARCH).reduced(**REDUCED)
+    jcfg, tcfg = _cfgs(arch)
     jleaves = jax.tree_util.tree_leaves(
         jax.eval_shape(lambda k: JT.init_lm(jcfg, k), jax.random.PRNGKey(0)))
     want: list[list[int]] = [[]]
@@ -224,15 +233,16 @@ def test_default_bucket_bytes_is_the_reference_constant():
     assert tsync.DEFAULT_BUCKET_BYTES == jsync.DEFAULT_BUCKET_BYTES
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("full_width", [False, True])
-def test_grad_payload_bytes_equal_reference(full_width):
+def test_grad_payload_bytes_equal_reference(full_width, arch):
     if full_width:
         import dataclasses
-        jcfg = dataclasses.replace(jax_get_config(ARCH), num_layers=2)
-        tcfg = dataclasses.replace(torch_get_config(ARCH), num_layers=2)
+        depth = REDUCED[arch]["num_layers"]
+        jcfg = dataclasses.replace(jax_get_config(arch), num_layers=depth)
+        tcfg = dataclasses.replace(torch_get_config(arch), num_layers=depth)
     else:
-        jcfg = jax_get_config(ARCH).reduced(**REDUCED)
-        tcfg = torch_get_config(ARCH).reduced(**REDUCED)
+        jcfg, tcfg = _cfgs(arch)
     assert tcal.grad_payload_bytes(tcfg) == jcal.grad_payload_bytes(jcfg)
     for pol in POLICIES:
         assert tcal.expected_collective_bytes(tcfg, pol) == \
@@ -243,7 +253,7 @@ def test_sync_needs_a_group_and_a_known_policy():
     from repro_torch.comm.ddp import make_ddp_train_step
     from repro_torch.optim.sgd import sgd
 
-    cfg = torch_get_config(ARCH).reduced(**REDUCED)
+    _, cfg = _cfgs("qwen1.5-4b")
     with pytest.raises(ValueError, match="process group"):
         make_ddp_train_step(cfg, sgd(0.1), None, sync_policy="wfbp")
     with pytest.raises(ValueError, match="unknown sync policy"):
@@ -252,13 +262,13 @@ def test_sync_needs_a_group_and_a_known_policy():
         tcal.expected_collective_bytes(cfg, "none")
 
 
-def test_single_process_step_without_sync_equals_reference():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_single_process_step_without_sync_equals_reference(arch):
     """``none`` on one process: the step is the reference's SGD step."""
     from repro_torch.comm.ddp import make_ddp_train_step
     from repro_torch.optim.sgd import sgd
 
-    jcfg = jax_get_config(ARCH).reduced(**REDUCED)
-    tcfg = torch_get_config(ARCH).reduced(**REDUCED)
+    jcfg, tcfg = _cfgs(arch)
     params = JT.init_lm(jcfg, jax.random.PRNGKey(1))
     rng = np.random.default_rng(1)
     tokens, labels = (rng.integers(0, jcfg.vocab_size, (2, SEQ)).astype(np.int32)

@@ -4,8 +4,9 @@ functions, on the CPU.
 * The copies (``segment_from_depths``, ``fit_alpha_beta``,
   ``comm_scale_from_fit``, the trace writer) equal the originals on
   random inputs, exactly: they are the same float64 arithmetic.
-* A smoke measurement (``python -m repro_torch.measure --smoke --device
-  cpu``, the reference's ``SMOKE_GEOMETRY``, 2 gloo ranks) writes a trace
+* A smoke measurement of each measured arch (``python -m
+  repro_torch.measure --smoke --device cpu``, the reference's
+  ``SMOKE_GEOMETRY``, 2 gloo ranks) writes a trace
   that ``repro.traces.format.read_trace`` reads and that the unchanged
   sweep evaluates as ``trace:<path>`` through the closed form
   (``caffe-mpi``) and the bucket timeline (``bucketed-25mb``).
@@ -30,6 +31,7 @@ from repro.measure import run as jrun
 from repro.traces import format as jformat
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.device import resolve_device
+from repro_torch.kernels import all_launches
 from repro_torch.measure import calibrate as tcal
 from repro_torch.measure import harness as tharness
 from repro_torch.measure import run as trun
@@ -37,6 +39,7 @@ from repro_torch.traces import format as tformat
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 ARCH = "qwen1.5-4b"
+ARCHS = ("qwen1.5-4b", "recurrentgemma-2b")
 
 
 class TestCopies:
@@ -74,10 +77,11 @@ class TestCopies:
                         [(1e6, 0.02), (2e6, 0.01)]):
             assert tcal.fit_alpha_beta(samples) == jcal.fit_alpha_beta(samples)
 
-    def test_depth_variants_equal_reference(self):
-        for arch_cfg in (dict(num_layers=2), dict(num_layers=5)):
-            jcfg = jax_get_config(ARCH).reduced(**arch_cfg)
-            tcfg = torch_get_config(ARCH).reduced(**arch_cfg)
+    @pytest.mark.parametrize("arch", ARCHS)
+    def test_depth_variants_equal_reference(self, arch):
+        for arch_cfg in (dict(num_layers=2), dict(num_layers=3), dict(num_layers=5)):
+            jcfg = jax_get_config(arch).reduced(**arch_cfg)
+            tcfg = torch_get_config(arch).reduced(**arch_cfg)
             assert tharness._default_depths(tcfg) == jharness._default_depths(jcfg)
             for u in (1, 3):
                 j, t = jharness._depth_variant(jcfg, u), tharness._depth_variant(tcfg, u)
@@ -111,26 +115,52 @@ class TestCalibrate:
         assert tcal.cluster_name("cuda", "gloo", 2) == "torch-cuda-gloo-x2"
         assert tcal.cluster_name("cpu", "gloo", 2) == "torch-cpu-gloo-x2"
 
-    def test_full_width_payloads(self):
-        """qwen1.5-4b at its published widths: one unit is 79.3 M
-        parameters (158.6 MB in bf16), embedding + untied head 777.9 M."""
-        cfg = dataclasses.replace(torch_get_config(ARCH), num_layers=2)
+    @pytest.mark.parametrize("arch,depth,unit_params,rest_params", [
+        ("qwen1.5-4b", 2, 79.3e6, 777.9e6),
+        ("recurrentgemma-2b", 3, 256.9e6, 655.4e6),
+    ])
+    def test_full_width_payloads(self, arch, depth, unit_params, rest_params):
+        """At the published widths: a qwen1.5-4b unit is 79.3 M parameters
+        (158.6 MB in bf16), embedding + untied head 777.9 M; a
+        recurrentgemma-2b RRL unit is 256.9 M (two RG-LRU blocks of 91.8 M,
+        a local-attention block of 73.4 M), the tied embedding 655.4 M."""
+        cfg = dataclasses.replace(torch_get_config(arch), num_layers=depth)
         unit, rest = tcal.grad_payload_bytes(cfg)
-        assert unit / 2 == pytest.approx(79.3e6, rel=1e-3)
-        assert rest / 2 == pytest.approx(777.9e6, rel=1e-3)
+        assert unit / 2 == pytest.approx(unit_params, rel=1e-3)
+        assert rest / 2 == pytest.approx(rest_params, rel=1e-3)
 
 
 class TestRunner:
     def test_smoke_geometry_is_the_reference_preset(self):
         assert dataclasses.asdict(trun.SMOKE_GEOMETRY) == dataclasses.asdict(jrun.SMOKE_GEOMETRY)
 
-    def test_config_for_published_width_and_reduced(self):
-        full = trun.config_for(ARCH, trun.Geometry(num_layers=2))
+    @pytest.mark.parametrize("arch,widths", [
+        ("qwen1.5-4b", (2560, 20, 6912, 151_936)),
+        ("recurrentgemma-2b", (2560, 10, 7680, 256_000)),
+    ])
+    def test_config_for_published_width_and_reduced(self, arch, widths):
+        full = trun.config_for(arch, trun.Geometry(num_layers=2))
         assert (full.d_model, full.num_heads, full.d_ff, full.vocab_size, full.num_layers) == \
-            (2560, 20, 6912, 151_936, 2)
+            (*widths, 2)
         assert full.dtype == torch.bfloat16
-        small = trun.config_for(ARCH, trun.SMOKE_GEOMETRY)
+        small = trun.config_for(arch, trun.SMOKE_GEOMETRY)
         assert (small.d_model, small.num_layers, small.dtype) == (128, 4, torch.float32)
+
+    @pytest.mark.parametrize("arch,layers,units,depths", [
+        ("qwen1.5-4b", 2, 2, (2, 4)),
+        ("recurrentgemma-2b", 3, 1, (1, 2)),
+    ])
+    def test_default_num_layers_is_one_pattern_and_at_least_two(self, arch, layers, units,
+                                                                depths):
+        """``--num-layers`` left out: qwen1.5-4b (``G``) 2 layers, 2 units;
+        recurrentgemma-2b (``RRL``) 3 layers, one unit, segmented at 1 and 2
+        units (3 and 6 layers)."""
+        assert trun.Geometry().num_layers is None
+        cfg = trun.config_for(arch, trun.Geometry())
+        assert (cfg.num_layers, cfg.num_units, cfg.remainder_pattern) == (layers, units, "")
+        assert tharness._default_depths(cfg) == depths
+        assert [tharness._depth_variant(cfg, u).num_layers for u in depths] == \
+            [u * len(cfg.layer_pattern) for u in depths]
 
     def test_cli_parses_geometry_flags(self):
         args = trun.build_parser().parse_args(
@@ -139,6 +169,8 @@ class TestRunner:
             (64, 3, "cpu", None)
         with pytest.raises(SystemExit):
             trun.build_parser().parse_args(["--arch", "gemma3-1b"])
+        args = trun.build_parser().parse_args(["--arch", "recurrentgemma-2b"])
+        assert args.arch == "recurrentgemma-2b" and args.num_layers is None
 
     def test_cuda_is_the_default_and_never_falls_back(self):
         if torch.cuda.is_available():
@@ -150,33 +182,39 @@ class TestRunner:
         assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.fixture(scope="module")
-def smoke_run(tmp_path_factory):
+@pytest.fixture(scope="module", params=ARCHS)
+def smoke_run(request, tmp_path_factory):
+    """(output directory, JSON document, arch) of one smoke measurement."""
+    arch = request.param
     out = tmp_path_factory.mktemp("measure")
-    r = subprocess.run([sys.executable, "-m", "repro_torch.measure", "--arch", ARCH,
+    r = subprocess.run([sys.executable, "-m", "repro_torch.measure", "--arch", arch,
                         "--smoke", "--device", "cpu", "--out-dir", str(out)],
                        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    return out, json.loads((out / f"{ARCH}.json").read_text())
+    return out, json.loads((out / f"{arch}.json").read_text()), arch
 
 
 class TestSmokeMeasurement:
     def test_trace_reads_back_with_the_layers_and_payloads(self, smoke_run):
-        out, doc = smoke_run
-        trace = jformat.read_trace(out / f"{ARCH}.trace")
-        cfg = trun.config_for(ARCH, trun.SMOKE_GEOMETRY)
+        """qwen1.5-4b's 4 smoke layers are 4 units; recurrentgemma-2b's are
+        one RRL unit and a remaining R block, counted with the rest."""
+        out, doc, arch = smoke_run
+        trace = jformat.read_trace(out / f"{arch}.trace")
+        cfg = trun.config_for(arch, trun.SMOKE_GEOMETRY)
         unit, rest = tcal.grad_payload_bytes(cfg)
+        n = {"qwen1.5-4b": 4, "recurrentgemma-2b": 1}[arch]
+        assert cfg.num_units == n == doc["num_units"]
         assert trace.cluster == "torch-cpu-gloo-x2"
         assert trace.batch_per_gpu == 2 and trace.bytes_per_sample == 8.0 * 32
         recs = trace.iterations[0]
-        assert [r.name for r in recs] == ["embed_head"] + [f"unit{i}" for i in range(4)]
-        assert [r.size_bytes for r in recs] == [rest] + [unit] * 4
+        assert [r.name for r in recs] == ["embed_head"] + [f"unit{i}" for i in range(n)]
+        assert [r.size_bytes for r in recs] == [rest] + [unit] * n
         assert all(r.forward_us >= 0 and r.backward_us >= 0 and r.comm_us > 0 for r in recs)
         assert recs[1].forward_us > 0
 
     def test_json_records_the_run(self, smoke_run):
-        _, doc = smoke_run
+        _, doc, arch = smoke_run
         assert doc["device"] == "cpu" and doc["n_devices"] == 2
         assert set(doc["policy_times_s"]) == {"at_end", "wfbp", "bucketed"}
         assert all(t > 0 for t in doc["policy_times_s"].values())
@@ -184,13 +222,15 @@ class TestSmokeMeasurement:
         assert len(losses) == 3 and all(np.isfinite(losses))
         assert max(losses) - min(losses) < 1e-4 * max(losses)
         assert doc["t_update_s"] > 0
-        jcfg = jax_get_config(ARCH).reduced(num_layers=4, d_model=128, num_heads=4,
+        jcfg = jax_get_config(arch).reduced(num_layers=4, d_model=128, num_heads=4,
                                             d_ff=256, vocab_size=512)
         for pol, chk in doc["bytes_crosscheck"].items():
             assert chk["counted_bytes"] == chk["expected_bytes"] == \
                 jcal.expected_collective_bytes(jcfg, pol)
-        assert doc["kernel_launches"] == {"flash_fwd": 0, "flash_bwd_delta": 0,
-                                          "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+        # on the CPU the wrappers run their plain versions and count nothing
+        assert doc["kernel_launches"] == {name: 0 for name in all_launches()}
+        assert set(doc["kernel_launches"]) == {"flash_fwd", "flash_bwd_delta", "flash_bwd_dq",
+                                               "flash_bwd_dkdv", "rglru_fwd", "rglru_bwd"}
         lat, bw = doc["allreduce_fit"].values()
         assert lat >= 0 and bw > 0
 
@@ -198,11 +238,12 @@ class TestSmokeMeasurement:
         """The f32 momentum after the timed steps sums the synchronized
         gradients: every policy leaves the same per-leaf norms (float32 on
         the CPU, reduced in different orders)."""
-        _, doc = smoke_run
+        _, doc, arch = smoke_run
         norms = doc["policy_momentum_norms"]
         assert set(norms) == {"at_end", "wfbp", "bucketed"}
         leaves = list(norms["at_end"])
-        assert "embedding" in leaves and "units/b0/attn/wq" in leaves
+        mixer = {"qwen1.5-4b": "units/b0/attn/wq", "recurrentgemma-2b": "units/b0/rglru/lam"}
+        assert "embedding" in leaves and mixer[arch] in leaves
         for leaf in leaves:
             vals = [norms[pol][leaf] for pol in norms]
             assert min(vals) > 0 and max(vals) - min(vals) <= 1e-5 * max(vals), leaf
@@ -210,8 +251,8 @@ class TestSmokeMeasurement:
     @pytest.mark.parametrize("policy,method", [("caffe-mpi", "analytical"),
                                                ("bucketed-25mb", "timeline")])
     def test_sweep_evaluates_the_trace(self, smoke_run, policy, method):
-        out, _ = smoke_run
-        row = evaluate_scenario(Scenario(f"trace:{out / f'{ARCH}.trace'}",
+        out, _, arch = smoke_run
+        row = evaluate_scenario(Scenario(f"trace:{out / f'{arch}.trace'}",
                                          "k80-pcie-10gbe", 2, policy))
         assert row["method"] == method
         assert np.isfinite(row["iteration_time_s"]) and row["iteration_time_s"] > 0
@@ -219,8 +260,8 @@ class TestSmokeMeasurement:
     def test_sweep_cli_takes_the_trace(self, smoke_run, capsys):
         from repro.launch.sweep import main
 
-        out, _ = smoke_run
-        rc = main(["--workloads", f"trace:{out / f'{ARCH}.trace'}", "--clusters",
+        out, _, arch = smoke_run
+        rc = main(["--workloads", f"trace:{out / f'{arch}.trace'}", "--clusters",
                    "k80-pcie-10gbe", "--workers", "2,4", "--policies",
                    "caffe-mpi,bucketed-25mb"])
         assert rc == 0

@@ -1,4 +1,7 @@
-"""The port's model, loss and optimizer against the reference, on the CPU.
+"""The port's model, loss and optimizer against the reference, on the CPU,
+for each measured arch: qwen1.5-4b (``G`` blocks, untied head) and
+recurrentgemma-2b (``RRL``: RG-LRU and local-attention blocks, tied
+embedding).
 
 Parameters are initialised by the reference (``jax.random``) and carried
 over by the port's bridge (``repro_torch.models.transformer.
@@ -20,16 +23,24 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import common as jcommon
 from repro.models import loss as jloss
+from repro.models import recurrent as jrec
 from repro.models import transformer as JT
 from repro.optim import sgd as jsgd
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.models import blocks as tblocks
 from repro_torch.models import common as tcommon
 from repro_torch.models import loss as tloss
+from repro_torch.models import recurrent as trec
 from repro_torch.models import transformer as TT
 from repro_torch.optim import sgd as tsgd
 
 ARCH = "qwen1.5-4b"
+ARCHS = ("qwen1.5-4b", "recurrentgemma-2b")
+#: Reduced depth per arch: one whole layer pattern or more (recurrentgemma's
+#: RRL needs 3 layers for one unit) and the sequence length of the model
+#: tests (above recurrentgemma's reduced window of 64, so the window bites).
+DEPTH = {"qwen1.5-4b": 2, "recurrentgemma-2b": 3}
+SEQ = {"qwen1.5-4b": 24, "recurrentgemma-2b": 80}
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -61,23 +72,24 @@ def _perturbed(tree, seed=0):
     return jax.tree_util.tree_map(leaf, tree)
 
 
-def _configs(**over):
-    return (jax_get_config(ARCH).reduced(**over), torch_get_config(ARCH).reduced(**over))
+def _configs(arch=ARCH, **over):
+    return (jax_get_config(arch).reduced(**over), torch_get_config(arch).reduced(**over))
 
 
 class TestConfig:
+    @pytest.mark.parametrize("arch", ARCHS)
     @pytest.mark.parametrize("reduced", [False, True])
-    def test_fields_equal_field_by_field(self, reduced):
-        j, t = jax_get_config(ARCH), torch_get_config(ARCH)
+    def test_fields_equal_field_by_field(self, arch, reduced):
+        j, t = jax_get_config(arch), torch_get_config(arch)
         if reduced:
-            j, t = j.reduced(), t.reduced()
+            j, t = j.reduced(num_layers=DEPTH[arch]), t.reduced(num_layers=DEPTH[arch])
         assert [f.name for f in dataclasses.fields(j)] == \
             [f.name for f in dataclasses.fields(t)]
         for f in dataclasses.fields(j):
             jv, tv = getattr(j, f.name), getattr(t, f.name)
             if f.name in ("dtype", "logit_dtype"):
                 assert _DTYPES[jv] == tv, f.name
-            elif f.name == "source":
+            elif f.name == "source" and arch == "qwen1.5-4b":
                 # the reference's registry cites the 0.5B model card for
                 # these 4B widths; the port cites the 4B card
                 assert (jv, tv) == ("hf:Qwen/Qwen1.5-0.5B", "hf:Qwen/Qwen1.5-4B")
@@ -97,7 +109,7 @@ class TestConfig:
 
     def test_unported_block_kinds_raise(self):
         cfg = torch_get_config(ARCH).reduced()
-        for kind in "RWC":
+        for kind in "WC":
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 tblocks.init_block(cfg, kind, None, "meta")
         with pytest.raises(NotImplementedError, match="MoE"):
@@ -163,12 +175,14 @@ class TestNumerics:
 
 
 class TestModel:
-    def test_init_layout_equals_reference_at_full_width(self):
-        """Key paths, shapes and dtypes of every leaf, in flatten order, for
-        qwen1.5-4b at depth 2 (shapes only: the meta device and
-        ``jax.eval_shape``)."""
-        jcfg = dataclasses.replace(jax_get_config(ARCH), num_layers=2)
-        tcfg = dataclasses.replace(torch_get_config(ARCH), num_layers=2)
+    @pytest.mark.parametrize("arch", ARCHS)
+    def test_init_layout_equals_reference_at_full_width(self, arch):
+        """Key paths, shapes and dtypes of every leaf, in flatten order, at
+        the published widths and one pattern's depth or two layers (shapes
+        only: the meta device and ``jax.eval_shape``).  recurrentgemma-2b's
+        ``lam`` stays float32 in the bf16 model."""
+        jcfg = dataclasses.replace(jax_get_config(arch), num_layers=DEPTH[arch])
+        tcfg = dataclasses.replace(torch_get_config(arch), num_layers=DEPTH[arch])
         jshape = jax.eval_shape(lambda k: JT.init_lm(jcfg, k), jax.random.PRNGKey(0))
         jleaves = [(_key_path(p), leaf) for p, leaf in
                    jax.tree_util.tree_flatten_with_path(jshape)[0]]
@@ -179,9 +193,14 @@ class TestModel:
             assert _DTYPES[jnp.dtype(j.dtype).type] == t.dtype, path
         assert TT.param_count(TT.init_lm(tcfg, device="meta")) == \
             sum(int(np.prod(j.shape)) for _, j in jleaves)
+        if arch == "recurrentgemma-2b":
+            lam = dict(tleaves)[("units", "b0", "rglru", "lam")]
+            assert lam.dtype == torch.float32 and tcfg.dtype == torch.bfloat16
+            assert "lm_head" not in TT.init_lm(tcfg, device="meta")
 
-    def test_bridge_carries_every_leaf_in_flatten_order(self):
-        jcfg, _ = _configs()
+    @pytest.mark.parametrize("arch", ARCHS)
+    def test_bridge_carries_every_leaf_in_flatten_order(self, arch):
+        jcfg, _ = _configs(arch, num_layers=DEPTH[arch])
         tree = jax.tree_util.tree_map(np.asarray, JT.init_lm(jcfg, jax.random.PRNGKey(0)))
         params = TT.from_reference(tree)
         jl = _jax_leaves(tree)
@@ -196,16 +215,18 @@ class TestModel:
         assert t.dtype == torch.bfloat16
         assert np.array_equal(np.asarray(arr, np.float32), t.float().numpy())
 
+    @pytest.mark.parametrize("arch", ARCHS)
     @pytest.mark.parametrize("vocab", [512, 16_384])
-    def test_loss_and_every_gradient_leaf_match(self, vocab):
-        """Reduced qwen1.5-4b (2 layers, f32); vocab 16 384 takes the
-        chunked cross-entropy on both sides."""
-        jcfg, tcfg = _configs(num_layers=2, vocab_size=vocab)
+    def test_loss_and_every_gradient_leaf_match(self, arch, vocab):
+        """Reduced model (f32; qwen1.5-4b 2 layers, recurrentgemma-2b 3:
+        RRL, window 64 under 80 tokens); vocab 16 384 takes the chunked
+        cross-entropy on both sides, through recurrentgemma's tied head."""
+        jcfg, tcfg = _configs(arch, num_layers=DEPTH[arch], vocab_size=vocab)
         tree = _perturbed(jax.tree_util.tree_map(
             np.asarray, JT.init_lm(jcfg, jax.random.PRNGKey(0))))
         rng = np.random.default_rng(4)
-        tokens = rng.integers(0, vocab, (2, 24)).astype(np.int32)
-        labels = rng.integers(0, vocab, (2, 24)).astype(np.int32)
+        tokens = rng.integers(0, vocab, (2, SEQ[arch])).astype(np.int32)
+        labels = rng.integers(0, vocab, (2, SEQ[arch])).astype(np.int32)
 
         def jloss_fn(p):
             return JT.loss_fn(jcfg, p, jnp.asarray(tokens), jnp.asarray(labels))[0]
@@ -226,16 +247,90 @@ class TestModel:
             scale = max(float(np.abs(w).max()), 1e-6)
             assert np.abs(_np(g) - w).max() <= 2e-5 * scale, path
 
-    def test_forward_logits_match(self):
-        jcfg, tcfg = _configs(num_layers=2)
+    @pytest.mark.parametrize("arch", ARCHS)
+    def test_forward_logits_match(self, arch):
+        jcfg, tcfg = _configs(arch, num_layers=DEPTH[arch])
         tree = _perturbed(jax.tree_util.tree_map(
             np.asarray, JT.init_lm(jcfg, jax.random.PRNGKey(1))))
-        tokens = np.random.default_rng(5).integers(0, 512, (2, 16)).astype(np.int32)
+        tokens = np.random.default_rng(5).integers(0, 512, (2, SEQ[arch])).astype(np.int32)
         jlog, _ = JT.forward(jcfg, jax.tree_util.tree_map(jnp.asarray, tree),
                              jnp.asarray(tokens))
         tlog = TT.forward(tcfg, TT.from_reference(tree), torch.from_numpy(tokens).long())
         assert tlog.dtype == torch.float32
         np.testing.assert_allclose(_np(tlog), np.asarray(jlog), atol=2e-4)
+
+
+class TestRecurrentgemma:
+    """The pieces recurrentgemma-2b adds: the recurrent block on its own,
+    and the tied embedding (one leaf, used by the gather and as the head)."""
+
+    def test_rglru_block_fwd_and_bwd_match_reference(self):
+        """``rglru_block`` (projections, causal conv, scan, gated output) in
+        f32 at the reduced width, the parameters the reference initialised
+        (the zero conv bias perturbed): the output to 1e-5 of its scale,
+        the input's and every parameter's gradient to 2e-5 of its scale."""
+        jcfg, tcfg = _configs("recurrentgemma-2b", num_layers=DEPTH["recurrentgemma-2b"])
+        tree = _perturbed(jax.tree_util.tree_map(
+            np.asarray, jrec.init_rglru_block(jcfg, jax.random.PRNGKey(2))))
+        rng = np.random.default_rng(8)
+        x = rng.standard_normal((2, 40, jcfg.d_model)).astype(np.float32)
+        ct = rng.standard_normal(x.shape).astype(np.float32)
+        jout, vjp = jax.vjp(lambda p, a: jrec.rglru_block(jcfg, p, a)[0],
+                            jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(x))
+        jgp, jgx = vjp(jnp.asarray(ct))
+        params = TT.from_reference(tree)
+        paths, leaves = zip(*TT.leaf_order(params))
+        tx = torch.from_numpy(x).requires_grad_()
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        tout = trec.rglru_block(tcfg, params, tx)
+        tgrads = torch.autograd.grad(tout, (*leaves, tx), torch.from_numpy(ct))
+        jout = np.asarray(jout)
+        assert np.abs(_np(tout) - jout).max() <= 1e-5 * np.abs(jout).max()
+        want = dict(_jax_leaves(jgp))
+        assert list(want) == list(paths)
+        for path, g in zip((*paths, ("x",)), tgrads):
+            w = np.asarray(jgx) if path == ("x",) else want[path]
+            assert np.abs(_np(g) - w).max() <= 2e-5 * max(float(np.abs(w).max()), 1e-6), path
+
+    def test_tied_embedding_gradient_sums_gather_and_head(self):
+        """The tied model's embedding gradient equals the untied model's
+        embedding gradient (the gather) plus its head's gradient, transposed,
+        when the head holds the same values."""
+        _, tcfg = _configs("recurrentgemma-2b", num_layers=3, vocab_size=16_384)
+        assert tcfg.tie_embeddings
+        params = TT.init_lm(tcfg, seed=0)
+        rng = np.random.default_rng(9)
+        tokens, labels = (torch.from_numpy(rng.integers(0, 16_384, (2, 20))) for _ in range(2))
+        emb = params["embedding"].requires_grad_()
+        (g_tied,) = torch.autograd.grad(TT.loss_fn(tcfg, params, tokens, labels)[0], emb)
+        untied = dataclasses.replace(tcfg, tie_embeddings=False)
+        head = emb.detach().T.contiguous().requires_grad_()
+        g_gather, g_head = torch.autograd.grad(
+            TT.loss_fn(untied, {**params, "lm_head": head}, tokens, labels)[0], (emb, head))
+        assert float(g_gather.abs().max()) > 0 and float(g_head.abs().max()) > 0
+        torch.testing.assert_close(g_tied, g_gather + g_head.T, rtol=1e-5, atol=1e-7)
+
+    def test_chunked_cross_entropy_takes_the_transposed_head_at_vocab_256000(self):
+        """recurrentgemma-2b's head is ``embedding.T``, a non-contiguous
+        (d, 256 000) view: 32 chunks of 8000 on both sides."""
+        V, d = 256_000, 16
+        assert tloss._num_chunks(V, 8192) == jloss._num_chunks(V, 8192) == 32
+        rng = np.random.default_rng(10)
+        x = rng.standard_normal((1, 4, d)).astype(np.float32)
+        emb = (rng.standard_normal((V, d)) / np.sqrt(d)).astype(np.float32)
+        labels = rng.integers(0, V, (1, 4)).astype(np.int32)
+        jl, jg = jax.value_and_grad(
+            lambda a, e: jloss.chunked_cross_entropy(a, e.T, jnp.asarray(labels)),
+            argnums=(0, 1))(jnp.asarray(x), jnp.asarray(emb))
+        tx, te = (torch.from_numpy(a).requires_grad_() for a in (x, emb))
+        assert not te.T.is_contiguous()
+        tl = tloss.chunked_cross_entropy(tx, te.T, torch.from_numpy(labels).long())
+        tg = torch.autograd.grad(tl, (tx, te))
+        assert float(tl.detach()) == pytest.approx(float(jl), rel=1e-6)
+        for t, j in zip(tg, jg):
+            j = np.asarray(j)
+            assert np.abs(_np(t) - j).max() <= 1e-5 * np.abs(j).max()
 
 
 class TestOptimizer:

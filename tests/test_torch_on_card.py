@@ -1,4 +1,5 @@
-"""The flash-attention kernels against their plain versions on the card.
+"""The flash-attention and RG-LRU kernels against their plain versions on
+the card.
 
 Imports no JAX, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_on_card.py``.
@@ -13,6 +14,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as rg
 
 LIMITS = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (2e-4, 2e-4)}
 
@@ -71,3 +73,48 @@ class TestOnCard:
         q, k, v, _ = _inputs(64, 2, 2, 96, torch.float32)
         with pytest.raises(ValueError, match="head dim"):
             ops.attention(q, k, v)
+
+
+def _rglru_inputs(B, S, W, dtype, r_shift=0.0):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x, r, i, dout = (torch.randn(B, S, W, generator=g, device="cuda") for _ in range(4))
+    lam = torch.linspace(0.1, 2.0, W, device="cuda")
+    h0 = torch.randn(B, W, generator=g, device="cuda")
+    return x.to(dtype), (r + r_shift).to(dtype), i.to(dtype), lam, h0, dout.to(dtype)
+
+
+class TestRGLRUOnCard:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,S,W,r_shift,with_h0", [(2, 1024, 256, 0.0, False),
+                                                       (1, 1000, 200, 0.0, True),
+                                                       (2, 64, 96, -40.0, True)])
+    def test_kernels_vs_plain(self, dtype, B, S, W, r_shift, with_h0):
+        x, r, i, lam, h0, dout = _rglru_inputs(B, S, W, dtype, r_shift)
+        h0 = h0 if with_h0 else None
+        dh_last = torch.randn_like(lam.expand(B, W).contiguous())
+        out, h, states = rg.fwd(x, r, i, lam, h0, save_states=True)
+        got = rg.bwd(x, r, i, lam, h0, states, dout, dh_last)
+        p_out, p_h, p_states = rg.plain_fwd(x, r, i, lam, h0, save_states=True)
+        want = rg.plain_bwd(x, r, i, lam, h0, states, dout, dh_last)
+        for what, a, b in (("out", out, p_out), ("h", h, p_h), ("states", states, p_states),
+                           *zip(("dx", "dr", "di", "dlam", "dh0"), got, want)):
+            _assert_close(a, b, what)
+
+    def test_ops_autograd_vs_ref_float32(self):
+        x, r, i, lam, h0, dout = _rglru_inputs(2, 300, 160, torch.float32)
+        rg.reset_launches()
+        outs = []
+        for impl in ("kernel", "ref"):
+            leaves = [t.detach().requires_grad_() for t in (x, r, i, lam, h0)]
+            out, h = ops.rglru(*leaves[:4], h0=leaves[4], impl=impl)
+            outs.append([out.detach(), *torch.autograd.grad(out, leaves, dout)])
+        assert rg.LAUNCHES == {"rglru_fwd": 1, "rglru_bwd": 1}, rg.LAUNCHES
+        for what, got, want in zip(("out", "dx", "dr", "di", "dlam", "dh0"), *outs):
+            _assert_close(got, want, what)
+
+    def test_unsupported_case_raises_on_the_card(self):
+        x, r, i, lam, _, _ = _rglru_inputs(1, 16, 32, torch.float32)
+        with pytest.raises(ValueError, match="dtype"):
+            ops.rglru(x.half(), r.half(), i.half(), lam)
+        with pytest.raises(ValueError, match="lam"):
+            ops.rglru(x, r, i, lam.to(torch.bfloat16))
