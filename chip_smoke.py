@@ -4,7 +4,7 @@ Phases, in order; any failure ends the script with a non-zero code:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every kernel library from ``src/repro_torch/csrc`` (flash
-   attention and RG-LRU, one ``nvcc`` each, at once);
+   attention, RG-LRU and wkv6, one ``nvcc`` each, at once);
 3. hold every flash kernel (forward, delta, dq, dk/dv) against its plain
    PyTorch version on the card, element by element, at qwen1.5-4b's
    shape, at recurrentgemma-2b's local-attention shape (hd 256, one KV
@@ -14,16 +14,20 @@ Phases, in order; any failure ends the script with a non-zero code:
    forward against its plain version and its backward against autograd
    through ``ref.rglru``, at recurrentgemma-2b's shape in bfloat16 and
    float32, at a ragged shape with a carried state and where sigmoid(r) ~ 0;
-   hold a reduced qwen1.5-4b's and a reduced recurrentgemma-2b's loss and
+   hold the wkv6 forward against its plain version and its backward
+   against autograd through ``ref.wkv6``, at rwkv6-1.6b's shape in bfloat16
+   and float32, at a ragged shape (hd 32) with a carried state, at strong
+   decays (w down to 1e-3) and where bfloat16 rounds w to exactly 1; hold
+   a reduced qwen1.5-4b's, recurrentgemma-2b's and rwkv6-1.6b's loss and
    gradients on the card (through the kernels) against the same model on
    the CPU (plain versions);
 4. time each kernel, its plain version, its bound and the PyTorch library
    call that computes the same function (``scaled_dot_product_attention``
    and its backward, timed here only and never called by the port; none
-   for the RG-LRU scan), at the main paths' shapes;
-5. run ``repro_torch.measure`` for qwen1.5-4b (2 units) and for
-   recurrentgemma-2b (one RRL unit) at their published widths with 2 gloo
-   ranks on the card and all three sync policies; check each written
+   for the RG-LRU and wkv6 scans), at the main paths' shapes;
+5. run ``repro_torch.measure`` for qwen1.5-4b (2 units), recurrentgemma-2b
+   (one RRL unit) and rwkv6-1.6b (2 units) at their published widths with 2
+   gloo ranks on the card and all three sync policies; check each written
    trace, the counted all-reduce bytes and that the three policies leave
    the same momentum;
 6. check that every kernel of each path launched during its run (the
@@ -95,6 +99,18 @@ RGLRU_SHAPES = [
     ("f32_ragged_h0", dict(B=2, S=1000, W=200, dtype=torch.float32, h0=True)),
     ("f32_a_near_1", dict(B=2, S=1024, W=256, dtype=torch.float32, h0=True, r_shift=-40.0)),
 ]
+# rwkv6-1.6b's wkv shape at batch_per_gpu 2, seq 1024 (32 heads of 64).  decay:
+# "mild" exp(-exp(N(0, 1) - 3)) as the repository's kernel tests, "strong" w
+# uniform in [1e-3, 0.2], "one" exp(-exp(N(0, 1) - 12)), which bfloat16
+# rounds to exactly 1.0 (checked where the inputs are made).
+WKV6_SLICE = dict(B=2, S=1024, H=32, hd=64, dtype=torch.bfloat16)
+WKV6_SHAPES = [
+    ("slice", WKV6_SLICE),
+    ("f32_slice", dict(WKV6_SLICE, dtype=torch.float32)),
+    ("f32_ragged_state", dict(B=2, S=1000, H=4, hd=32, dtype=torch.float32, state=True)),
+    ("f32_strong_decay", dict(B=2, S=1024, H=4, hd=64, dtype=torch.float32, decay="strong")),
+    ("w_one", dict(B=2, S=512, H=4, hd=64, dtype=torch.bfloat16, decay="one")),
+]
 _COMMON = ["--seq-len", "1024", "--batch-per-gpu", "2", "--devices", "2", "--repeats", "3",
            "--step-iters", "3"]
 #: The main paths, each run with the kernel counters set to 0 just before:
@@ -105,10 +121,13 @@ MAIN_PATHS = {
     "recurrentgemma-2b": (["--arch", "recurrentgemma-2b", "--num-layers", "3", *_COMMON],
                           ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv",
                            "rglru_fwd", "rglru_bwd")),
+    "rwkv6-1.6b": (["--arch", "rwkv6-1.6b", "--num-layers", "2", *_COMMON],
+                   ("wkv6_fwd", "wkv6_bwd")),
 }
 #: kernel module -> the TPU kernel its kernels replace (file:line)
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:35",
-            "rglru": "src/repro/kernels/rglru.py:30"}
+            "rglru": "src/repro/kernels/rglru.py:30",
+            "wkv6": "src/repro/kernels/wkv6.py:40"}
 
 
 def phase(name):
@@ -273,17 +292,80 @@ def check_rglru() -> dict:
     return worst
 
 
+def wkv6_inputs(B, S, H, hd, dtype, state=False, decay="mild", seed=0, **_):
+    """r, k (0.5 N(0, 1)), v, w, dout (B, S, H, hd) in ``dtype``; u (H, hd)
+    0.3 N(0, 1) f32; the state (B, H, hd, hd) f32 (None unless asked) and
+    a final-state cotangent ds_last (B, H, hd, hd) f32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    r, k, v, dout = 0.5 * mk(B, S, H, hd), 0.5 * mk(B, S, H, hd), mk(B, S, H, hd), \
+        mk(B, S, H, hd)
+    if decay == "strong":
+        w = 1e-3 + (0.2 - 1e-3) * torch.rand(B, S, H, hd, generator=g, device="cuda")
+    else:
+        w = torch.exp(-torch.exp(mk(B, S, H, hd) - (12.0 if decay == "one" else 3.0)))
+    u = 0.3 * mk(H, hd)
+    st = mk(B, H, hd, hd) if state else None
+    ds_last = mk(B, H, hd, hd)
+    r, k, v, w, dout = (t.to(dtype) for t in (r, k, v, w, dout))
+    if decay == "one" and not bool((w == 1.0).all()):
+        raise SystemExit("the w = 1 shape does not round w to 1.0")
+    return r, k, v, w, u, st, dout, ds_last
+
+
+@phase("wkv6 kernels vs plain")
+def check_wkv6() -> dict:
+    """``wkv6_fwd`` (out, s_last, the f32 checkpoints) against the plain
+    forward, and ``wkv6_bwd`` (dr, dk, dv, dw, du, ds0) against autograd
+    through ``ref.wkv6`` on the same inputs, element by element with
+    ``LIMITS`` by each output's dtype (float32 math on both sides; bf16
+    outputs round once)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+
+    worst: dict[str, float] = {}
+    failed: list[str] = []
+    for label, shp in WKV6_SHAPES:
+        r, k, v, w, u, st, dout, ds_last = wkv6_inputs(**shp)
+        out, s_last, ckpt = wk.fwd(r, k, v, w, u, st, save_ckpt=True)
+        got_bwd = wk.bwd(r, k, v, w, u, ckpt, dout, ds_last)
+        torch.cuda.synchronize()
+        p_out, p_s, p_ckpt = wk.plain_fwd(r, k, v, w, u, st, save_ckpt=True)
+        leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
+        if st is not None:
+            leaves.append(st.detach().requires_grad_())
+        o, s = ref.wkv6(*leaves[:5], state=leaves[5] if st is not None else None)
+        want_bwd = torch.autograd.grad((o, s), leaves, (dout, ds_last))
+        del o, s
+        pairs = {"wkv6_fwd": [(out, p_out), (s_last, p_s), (ckpt, p_ckpt)],
+                 "wkv6_bwd": list(zip(got_bwd, want_bwd))}
+        for name, items in pairs.items():
+            for got, want in items:
+                if not report(label, name, got, want, *LIMITS[got.dtype]):
+                    failed.append(f"{name} at {label}")
+                if label == "slice":
+                    worst[name] = max(worst.get(name, 0.0),
+                                      float((got.float() - want.float()).abs().max()))
+        del r, k, v, w, dout, out, ckpt, got_bwd, p_out, p_ckpt, leaves, want_bwd, pairs
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"wkv6 kernels disagree with their plain versions: {failed}")
+    return worst
+
+
 #: reduced models of the model check: arch -> (depth, kernel -> launches
 #: per unit in one forward)
 MODEL_CHECKS = {"qwen1.5-4b": (2, {"flash_fwd": 1}),
-                "recurrentgemma-2b": (3, {"flash_fwd": 1, "rglru_fwd": 2})}
+                "recurrentgemma-2b": (3, {"flash_fwd": 1, "rglru_fwd": 2}),
+                "rwkv6-1.6b": (2, {"wkv6_fwd": 1})}
 
 
 @phase("model on the card vs the CPU")
 def check_model() -> None:
-    """Reduced qwen1.5-4b (float32, 2 layers, head dim 64) and reduced
+    """Reduced qwen1.5-4b (float32, 2 layers, head dim 64), reduced
     recurrentgemma-2b (float32, RRL, rnn width 256, window 64 under 256
-    tokens): loss and every gradient leaf through the kernels on the card
+    tokens) and reduced rwkv6-1.6b (float32, 2 W layers, 4 wkv heads of
+    64): loss and every gradient leaf through the kernels on the card
     against the plain versions on the CPU, from the same parameters and
     batch.  Tolerance 1e-4 of each leaf's scale: both sides are float32
     (TF32 off), summed in different orders."""
@@ -387,6 +469,33 @@ def rglru_bounds(B, S, W, dtype, **_) -> dict:
     return out
 
 
+def wkv6_bounds(B, S, H, hd, dtype, **_) -> dict:
+    """Least time per wkv6 kernel at this shape, as on the main path (no
+    initial state; the forward saves the checkpoints; autograd hands the
+    backward a zero final-state cotangent): bytes count each input read
+    once and each output written once; operations are the float32
+    arithmetic the function needs, at the CUDA cores' float32 rate.
+    Forward: 5 per state entry and step (the r^T S FMA, the decay multiply,
+    the k v FMA) plus 5 per channel and step for the u bonus, taken as
+    (r . (u * k)) v_t. Backward: 14 per state entry and step (dr, dk and dw
+    FMAs, the dv product and its sum, the cotangent update, and rebuilding
+    S_{t-1} once)."""
+    from repro_torch.kernels.wkv6 import num_checkpoints
+
+    n, es = B * S * H * hd, torch.finfo(dtype).bits // 8
+    state, u = B * H * hd * hd * 4, H * hd * 4
+    ckpt, entries = num_checkpoints(S) * state, B * H * S * hd * hd
+    work = {  # name: (float32 operations, bytes)
+        "wkv6_fwd": (5 * entries + 5 * n, 4 * n * es + u + n * es + state + ckpt),
+        "wkv6_bwd": (14 * entries, 5 * n * es + u + ckpt + state + 4 * n * es + u + state),
+    }
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+    return out
+
+
 def library_times(q, k, v, o, do) -> dict:
     """scaled_dot_product_attention forward, its flash backward (one call
     giving dq, dk, dv), and ``torch.linalg.vecdot`` for delta (rowsum(dO *
@@ -472,12 +581,36 @@ def time_rglru(shp: dict, label: str) -> dict:
     return out
 
 
+def time_wkv6(shp: dict, label: str) -> dict:
+    """No single PyTorch call computes the wkv scan, so there is no library
+    time."""
+    from repro_torch.kernels import wkv6 as wk
+
+    r, k, v, w, u, _, dout, ds_last = wkv6_inputs(**shp, seed=1)
+    _, _, ckpt = wk.fwd(r, k, v, w, u, None, save_ckpt=True)
+    ds_last = torch.zeros_like(ds_last)
+    runs = {
+        "wkv6_fwd": (lambda: wk.fwd(r, k, v, w, u, None, save_ckpt=True),
+                     lambda: wk.plain_fwd(r, k, v, w, u, None, save_ckpt=True)),
+        "wkv6_bwd": (lambda: wk.bwd(r, k, v, w, u, ckpt, dout, ds_last),
+                     lambda: wk.plain_bwd(r, k, v, w, u, ckpt, dout, ds_last)),
+    }
+    bnd = wkv6_bounds(**shp)
+    out = {}
+    for name, (kern, plain) in runs.items():
+        out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=3, warmup=1),
+                     "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": None}
+        print_row(label, name, out[name])
+    return out
+
+
 @phase("timing")
 def time_kernels() -> dict:
     """Each kernel at its main path's shape (the kernels line); the flash
     kernels also at recurrentgemma-2b's local-attention shape (printed
     rows of their own)."""
-    timing = {**time_flash(SLICE, "slice"), **time_rglru(RGLRU_SLICE, "slice")}
+    timing = {**time_flash(SLICE, "slice"), **time_rglru(RGLRU_SLICE, "slice"),
+              **time_wkv6(WKV6_SLICE, "slice")}
     time_flash(L_BLOCK, "l_block")
     return timing
 
@@ -563,7 +696,7 @@ def main() -> int:
     print(card, flush=True)
 
     phase("build kernels")(kernels.load_libraries)()
-    worst = {**check_kernels(), **check_rglru()}
+    worst = {**check_kernels(), **check_rglru(), **check_wkv6()}
     check_model()
     timing = time_kernels()
 

@@ -12,6 +12,7 @@ from repro_torch.models.common import ModelConfig
 _MODULES = {
     "qwen1.5-4b": "repro_torch.configs.qwen15_4b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_16b",
 }
 
 ARCH_IDS = tuple(_MODULES)

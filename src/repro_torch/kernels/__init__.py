@@ -6,9 +6,9 @@ from __future__ import annotations
 
 def kernel_modules() -> tuple:
     """The modules that hold CUDA kernels, in a fixed order."""
-    from repro_torch.kernels import flash_attention, rglru
+    from repro_torch.kernels import flash_attention, rglru, wkv6
 
-    return (flash_attention, rglru)
+    return (flash_attention, rglru, wkv6)
 
 
 def all_launches() -> dict[str, int]:

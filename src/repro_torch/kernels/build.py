@@ -1,9 +1,10 @@
 """Build, load and launch the port's CUDA sources.
 
-Every kernel module (``flash_attention``, ``rglru``) keeps its source in
-``repro_torch/csrc/`` behind a plain C interface whose entry points take
-the stream last and return ``cudaGetLastError()``, and loads the library
-with ``ctypes`` (:func:`load`).  :func:`build` compiles sources for
+Every kernel module (``flash_attention``, ``rglru``, ``wkv6``) keeps its
+source in ``repro_torch/csrc/`` behind a plain C interface whose entry
+points take the stream last and return ``cudaGetLastError()``, and loads
+the library with ``ctypes`` (:func:`load`); :func:`check_same`,
+:func:`check_f32` and :func:`ptr` are the wrappers' shared input checks.  :func:`build` compiles sources for
 ``sm_90a`` into ``build/kernels/<name>-<source digest>.so`` at the
 checkout root (listed in ``.gitignore``), from the repository's sources
 only, at first use.
@@ -97,6 +98,22 @@ def raise_on(err: int, name: str) -> None:
     never runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def check_f32(name: str, t: torch.Tensor | None, shape: tuple, device) -> None:
+    """A float32 side input (None passes): contiguous, of ``shape``, on
+    ``device``."""
+    if t is None:
+        return
+    if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 tensor of shape {shape} "
+                         f"on {device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def ptr(t: torch.Tensor | None):
+    """``t``'s device address for an entry point, None (NULL) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def check_same(*ts: torch.Tensor) -> None:

@@ -3,19 +3,21 @@
 Counterpart of :mod:`repro.kernels.ops`.  ``impl``:
   * ``"ref"``    — plain PyTorch oracle (:mod:`repro_torch.kernels.ref`)
   * ``"kernel"`` — the Hopper kernels (:mod:`repro_torch.kernels.
-    flash_attention`, :mod:`repro_torch.kernels.rglru`); on CPU tensors
-    their plain versions
+    flash_attention`, :mod:`repro_torch.kernels.rglru`,
+    :mod:`repro_torch.kernels.wkv6`); on CPU tensors their plain versions
   * ``"auto"``   — ``kernel`` for CUDA tensors, ``ref`` for CPU tensors
 
-The reference's TPU gates (``S % 128``, ``hd % 128``, ``W % 128``) are not
-carried over: the kernels mask ragged edges, and on CUDA a case a kernel
-does not take raises, it never quietly takes ``ref``.
+The reference's TPU gates (``S % 128``, ``hd % 128``, ``W % 128``,
+``S % 64``) are not carried over: the kernels mask ragged edges, and on
+CUDA a case a kernel does not take raises, it never quietly takes
+``ref``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru as rg
+from repro_torch.kernels import wkv6 as wk
 
 IMPLS = ("auto", "ref", "kernel")
 
@@ -45,3 +47,10 @@ def rglru(x, r_gate, i_gate, lam, h0=None, impl: str = "auto"):
     if _resolve(impl, x) == "ref":
         return ref.rglru(x, r_gate, i_gate, lam, h0=h0)
     return rg.rglru(x, r_gate, i_gate, lam, h0)
+
+
+def wkv6(r, k, v, w, u, state=None, impl: str = "auto"):
+    """(out (B, S, H, hd) in r's dtype, final state (B, H, hd, hd) f32)."""
+    if _resolve(impl, r) == "ref":
+        return ref.wkv6(r, k, v, w, u, state=state)
+    return wk.wkv6(r, k, v, w, u, state)

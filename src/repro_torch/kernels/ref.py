@@ -1,11 +1,11 @@
 """Plain PyTorch oracles for the kernels.
 
 Counterpart of :func:`repro.kernels.ref.repeat_kv`,
-:func:`repro.kernels.ref.attention` and :func:`repro.kernels.ref.rglru`:
-the default implementation on the CPU, and the plain versions the kernels
-in :mod:`repro_torch.kernels.flash_attention` and
-:mod:`repro_torch.kernels.rglru` are held against on the card.  Their
-backward is autograd's.
+:func:`repro.kernels.ref.attention`, :func:`repro.kernels.ref.rglru` and
+:func:`repro.kernels.ref.wkv6`: the default implementation on the CPU, and
+the plain versions the kernels in :mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.rglru` and :mod:`repro_torch.kernels.wkv6` are
+held against on the card.  Their backward is autograd's.
 """
 from __future__ import annotations
 
@@ -87,3 +87,37 @@ def rglru(x, r_gate, i_gate, lam, h0=None):
     """(out (B, S, W) in x's dtype, h_final (B, W) f32)."""
     states, h = rglru_states(x, r_gate, i_gate, lam, h0)
     return states.to(x.dtype), h
+
+
+# ----------------------------------------------------------------------
+# RWKV6 "wkv" linear-attention scan with data-dependent decay (Finch).
+#   S_t = diag(w_t) S_{t-1} + k_t v_t^T
+#   o_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
+# r, k, v, w: (B, S, H, hd); u: (H, hd); per-head state S: (B, H, hd, hd)
+# (row i = key channel, column j = value channel).
+# ----------------------------------------------------------------------
+def wkv6_checkpointed(r, k, v, w, u, state=None, every: int = 0):
+    """(out (B, S, H, hd) in r's dtype, final state (B, H, hd, hd) f32, and
+    when ``every`` > 0 the states before steps 0, every, 2 * every, ...
+    stacked as (B, H, ceil(S / every), hd, hd) f32, else None): the
+    reference's f32 step scan, exact at any decay."""
+    B, S, H, hd = r.shape
+    st = torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device) \
+        if state is None else state.float()
+    rs, ks, vs, ws = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    outs, ckpt = [], []
+    for t in range(S):
+        if every and t % every == 0:
+            ckpt.append(st)
+        kv = ks[:, t, :, :, None] * vs[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rs[:, t], st + uf * kv))
+        st = ws[:, t, :, :, None] * st + kv
+    return (torch.stack(outs, dim=1).to(r.dtype), st,
+            torch.stack(ckpt, dim=2) if every else None)
+
+
+def wkv6(r, k, v, w, u, state=None):
+    """(out (B, S, H, hd) in r's dtype, final state (B, H, hd, hd) f32)."""
+    out, st, _ = wkv6_checkpointed(r, k, v, w, u, state)
+    return out, st

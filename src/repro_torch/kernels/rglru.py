@@ -43,7 +43,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import DTYPE_CODE, check_same, load, raise_on, stream
+from repro_torch.kernels.build import (DTYPE_CODE, check_f32, check_same, load, ptr,
+                                       raise_on, stream)
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rglru.cu"
 #: the grid's second axis is the batch
@@ -82,15 +83,6 @@ def load_library() -> ctypes.CDLL:
 # ----------------------------------------------------------------------
 # Checks
 # ----------------------------------------------------------------------
-def _check_f32(name: str, t: torch.Tensor | None, shape: tuple, device) -> None:
-    if t is None:
-        return
-    if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != device \
-            or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 tensor of shape {shape} "
-                         f"on {device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 def check_inputs(x, r_gate, i_gate, lam, h0=None) -> None:
     """Raise on anything the kernels do not take."""
     if x.dim() != 3 or r_gate.shape != x.shape or i_gate.shape != x.shape:
@@ -100,12 +92,8 @@ def check_inputs(x, r_gate, i_gate, lam, h0=None) -> None:
     if min(B, S, W) < 1 or B > MAX_BATCH:
         raise ValueError(f"(B, S, W) = {(B, S, W)}: each must be >= 1 and B <= {MAX_BATCH}")
     check_same(x, r_gate, i_gate)
-    _check_f32("lam", lam, (W,), x.device)
-    _check_f32("h0", h0, (B, W), x.device)
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
+    check_f32("lam", lam, (W,), x.device)
+    check_f32("h0", h0, (B, W), x.device)
 
 
 # ----------------------------------------------------------------------
@@ -165,8 +153,8 @@ def fwd(x, r_gate, i_gate, lam, h0=None, save_states=False):
     states = torch.empty(B, S, W, dtype=torch.float32, device=x.device) \
         if save_states else None
     err = load_library().rglru_fwd(
-        x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(), lam.data_ptr(), _ptr(h0),
-        out.data_ptr(), h_last.data_ptr(), _ptr(states), B, S, W, DTYPE_CODE[x.dtype],
+        x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(), lam.data_ptr(), ptr(h0),
+        out.data_ptr(), h_last.data_ptr(), ptr(states), B, S, W, DTYPE_CODE[x.dtype],
         stream())
     LAUNCHES["rglru_fwd"] += 1
     raise_on(err, "rglru_fwd")
@@ -181,8 +169,8 @@ def bwd(x, r_gate, i_gate, lam, h0, states, dout, dh_last=None):
     if dout.shape != x.shape:
         raise ValueError("dout must have x's shape")
     B, S, W = x.shape
-    _check_f32("states", states, (B, S, W), x.device)
-    _check_f32("dh_last", dh_last, (B, W), x.device)
+    check_f32("states", states, (B, S, W), x.device)
+    check_f32("dh_last", dh_last, (B, W), x.device)
     if states is None:
         raise ValueError("the backward needs the forward's f32 states")
     if not x.is_cuda:
@@ -191,8 +179,8 @@ def bwd(x, r_gate, i_gate, lam, h0, states, dout, dh_last=None):
     dlam_part = torch.empty(B, W, dtype=torch.float32, device=x.device)
     dh0 = torch.empty(B, W, dtype=torch.float32, device=x.device)
     err = load_library().rglru_bwd(
-        x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(), lam.data_ptr(), _ptr(h0),
-        states.data_ptr(), dout.data_ptr(), _ptr(dh_last), dx.data_ptr(), dr.data_ptr(),
+        x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(), lam.data_ptr(), ptr(h0),
+        states.data_ptr(), dout.data_ptr(), ptr(dh_last), dx.data_ptr(), dr.data_ptr(),
         di.data_ptr(), dlam_part.data_ptr(), dh0.data_ptr(), B, S, W,
         DTYPE_CODE[x.dtype], stream())
     LAUNCHES["rglru_bwd"] += 1

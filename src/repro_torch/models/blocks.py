@@ -1,10 +1,11 @@
 """Block registry for the ported kinds: ``G`` (global attention + MLP),
-``L`` (sliding-window attention + MLP) and ``R`` (RG-LRU recurrent block +
-MLP), pre-norm residual, with the dense (gated SiLU or GELU) MLP.
+``L`` (sliding-window attention + MLP), ``R`` (RG-LRU recurrent block +
+MLP), pre-norm residual, with the dense (gated SiLU or GELU) MLP; and ``W``
+(RWKV6 time mix + channel mix, pre-norm residual, no MLP).
 
-Counterpart of :mod:`repro.models.blocks` lines 28-122.  The ``W`` and
-``C`` kinds and MoE raise ``NotImplementedError`` until their slices land
-(``ROADMAP.md`` queue 1, items 9, 10 and 13).
+Counterpart of :mod:`repro.models.blocks` lines 28-122.  The ``C`` kind and
+MoE raise ``NotImplementedError`` until their slices land (``ROADMAP.md``
+queue 1, items 10 and 13).
 """
 from __future__ import annotations
 
@@ -17,7 +18,6 @@ from repro_torch.models.common import (ModelConfig, Params, apply_norm, dense_in
                                        init_norm)
 
 _NOT_PORTED = {
-    "W": "the RWKV6 block waits for ROADMAP.md queue 1 item 9 (recurrent blocks)",
     "C": "the cross-attention block waits for ROADMAP.md queue 1 item 13 (encoder-decoder)",
 }
 
@@ -25,7 +25,7 @@ _NOT_PORTED = {
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"block kind {kind!r}: {_NOT_PORTED[kind]}")
-    if kind not in ("G", "L", "R"):
+    if kind not in ("G", "L", "R", "W"):
         raise ValueError(f"unknown block kind {kind!r}")
     if cfg.num_experts:
         raise NotImplementedError("MoE waits for ROADMAP.md queue 1 item 10")
@@ -60,6 +60,11 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
                lead: tuple[int, ...] = ()) -> Params:
     _check_kind(cfg, kind)
+    if kind == "W":
+        return {"norm1": init_norm(cfg, device, lead),
+                "time_mix": rec.init_rwkv_time_mix(cfg, gen, device, lead),
+                "norm2": init_norm(cfg, device, lead),
+                "channel_mix": rec.init_rwkv_channel_mix(cfg, gen, device, lead)}
     if kind == "R":
         mixer = {"rglru": rec.init_rglru_block(cfg, gen, device, lead)}
     else:
@@ -74,6 +79,10 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor) -> torc
     MLP, the only one ported, so it is not returned."""
     _check_kind(cfg, kind)
     h = apply_norm(cfg, p["norm1"], x)
+    if kind == "W":
+        x = x + rec.rwkv_time_mix(cfg, p["time_mix"], h)
+        h = apply_norm(cfg, p["norm2"], x)
+        return x + rec.rwkv_channel_mix(cfg, p["channel_mix"], h)
     if kind == "R":
         x = x + rec.rglru_block(cfg, p["rglru"], h)
     else:

@@ -1,14 +1,19 @@
-"""The Griffin recurrent block (RecurrentGemma): input projections, the
-depthwise causal conv, the RG-LRU scan and the gated output.
+"""Recurrent blocks: the RWKV6 (Finch) time mix and channel mix, and the
+Griffin recurrent block (RecurrentGemma).
 
-Counterpart of :mod:`repro.models.recurrent` lines 108-156, train path
-only: the carried decode state (``state``) waits for the serving slice, and
-the RWKV6 mixers for theirs.  The scan is
+Counterpart of :mod:`repro.models.recurrent`, train path only: the carried
+decode state (``state``, ``x_prev``, the conv state) waits for the serving
+slice.  The scans are :func:`repro_torch.kernels.ops.wkv6` and
 :func:`repro_torch.kernels.ops.rglru`: the Hopper kernels on CUDA, the
-plain oracle on the CPU.  The numerics follow the reference step for step:
-the gate is the tanh-approximated GELU (``jax.nn.gelu``'s default) in f32;
-the conv accumulates its taps in f32; ``r_gate`` and ``i_gate`` go through
-f32 and back to the conv output's dtype before the scan.
+plain oracles on the CPU.  The numerics follow the reference step for step.
+RWKV6: the decay ``exp(-exp(w_raw + w_bias))`` is computed in f32 and cast
+to r's dtype before the scan; the per-head group norm is an RMS norm (no
+mean, eps 1e-6) in f32 times the f32 ``ln_scale``; the SiLU gate, the
+channel mix's squared ReLU and its sigmoid gate are f32, each cast back to
+the activations' dtype.  Griffin: the gate is the tanh-approximated GELU
+(``jax.nn.gelu``'s default) in f32; the conv accumulates its taps in f32;
+``r_gate`` and ``i_gate`` go through f32 and back to the conv output's
+dtype before the scan.
 """
 from __future__ import annotations
 
@@ -18,6 +23,99 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ModelConfig, Params, dense_init
 
+# ----------------------------------------------------------------------
+# RWKV6: time mix (wkv with data-dependent decay) + channel mix.  Heads of
+# size 64, as in the released models.
+# ----------------------------------------------------------------------
+RWKV_HEAD_DIM = 64
+
+
+def rwkv_heads(cfg: ModelConfig) -> int:
+    if cfg.d_model % RWKV_HEAD_DIM:
+        raise ValueError(f"d_model {cfg.d_model} is not a multiple of {RWKV_HEAD_DIM}")
+    return cfg.d_model // RWKV_HEAD_DIM
+
+
+def init_rwkv_time_mix(cfg: ModelConfig, gen: torch.Generator, device,
+                       lead: tuple[int, ...] = ()) -> Params:
+    """``lead`` prepends axes (the stacked unit axis) to every leaf.
+    ``w_bias``, ``u`` and ``ln_scale`` are float32 whatever the model's
+    dtype."""
+    d, H = cfg.d_model, rwkv_heads(cfg)
+
+    def dense():
+        return dense_init(gen, (*lead, d, d), cfg.dtype, device, in_axis_size=d)
+
+    return {
+        # token-shift interpolation weights, one per projection: r, k, v, w, g
+        "mu": torch.full((*lead, 5, d), 0.5, dtype=cfg.dtype, device=device),
+        "wr": dense(), "wk": dense(), "wv": dense(),
+        "ww": dense(),                                   # data-dependent decay
+        "wg": dense(),
+        "w_bias": torch.full((*lead, d), -6.0, dtype=torch.float32, device=device),
+        "u": dense_init(gen, (*lead, H, RWKV_HEAD_DIM), torch.float32, device,
+                        in_axis_size=H),                 # bonus
+        "wo": dense(),
+        "ln_scale": torch.ones((*lead, d), dtype=torch.float32, device=device),
+    }
+
+
+def _token_shift(x: torch.Tensor) -> torch.Tensor:
+    """x_{t-1} at each t, zeros before the first token (a fresh sequence)."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  The reference also returns the final wkv
+    state and the last token, which the train path drops."""
+    B, S, d = x.shape
+    H, hd = rwkv_heads(cfg), RWKV_HEAD_DIM
+    x_shift = _token_shift(x)
+
+    def lerp(i):
+        return x + (x_shift - x) * p["mu"][i]
+
+    r = (lerp(0) @ p["wr"]).reshape(B, S, H, hd)
+    k = (lerp(1) @ p["wk"]).reshape(B, S, H, hd)
+    v = (lerp(2) @ p["wv"]).reshape(B, S, H, hd)
+    w_raw = (lerp(3) @ p["ww"]).float()
+    g = lerp(4) @ p["wg"]
+    # decay in (0, 1), data-dependent (the Finch contribution)
+    w = torch.exp(-torch.exp(w_raw + p["w_bias"])).reshape(B, S, H, hd)
+    out, _ = kops.wkv6(r, k, v, w.to(r.dtype), p["u"])
+    # per-head group norm: an RMS norm over each head's channels
+    of = out.float()
+    of = of * torch.rsqrt(of.square().mean(dim=-1, keepdim=True) + 1e-6)
+    out = (of.reshape(B, S, d) * p["ln_scale"]).to(x.dtype)
+    out = out * F.silu(g.float()).to(x.dtype)
+    return out @ p["wo"]
+
+
+def init_rwkv_channel_mix(cfg: ModelConfig, gen: torch.Generator, device,
+                          lead: tuple[int, ...] = ()) -> Params:
+    d, ff = cfg.d_model, cfg.d_ff
+    return {
+        "mu": torch.full((*lead, 2, d), 0.5, dtype=cfg.dtype, device=device),
+        "wk": dense_init(gen, (*lead, d, ff), cfg.dtype, device, in_axis_size=d),
+        "wv": dense_init(gen, (*lead, ff, d), cfg.dtype, device, in_axis_size=ff),
+        "wr": dense_init(gen, (*lead, d, d), cfg.dtype, device, in_axis_size=d),
+    }
+
+
+def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d): squared-ReLU key, sigmoid receptance gate.
+    The reference also returns the last token, which the train path drops."""
+    x_shift = _token_shift(x)
+    xk = x + (x_shift - x) * p["mu"][0]
+    xr = x + (x_shift - x) * p["mu"][1]
+    kk = torch.relu((xk @ p["wk"]).float()).square().to(x.dtype)
+    r = torch.sigmoid((xr @ p["wr"]).float())
+    return r.to(x.dtype) * (kk @ p["wv"])
+
+
+# ----------------------------------------------------------------------
+# RG-LRU block (RecurrentGemma): proj-in (x2), conv1d, RG-LRU, gated out.
+# ----------------------------------------------------------------------
 
 def init_rglru_block(cfg: ModelConfig, gen: torch.Generator, device,
                      lead: tuple[int, ...] = ()) -> Params:

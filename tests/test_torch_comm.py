@@ -1,6 +1,7 @@
 """The port's data-parallel S-SGD step on a 2-process gloo group (CPU),
 for each measured arch (qwen1.5-4b; recurrentgemma-2b, whose tied embedding
-is one leaf with two uses and is all-reduced once).
+is one leaf with two uses and is all-reduced once; rwkv6-1.6b, whose ``W``
+blocks carry float32 leaves beside the bf16 ones at full width).
 
 Two ranks (separate processes, a ``file://`` rendezvous) each take their
 half of a global batch and run one step of
@@ -43,9 +44,10 @@ from repro_torch.measure import calibrate as tcal
 from repro_torch.models import transformer as TT
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
-ARCHS = ("qwen1.5-4b", "recurrentgemma-2b")
+ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b")
 #: one whole layer pattern at least: recurrentgemma's RRL needs 3 layers
-REDUCED = {"qwen1.5-4b": dict(num_layers=2), "recurrentgemma-2b": dict(num_layers=3)}
+REDUCED = {"qwen1.5-4b": dict(num_layers=2), "recurrentgemma-2b": dict(num_layers=3),
+           "rwkv6-1.6b": dict(num_layers=2)}
 POLICIES = ("at_end", "wfbp", "bucketed")
 BUCKET_BYTES = 2e5          # several buckets at the reduced size
 LR, MOMENTUM = 0.1, 0.9

@@ -30,7 +30,8 @@ def test_every_port_module_is_found():
                  "repro_torch.comm.sync", "repro_torch.models.transformer",
                  "repro_torch.traces.format", "repro_torch.measure.__main__",
                  "repro_torch.kernels.rglru", "repro_torch.kernels.build",
-                 "repro_torch.models.recurrent", "repro_torch.configs.recurrentgemma_2b"):
+                 "repro_torch.models.recurrent", "repro_torch.configs.recurrentgemma_2b",
+                 "repro_torch.kernels.wkv6", "repro_torch.configs.rwkv6_16b"):
         assert must in names
 
 
@@ -40,10 +41,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         f"for name in {_port_modules()!r}:\n"
         "    if not name.endswith('__main__'):\n"
         "        importlib.import_module(name)\n"
-        "from repro_torch.kernels import flash_attention as fa, rglru as rg\n"
+        "from repro_torch.kernels import flash_attention as fa, rglru as rg, wkv6 as wk\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
-        "print(json.dumps({'bad': bad, 'lib': fa._lib is None and rg._lib is None}))\n")
+        "print(json.dumps({'bad': bad,\n"
+        "                  'lib': fa._lib is None and rg._lib is None and wk._lib is None}))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                        timeout=120)

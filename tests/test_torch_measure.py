@@ -39,7 +39,7 @@ from repro_torch.traces import format as tformat
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 ARCH = "qwen1.5-4b"
-ARCHS = ("qwen1.5-4b", "recurrentgemma-2b")
+ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b")
 
 
 class TestCopies:
@@ -118,12 +118,16 @@ class TestCalibrate:
     @pytest.mark.parametrize("arch,depth,unit_params,rest_params", [
         ("qwen1.5-4b", 2, 79.3e6, 777.9e6),
         ("recurrentgemma-2b", 3, 256.9e6, 655.4e6),
+        ("rwkv6-1.6b", 2, 58.76e6, 268.44e6),
     ])
     def test_full_width_payloads(self, arch, depth, unit_params, rest_params):
         """At the published widths: a qwen1.5-4b unit is 79.3 M parameters
         (158.6 MB in bf16), embedding + untied head 777.9 M; a
         recurrentgemma-2b RRL unit is 256.9 M (two RG-LRU blocks of 91.8 M,
-        a local-attention block of 73.4 M), the tied embedding 655.4 M."""
+        a local-attention block of 73.4 M), the tied embedding 655.4 M; a
+        rwkv6-1.6b W unit is 58.7 M bf16 parameters and 14 336 float32 ones
+        (``w_bias``, ``u``, ``ln_scale``, the layer norms), 117.5 MB, counted
+        here in bf16 equivalents; embedding + untied head 268.4 M."""
         cfg = dataclasses.replace(torch_get_config(arch), num_layers=depth)
         unit, rest = tcal.grad_payload_bytes(cfg)
         assert unit / 2 == pytest.approx(unit_params, rel=1e-3)
@@ -137,6 +141,7 @@ class TestRunner:
     @pytest.mark.parametrize("arch,widths", [
         ("qwen1.5-4b", (2560, 20, 6912, 151_936)),
         ("recurrentgemma-2b", (2560, 10, 7680, 256_000)),
+        ("rwkv6-1.6b", (2048, 32, 7168, 65_536)),
     ])
     def test_config_for_published_width_and_reduced(self, arch, widths):
         full = trun.config_for(arch, trun.Geometry(num_layers=2))
@@ -149,12 +154,13 @@ class TestRunner:
     @pytest.mark.parametrize("arch,layers,units,depths", [
         ("qwen1.5-4b", 2, 2, (2, 4)),
         ("recurrentgemma-2b", 3, 1, (1, 2)),
+        ("rwkv6-1.6b", 2, 2, (2, 4)),
     ])
     def test_default_num_layers_is_one_pattern_and_at_least_two(self, arch, layers, units,
                                                                 depths):
-        """``--num-layers`` left out: qwen1.5-4b (``G``) 2 layers, 2 units;
-        recurrentgemma-2b (``RRL``) 3 layers, one unit, segmented at 1 and 2
-        units (3 and 6 layers)."""
+        """``--num-layers`` left out: qwen1.5-4b (``G``) and rwkv6-1.6b
+        (``W``) 2 layers, 2 units; recurrentgemma-2b (``RRL``) 3 layers, one
+        unit, segmented at 1 and 2 units (3 and 6 layers)."""
         assert trun.Geometry().num_layers is None
         cfg = trun.config_for(arch, trun.Geometry())
         assert (cfg.num_layers, cfg.num_units, cfg.remainder_pattern) == (layers, units, "")
@@ -197,13 +203,17 @@ def smoke_run(request, tmp_path_factory):
 
 class TestSmokeMeasurement:
     def test_trace_reads_back_with_the_layers_and_payloads(self, smoke_run):
-        """qwen1.5-4b's 4 smoke layers are 4 units; recurrentgemma-2b's are
-        one RRL unit and a remaining R block, counted with the rest."""
+        """qwen1.5-4b's and rwkv6-1.6b's 4 smoke layers are 4 units;
+        recurrentgemma-2b's are one RRL unit and a remaining R block, counted
+        with the rest.  The per-layer times are what the run determines, not
+        CPU timings judged by size: each unit row holds the JSON's unit
+        segment, the first row the rest's, times 1e6 (a segment is a clamped
+        slope of two noisy timings and may be 0 on a shared CPU)."""
         out, doc, arch = smoke_run
         trace = jformat.read_trace(out / f"{arch}.trace")
         cfg = trun.config_for(arch, trun.SMOKE_GEOMETRY)
         unit, rest = tcal.grad_payload_bytes(cfg)
-        n = {"qwen1.5-4b": 4, "recurrentgemma-2b": 1}[arch]
+        n = {"qwen1.5-4b": 4, "recurrentgemma-2b": 1, "rwkv6-1.6b": 4}[arch]
         assert cfg.num_units == n == doc["num_units"]
         assert trace.cluster == "torch-cpu-gloo-x2"
         assert trace.batch_per_gpu == 2 and trace.bytes_per_sample == 8.0 * 32
@@ -211,7 +221,12 @@ class TestSmokeMeasurement:
         assert [r.name for r in recs] == ["embed_head"] + [f"unit{i}" for i in range(n)]
         assert [r.size_bytes for r in recs] == [rest] + [unit] * n
         assert all(r.forward_us >= 0 and r.backward_us >= 0 and r.comm_us > 0 for r in recs)
-        assert recs[1].forward_us > 0
+        seg = doc["segments"]
+        assert (recs[0].forward_us, recs[0].backward_us) == \
+            (seg["rest_fwd_s"] * 1e6, seg["rest_bwd_s"] * 1e6)
+        for r in recs[1:]:
+            assert (r.forward_us, r.backward_us) == \
+                (seg["unit_fwd_s"] * 1e6, seg["unit_bwd_s"] * 1e6)
 
     def test_json_records_the_run(self, smoke_run):
         _, doc, arch = smoke_run
@@ -230,7 +245,8 @@ class TestSmokeMeasurement:
         # on the CPU the wrappers run their plain versions and count nothing
         assert doc["kernel_launches"] == {name: 0 for name in all_launches()}
         assert set(doc["kernel_launches"]) == {"flash_fwd", "flash_bwd_delta", "flash_bwd_dq",
-                                               "flash_bwd_dkdv", "rglru_fwd", "rglru_bwd"}
+                                               "flash_bwd_dkdv", "rglru_fwd", "rglru_bwd",
+                                               "wkv6_fwd", "wkv6_bwd"}
         lat, bw = doc["allreduce_fit"].values()
         assert lat >= 0 and bw > 0
 
@@ -242,7 +258,8 @@ class TestSmokeMeasurement:
         norms = doc["policy_momentum_norms"]
         assert set(norms) == {"at_end", "wfbp", "bucketed"}
         leaves = list(norms["at_end"])
-        mixer = {"qwen1.5-4b": "units/b0/attn/wq", "recurrentgemma-2b": "units/b0/rglru/lam"}
+        mixer = {"qwen1.5-4b": "units/b0/attn/wq", "recurrentgemma-2b": "units/b0/rglru/lam",
+                 "rwkv6-1.6b": "units/b0/time_mix/u"}
         assert "embedding" in leaves and mixer[arch] in leaves
         for leaf in leaves:
             vals = [norms[pol][leaf] for pol in norms]

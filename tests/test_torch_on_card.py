@@ -1,5 +1,5 @@
-"""The flash-attention and RG-LRU kernels against their plain versions on
-the card.
+"""The flash-attention, RG-LRU and wkv6 kernels against their plain
+versions on the card.
 
 Imports no JAX, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_on_card.py``.
@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru as rg
+from repro_torch.kernels import wkv6 as wk
 
 LIMITS = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (2e-4, 2e-4)}
 
@@ -118,3 +119,50 @@ class TestRGLRUOnCard:
             ops.rglru(x.half(), r.half(), i.half(), lam)
         with pytest.raises(ValueError, match="lam"):
             ops.rglru(x, r, i, lam.to(torch.bfloat16))
+
+
+def _wkv6_inputs(B, S, H, hd, dtype, strong=False):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    r, k, v, dout = 0.5 * mk(B, S, H, hd), 0.5 * mk(B, S, H, hd), mk(B, S, H, hd), \
+        mk(B, S, H, hd)
+    w = 1e-3 + 0.2 * torch.rand(B, S, H, hd, generator=g, device="cuda") if strong else \
+        torch.exp(-torch.exp(mk(B, S, H, hd) - 3.0))
+    u, s0, ds_last = 0.3 * mk(H, hd), mk(B, H, hd, hd), mk(B, H, hd, hd)
+    return [t.to(dtype) for t in (r, k, v, w)] + [u, s0, dout.to(dtype), ds_last]
+
+
+class TestWKV6OnCard:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,S,H,hd,strong,with_state", [(2, 256, 4, 64, False, False),
+                                                            (1, 300, 2, 32, False, True),
+                                                            (2, 130, 2, 64, True, True)])
+    def test_kernels_vs_plain(self, dtype, B, S, H, hd, strong, with_state):
+        r, k, v, w, u, s0, dout, ds_last = _wkv6_inputs(B, S, H, hd, dtype, strong)
+        s0 = s0 if with_state else None
+        out, s_last, ckpt = wk.fwd(r, k, v, w, u, s0, save_ckpt=True)
+        got = wk.bwd(r, k, v, w, u, ckpt, dout, ds_last)
+        p_out, p_s, p_ckpt = wk.plain_fwd(r, k, v, w, u, s0, save_ckpt=True)
+        want = wk.plain_bwd(r, k, v, w, u, ckpt, dout, ds_last)
+        for what, a, b in (("out", out, p_out), ("s_last", s_last, p_s), ("ckpt", ckpt, p_ckpt),
+                           *zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want)):
+            _assert_close(a, b, what)
+
+    def test_ops_autograd_vs_ref_float32(self):
+        r, k, v, w, u, s0, dout, _ = _wkv6_inputs(2, 200, 2, 64, torch.float32)
+        wk.reset_launches()
+        outs = []
+        for impl in ("kernel", "ref"):
+            leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u, s0)]
+            out, _ = ops.wkv6(*leaves[:5], state=leaves[5], impl=impl)
+            outs.append([out.detach(), *torch.autograd.grad(out, leaves, dout)])
+        assert wk.LAUNCHES == {"wkv6_fwd": 1, "wkv6_bwd": 1}, wk.LAUNCHES
+        for what, got, want in zip(("out", "dr", "dk", "dv", "dw", "du", "ds0"), *outs):
+            _assert_close(got, want, what)
+
+    def test_unsupported_case_raises_on_the_card(self):
+        r, k, v, w, u, _, _, _ = _wkv6_inputs(1, 16, 2, 64, torch.float32)
+        with pytest.raises(ValueError, match="dtype"):
+            ops.wkv6(r.half(), k.half(), v.half(), w.half(), u)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.wkv6(*(t[..., :48].contiguous() for t in (r, k, v, w)), u[:, :48].contiguous())
