@@ -4,12 +4,17 @@ Phases, in order; any failure ends the script with a non-zero code:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every kernel library from ``src/repro_torch/csrc`` (flash
-   attention, RG-LRU and wkv6, one ``nvcc`` each, at once);
+   attention, RG-LRU and wkv6, one ``nvcc`` each, at once); print the flash
+   backward kernels' ``-Xptxas -v`` lines, each bfloat16 instantiation's
+   registers, shared memory and CTAs per SM, and their HMMA count in the
+   SASS (fails on a spill or a tensor-core kernel without HMMA);
 3. hold every flash kernel (forward, delta, dq, dk/dv) against its plain
    PyTorch version on the card, element by element, at qwen1.5-4b's
    shape, at recurrentgemma-2b's local-attention shape (hd 256, one KV
    head) and at a GQA + window (hd 256) shape in bfloat16 and in float32,
-   and at a ragged and two more float32 shapes; hold the differentiable
+   and at a ragged and two more float32 shapes, and in bfloat16 at hd 64,
+   hd 32 ragged and hd 256 ragged with two kv heads (the tensor-core
+   backward's other instantiations); hold the differentiable
    attention against autograd through ``ref.attention``; hold the RG-LRU
    forward against its plain version and its backward against autograd
    through ``ref.rglru``, at recurrentgemma-2b's shape in bfloat16 and
@@ -20,7 +25,8 @@ Phases, in order; any failure ends the script with a non-zero code:
    decays (w down to 1e-3) and where bfloat16 rounds w to exactly 1; hold
    a reduced qwen1.5-4b's, recurrentgemma-2b's and rwkv6-1.6b's loss and
    gradients on the card (through the kernels) against the same model on
-   the CPU (plain versions);
+   the CPU (plain versions); run the bfloat16 flash backward twice at the
+   main paths' shapes and require bitwise-equal dq, dk and dv;
 4. time each kernel, its plain version, its bound and the PyTorch library
    call that computes the same function (``scaled_dot_product_attention``
    and its backward, timed here only and never called by the port; none
@@ -40,6 +46,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -90,6 +98,12 @@ CHECK_SHAPES = [
     ("f32_gqa_window", dict(B=1, S=2048, H=4, K=1, hd=256, window=512, dtype=torch.float32)),
     ("f32_hd64", dict(B=2, S=512, H=4, K=2, hd=64, window=100, dtype=torch.float32)),
     ("f32_hd32_ragged", dict(B=1, S=300, H=2, K=1, hd=32, window=32, dtype=torch.float32)),
+    # the bfloat16 backward's tensor-core instantiations the shapes above
+    # leave out: hd 64, hd 32 ragged, hd 256 ragged with two kv heads
+    ("hd64", dict(B=2, S=512, H=4, K=2, hd=64, window=100, dtype=torch.bfloat16)),
+    ("hd32_ragged", dict(B=1, S=300, H=2, K=1, hd=32, window=32, dtype=torch.bfloat16)),
+    ("hd256_ragged_gqa", dict(B=1, S=1000, H=8, K=2, hd=256, window=None,
+                              dtype=torch.bfloat16)),
 ]
 # recurrentgemma-2b's RG-LRU shape at batch_per_gpu 2, seq 1024 (W = rnn_width).
 RGLRU_SLICE = dict(B=2, S=1024, W=2560, dtype=torch.bfloat16)
@@ -223,6 +237,87 @@ def check_kernels() -> dict:
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: {failed}")
     return worst
+
+
+@phase("flash backward determinism")
+def check_determinism() -> None:
+    """``bwd_dq`` and ``bwd_dkdv`` twice on the same inputs at the main
+    paths' shapes: dq, dk and dv must be bitwise equal (no atomics; the
+    group partials are summed in a fixed order)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    failed = []
+    for label, shp in (("slice", SLICE), ("l_block", L_BLOCK)):
+        q, k, v, do = make_inputs(**shp, seed=2)
+        o, lse = fa.fwd(q, k, v, True, shp["window"])
+        delta = fa.bwd_delta(o, do)
+        runs = [(fa.bwd_dq(q, k, v, do, lse, delta, True, shp["window"]),
+                 *fa.bwd_dkdv(q, k, v, do, lse, delta, True, shp["window"])) for _ in range(2)]
+        same = {name: torch.equal(a, b) for name, a, b in zip(("dq", "dk", "dv"), *runs)}
+        print(f"  {label:15s} bitwise equal over two runs: {same}", flush=True)
+        if not all(same.values()):
+            failed.append(label)
+        del q, k, v, do, o, lse, delta, runs
+    if failed:
+        raise SystemExit(f"the flash backward is not deterministic at {failed}")
+
+
+def _kernel_label(mangled: str) -> str:
+    """flash_bwd_dq_mma_kernel<bf16,128,4,64> from a mangled name."""
+    name = re.search(r"flash_(?:fwd|bwd)\w*?_kernel", mangled).group()
+    dtype = "f32" if re.search(r"_kernelIf", mangled) else "bf16"
+    args = [dtype, *re.findall(r"Li(\d+)E", mangled)]
+    return f"{name}<{','.join(args)}>"
+
+
+@phase("flash backward build")
+def report_flash_build() -> None:
+    """For every flash backward kernel: its ``-Xptxas -v`` lines from the
+    build log (registers, spills), the CUDA runtime's registers, dynamic
+    shared memory and CTAs per SM of each bfloat16 instantiation, and the
+    HMMA instructions in its SASS (``cuobjdump -sass``).  Fails if a
+    tensor-core kernel spills or has no HMMA."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.build import library_path
+
+    lib = library_path(fa.SOURCE)
+    failed, cur, info = [], None, {}
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1) if re.search(r"flash_bwd_d(?:q|kdv)", m.group(1)) else None
+        elif cur and ("spill" in line or "Used" in line):
+            info.setdefault(_kernel_label(cur), []).append(line.strip())
+    for label, lines in sorted(info.items()):
+        print(f"  ptxas {label}: {' | '.join(lines)}", flush=True)
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", " ".join(lines))]
+        if "_mma_" in label and any(spills):
+            failed.append(f"{label} spills")
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        for hd in fa.SUPPORTED_HEAD_DIMS:
+            print(f"  runtime {kernel} bf16 hd {hd}: {fa.bwd_occupancy(kernel, hd)}", flush=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("  cuobjdump not found: HMMA not counted", flush=True)
+    else:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+        counts, cur = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                cur = _kernel_label(m.group(1)) if re.search(r"flash_bwd_d(?:q|kdv)",
+                                                             m.group(1)) else None
+                if cur:
+                    counts[cur] = 0
+            elif cur and "HMMA" in line:
+                counts[cur] += 1
+        for label, n in sorted(counts.items()):
+            print(f"  sass {label}: {n} HMMA", flush=True)
+            if "_mma_" in label and n == 0:
+                failed.append(f"{label} has no HMMA")
+    if failed:
+        raise SystemExit(f"flash backward build: {failed}")
 
 
 def autograd_vs_ref(q, k, v, do, window):
@@ -553,6 +648,10 @@ def time_flash(shp: dict, label: str) -> dict:
                      "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
                      "library_ms": lib.get(name)}
         print_row(label, name, out[name])
+    pair = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkdv"]["ms"]
+    lib_bwd = out["flash_bwd_dq"]["library_ms"]
+    print(f"  {label:8s} backward pair (dq + dk/dv) {pair:.4f} ms; library backward "
+          f"{'not timed' if lib_bwd is None else f'{lib_bwd:.4f} ms'}", flush=True)
     del q, k, v, do, o, lse, delta, runs
     torch.cuda.empty_cache()
     return out
@@ -696,8 +795,10 @@ def main() -> int:
     print(card, flush=True)
 
     phase("build kernels")(kernels.load_libraries)()
+    report_flash_build()
     worst = {**check_kernels(), **check_rglru(), **check_wkv6()}
     check_model()
+    check_determinism()
     timing = time_kernels()
 
     launches: dict[str, int] = {}

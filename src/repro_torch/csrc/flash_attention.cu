@@ -17,23 +17,54 @@
 // heads of 128, causal, bf16) the forward does ~255 operations per byte it
 // must move, just under the H100's ridge of ~295, so moving bytes bounds it
 // (12.6 us); the backward does ~2.5x the operations on ~2x the bytes, so
-// the tensor cores' rate bounds it (16 us dq, 22 us dk/dv).  This first
-// version does the arithmetic in float32 FMA on the CUDA cores (67 TFLOP/s
-// peak, not 989), from shared-memory tiles held in float32 with one padding
-// column so that the inner loops read without bank conflicts, and a 4 x k
-// register block per thread.  So FMA issue and shared-memory reads bound
-// it, far above either bound (times in PERF.md); mma/wgmma tiles fed by
-// TMA are the next step.
+// the tensor cores' rate bounds it (16 us dq, 22 us dk/dv).
 //
-// Four kernels:
+// The forward, delta, and the float32 backward do their arithmetic in
+// float32 FMA on the CUDA cores (67 TFLOP/s peak, not 989), from
+// shared-memory tiles held in float32 with one padding column so that the
+// inner loops read without bank conflicts, and a 4 x k register block per
+// thread: FMA issue and shared-memory reads bound them, far above either
+// bound (times in PERF.md).  float32 stays there because TF32 would not
+// meet its 2e-4 check.
+//
+// The bfloat16 backward (flash_bwd_dq_mma, flash_bwd_dkdv_mma) runs on the
+// tensor cores: all five products are mma.sync.m16n8k16 bf16 -> f32, with
+// operands read by ldmatrix from bf16 shared tiles whose rows are padded by
+// 16 bytes (no bank conflicts).  Each warp owns 16 rows: the accumulators
+// of its S and dP block (m16n8, f32) turn into the A operand of the second
+// products (dV += P^T dO, dK += dS^T Q, dQ += dS K) in registers, never
+// through shared memory.  P and dS enter those products as a hi + lo pair of
+// bf16 values (hi = bf16(x), lo = bf16(x - hi)), two mma each, so they keep
+// ~16 mantissa bits: rounded once to bf16 they would put dq, dk and dv far
+// over the bf16 check's limit (6-13x at the reduced shapes of
+// tests/test_torch_flash_rounding.py, which pins this).  The split costs
+// 12 pairs*hd FLOPs in dk/dv and 8 in dq, against the function's 8 and 6.
+// The streamed tiles (Q, dO and their lse and
+// delta in dk/dv; K, V in dq) go through a two-stage cp.async ring, the
+// next tile loading while this one computes; rows at or past S are
+// zero-filled by the copy.  dk/dv has one CTA per (kv tile, query head,
+// batch): with more than one query head per kv head it writes float32
+// partials per query head, which the wrapper sums over the group (no
+// atomics: bitwise the same from run to run).  They still take 6-12x their
+// operations bound (PERF.md): what holds them there (mma.sync issue, the
+// ldmatrix reads, the exp of every score, a 4-warp CTA per SM at hd 256 in
+// dq) is not measured apart; wgmma fed by TMA is the next step.
+//
+// Six kernels:
 //   flash_fwd       one CTA per (q tile, head, batch); the kv loop runs inside
 //                   the CTA (the TPU's sequential grid axis); running max, sum
 //                   and accumulator in f32; writes o and the row logsumexp.
 //   flash_bwd_delta delta = rowsum(dO * O), one warp per row.
-//   flash_bwd_dkdv  one CTA per (kv tile, kv head, batch); loops over the G
-//                   query heads of its group and the q tiles the mask allows,
-//                   so dk/dv of a GQA group are reduced with no atomics.
-//   flash_bwd_dq    one CTA per (q tile, head, batch), looping over kv tiles.
+//   flash_bwd_dkdv  (float32) one CTA per (kv tile, kv head, batch); loops
+//                   over the G query heads of its group and the q tiles the
+//                   mask allows, so dk/dv of a GQA group are reduced with no
+//                   atomics.
+//   flash_bwd_dq    (float32) one CTA per (q tile, head, batch), looping over
+//                   kv tiles.
+//   flash_bwd_dkdv_mma (bfloat16) one CTA per (kv tile, query head, batch),
+//                   heaviest causal kv tiles first.
+//   flash_bwd_dq_mma   (bfloat16) one CTA per (q tile, head, batch),
+//                   heaviest causal q tiles first.
 //
 // Every entry point launches on the stream it is given and returns
 // cudaGetLastError() (0 on success).
@@ -41,6 +72,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -480,13 +513,416 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 backward on the tensor cores
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bf16 matrices; lane i gives the address of row i % 8 of
+// matrix i / 8 and receives, of each, row lane / 4, columns 2 (lane % 4)
+// and +1 (with .trans: of the transposed matrix).
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) as hi + lo, both packed bf16 pairs: hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// The A operand (hi and lo) of a 16 x 16 block held as two m16n8
+// accumulators t0 (columns 0-7) and t1 (columns 8-15): the accumulator's
+// (row, column pair) layout is the A fragment's.
+__device__ __forceinline__ void to_a_frag(const float (&t0)[4], const float (&t1)[4],
+                                          uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_pair(t0[0], t0[1], hi[0], lo[0]);
+  split_pair(t0[2], t0[3], hi[1], lo[1]);
+  split_pair(t1[0], t1[1], hi[2], lo[2]);
+  split_pair(t1[2], t1[3], hi[3], lo[3]);
+}
+
+// cp.async of 16 (or 4) bytes; src_bytes 0 fills the destination with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of one head (row stride `stride` elements) into
+// dst[r * (HD + 8) + d], asynchronously; rows at or past S are zeros.
+template <int ROWS, int HD, int NT>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int row0, int S,
+                                                int stride) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
+    const int r = idx / CPR, c = idx - r * CPR, pos = row0 + r;
+    cp_async16(dst + r * (HD + 8) + c * 8, src + (size_t)(pos < S ? pos : 0) * stride + c * 8,
+               pos < S ? 16 : 0);
+  }
+}
+template <int ROWS, int NT>
+__device__ __forceinline__ void load_stats_async(float* dst, const float* src, int row0, int S) {
+  for (int r = threadIdx.x; r < ROWS; r += NT) {
+    const int pos = row0 + r;
+    cp_async4(dst + r, src + (pos < S ? pos : 0), pos < S ? 4 : 0);
+  }
+}
+
+// dk, dv for bfloat16.  CTA: BC = 16 NW kv rows of one query head h, in
+// HD / DV groups of NW warps, group c owning output columns [c DV, c DV +
+// DV) (DV < HD: each group recomputes the scores, from the same shared
+// tiles).  Warp w of a group owns kv rows 16w..16w+15 and, per 16-row q
+// chunk, builds S^T = K Q^T and dP^T = V dO^T (16 x 16 f32), then P^T, dS^T
+// and feeds them as A to dV += P^T dO and dK += dS^T Q.  G = 1: writes dk,
+// dv in bf16 (B, S, KH, HD); G > 1: float32 partials per query head
+// (B, S, H, HD).
+template <int HD, int DV, int NW, int BR>
+__global__ void __launch_bounds__(NW * 32 * (HD / DV), 1)  // up to 255 registers: no spills
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          void* __restrict__ dk, void* __restrict__ dv, int S, int H, int KH,
+                          int causal, int window, float scale) {
+  constexpr int NT = NW * 32 * (HD / DV), BC = 16 * NW, LDS = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + BC * LDS;
+  bf16* Qs = Vs + BC * LDS;        // two stages of BR x LDS
+  bf16* dOs = Qs + 2 * BR * LDS;   // two stages
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BR * LDS);  // two stages of BR
+  float* Ds = Ls + 2 * BR;
+
+  const int k0 = blockIdx.y * BC;  // y = 0 first: the lowest kv tile sees the most q tiles
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int G = H / KH, kh = h / G;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = (threadIdx.x >> 5) % NW, dv0 = (threadIdx.x >> 5) / NW * DV;
+  const int qstride = H * HD, kstride = KH * HD;
+  const size_t kv_off = ((size_t)b * S * KH + kh) * HD, q_off = ((size_t)b * S * H + h) * HD;
+  const float* lseb = lse + ((size_t)b * H + h) * S;
+  const float* deltab = delta + ((size_t)b * H + h) * S;
+
+  const int nqt = (S + BR - 1) / BR;
+  const int qt_lo = causal ? k0 / BR : 0;
+  const int qt_hi = window > 0 ? min(nqt - 1, (k0 + BC + window - 2) / BR) : nqt - 1;
+
+  auto load_q = [&](int qt, int st) {
+    load_tile_async<BR, HD, NT>(Qs + st * BR * LDS, q + q_off, qt * BR, S, qstride);
+    load_tile_async<BR, HD, NT>(dOs + st * BR * LDS, dout + q_off, qt * BR, S, qstride);
+    load_stats_async<BR, NT>(Ls + st * BR, lseb, qt * BR, S);
+    load_stats_async<BR, NT>(Ds + st * BR, deltab, qt * BR, S);
+  };
+  load_tile_async<BC, HD, NT>(Ks, k + kv_off, k0, S, kstride);
+  load_tile_async<BC, HD, NT>(Vs, v + kv_off, k0, S, kstride);
+  load_q(qt_lo, 0);
+  cp_async_commit();
+
+  float dk_acc[DV / 8][4], dv_acc[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  // lane parts of the ldmatrix addresses: A and .trans B (row-major 16 x 16
+  // blocks), and B read from an N x K row-major tile (two n8 blocks)
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  const int kw0 = k0 + warp * 16;  // this warp's first kv row
+  const uint32_t k_addr = smem_u32(Ks + (warp * 16 + a_row) * LDS + a_col);
+  const uint32_t v_addr = smem_u32(Vs + (warp * 16 + a_row) * LDS + a_col);
+
+  for (int qt = qt_lo; qt <= qt_hi; ++qt) {
+    const int st = (qt - qt_lo) & 1;
+    if (qt < qt_hi) load_q(qt + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qt = Qs + st * BR * LDS;
+    const bf16* dOt = dOs + st * BR * LDS;
+    const float* Lt = Ls + st * BR;
+    const float* Dt = Ds + st * BR;
+    const int q0 = qt * BR;
+#pragma unroll 1
+    for (int c = 0; c < BR / 16; ++c) {
+      const int qc0 = q0 + c * 16;
+      if (kw0 >= S || qc0 >= S || (causal && qc0 + 15 < kw0) ||
+          (window > 0 && qc0 - (kw0 + 15) >= window))
+        continue;  // nothing of this 16 x 16 block is visible (warp-uniform)
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      const uint32_t qb_addr = smem_u32(Qt + (c * 16 + b_row) * LDS + b_col);
+      const uint32_t ob_addr = smem_u32(dOt + (c * 16 + b_row) * LDS + b_col);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[4], bb[4];
+        ldsm_x4(k_addr + kk * 32, a);
+        ldsm_x4(qb_addr + kk * 32, bb);
+        mma16816(s[0], a, bb[0], bb[1]);
+        mma16816(s[1], a, bb[2], bb[3]);
+        ldsm_x4(v_addr + kk * 32, a);
+        ldsm_x4(ob_addr + kk * 32, bb);
+        mma16816(dp[0], a, bb[0], bb[1]);
+        mma16816(dp[1], a, bb[2], bb[3]);
+      }
+      // accumulator entry e of n8 block j: kv row g (+8 for e >= 2), q
+      // column j * 8 + 2t (+1 for odd e)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = c * 16 + j * 8 + 2 * t + (e & 1);
+          const float p = visible(q0 + ql, kw0 + g + (e >> 1) * 8, S, causal, window)
+                              ? expf(s[j][e] * scale - Lt[ql]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - Dt[ql]);
+        }
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      to_a_frag(s[0], s[1], ph, pl);
+      to_a_frag(dp[0], dp[1], dh, dl);
+      const uint32_t ot_addr = smem_u32(dOt + (c * 16 + a_row) * LDS + dv0 + a_col);
+      const uint32_t qt_addr = smem_u32(Qt + (c * 16 + a_row) * LDS + dv0 + a_col);
+#pragma unroll
+      for (int n = 0; n < DV / 16; ++n) {
+        uint32_t bb[4];
+        ldsm_x4_t(ot_addr + n * 32, bb);
+        mma16816(dv_acc[2 * n], ph, bb[0], bb[1]);
+        mma16816(dv_acc[2 * n], pl, bb[0], bb[1]);
+        mma16816(dv_acc[2 * n + 1], ph, bb[2], bb[3]);
+        mma16816(dv_acc[2 * n + 1], pl, bb[2], bb[3]);
+        ldsm_x4_t(qt_addr + n * 32, bb);
+        mma16816(dk_acc[2 * n], dh, bb[0], bb[1]);
+        mma16816(dk_acc[2 * n], dl, bb[0], bb[1]);
+        mma16816(dk_acc[2 * n + 1], dh, bb[2], bb[3]);
+        mma16816(dk_acc[2 * n + 1], dl, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // the next iteration loads into this stage
+  }
+  cp_async_wait<0>();
+
+  const bool partial = G > 1;
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kpos = kw0 + g + half * 8;
+      if (kpos >= S) continue;
+      const int col = dv0 + n * 8 + 2 * t;
+      const float2 kx = make_float2(dk_acc[n][2 * half] * scale, dk_acc[n][2 * half + 1] * scale);
+      const float2 vx = make_float2(dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
+      if (partial) {
+        const size_t off = (((size_t)b * S + kpos) * H + h) * HD + col;
+        *reinterpret_cast<float2*>(static_cast<float*>(dk) + off) = kx;
+        *reinterpret_cast<float2*>(static_cast<float*>(dv) + off) = vx;
+      } else {
+        const size_t off = (((size_t)b * S + kpos) * KH + kh) * HD + col;
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dk) + off) = __float22bfloat162_rn(kx);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dv) + off) = __float22bfloat162_rn(vx);
+      }
+    }
+}
+
+// dq for bfloat16.  CTA: BR = 16 NW q rows of one head; warp w owns q rows
+// 16w..16w+15 and, per 16-row kv chunk, builds S = Q K^T and dP = dO V^T
+// (16 x 16 f32), then dS, and feeds it as A to dQ += dS K.
+template <int HD, int NW, int BC>
+__global__ void __launch_bounds__(NW * 32, 1)  // up to 255 registers: no spills
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int S, int H, int KH, int causal, int window,
+                        float scale) {
+  constexpr int NT = NW * 32, BR = 16 * NW, LDS = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + BR * LDS;
+  bf16* Ks = dOs + BR * LDS;       // two stages of BC x LDS
+  bf16* Vs = Ks + 2 * BC * LDS;    // two stages
+
+  const int nqt = (S + BR - 1) / BR;
+  const int q0 = (nqt - 1 - blockIdx.y) * BR;  // y = 0 first: the last q tile sees the most kv tiles
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kh = h / (H / KH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int qstride = H * HD, kstride = KH * HD;
+  const size_t q_off = ((size_t)b * S * H + h) * HD, kv_off = ((size_t)b * S * KH + kh) * HD;
+
+  int lo, hi;
+  kv_range(q0, BR, BC, S, causal, window, &lo, &hi);
+  auto load_kv = [&](int kt, int st) {
+    load_tile_async<BC, HD, NT>(Ks + st * BC * LDS, k + kv_off, kt * BC, S, kstride);
+    load_tile_async<BC, HD, NT>(Vs + st * BC * LDS, v + kv_off, kt * BC, S, kstride);
+  };
+  load_tile_async<BR, HD, NT>(Qs, q + q_off, q0, S, qstride);
+  load_tile_async<BR, HD, NT>(dOs, dout + q_off, q0, S, qstride);
+  load_kv(lo, 0);
+  cp_async_commit();
+
+  const int qw0 = q0 + warp * 16;  // this warp's first q row
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qpos = qw0 + g + half * 8;
+    lse_r[half] = qpos < S ? lse[((size_t)b * H + h) * S + qpos] : 0.f;
+    delta_r[half] = qpos < S ? delta[((size_t)b * H + h) * S + qpos] : 0.f;
+  }
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  const uint32_t q_addr = smem_u32(Qs + (warp * 16 + a_row) * LDS + a_col);
+  const uint32_t o_addr = smem_u32(dOs + (warp * 16 + a_row) * LDS + a_col);
+
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int st = (kt - lo) & 1;
+    if (kt < hi) load_kv(kt + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + st * BC * LDS;
+    const bf16* Vt = Vs + st * BC * LDS;
+    const int k0 = kt * BC;
+#pragma unroll 1
+    for (int c = 0; c < BC / 16; ++c) {
+      const int kc0 = k0 + c * 16;
+      if (qw0 >= S || kc0 >= S || (causal && kc0 > qw0 + 15) ||
+          (window > 0 && qw0 - (kc0 + 15) >= window))
+        continue;  // nothing of this 16 x 16 block is visible (warp-uniform)
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      const uint32_t kb_addr = smem_u32(Kt + (c * 16 + b_row) * LDS + b_col);
+      const uint32_t vb_addr = smem_u32(Vt + (c * 16 + b_row) * LDS + b_col);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[4], bb[4];
+        ldsm_x4(q_addr + kk * 32, a);
+        ldsm_x4(kb_addr + kk * 32, bb);
+        mma16816(s[0], a, bb[0], bb[1]);
+        mma16816(s[1], a, bb[2], bb[3]);
+        ldsm_x4(o_addr + kk * 32, a);
+        ldsm_x4(vb_addr + kk * 32, bb);
+        mma16816(dp[0], a, bb[0], bb[1]);
+        mma16816(dp[1], a, bb[2], bb[3]);
+      }
+      // accumulator entry e of n8 block j: q row g (+8 for e >= 2), kv
+      // column j * 8 + 2t (+1 for odd e)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = visible(qw0 + g + r * 8, kc0 + j * 8 + 2 * t + (e & 1), S, causal,
+                                  window)
+                              ? expf(s[j][e] * scale - lse_r[r]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - delta_r[r]);
+        }
+      uint32_t dh[4], dl[4];
+      to_a_frag(dp[0], dp[1], dh, dl);
+      const uint32_t kt_addr = smem_u32(Kt + (c * 16 + a_row) * LDS + a_col);
+#pragma unroll
+      for (int n = 0; n < HD / 16; ++n) {
+        uint32_t bb[4];
+        ldsm_x4_t(kt_addr + n * 32, bb);
+        mma16816(acc[2 * n], dh, bb[0], bb[1]);
+        mma16816(acc[2 * n], dl, bb[0], bb[1]);
+        mma16816(acc[2 * n + 1], dh, bb[2], bb[3]);
+        mma16816(acc[2 * n + 1], dl, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // the next iteration loads into this stage
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qpos = qw0 + g + half * 8;
+      if (qpos >= S) continue;
+      bf16* db = dq + (((size_t)b * S + qpos) * H + h) * HD + n * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(db) = __float22bfloat162_rn(
+          make_float2(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale));
+    }
+}
+
+// ---------------------------------------------------------------------------
 // host side: tile sizes per head dim, dispatch on (dtype, hd)
 // ---------------------------------------------------------------------------
-// R rows per CTA and C rows per inner tile: 64 x 64 up to hd 128; 32 x 32 at
-// hd 256, where the four float32 tiles of the backward would not fit in the
-// 227 KB a block may hold.
+// FMA kernels (the forward, and the float32 backward): R rows per CTA and C
+// rows per inner tile: 64 x 64 up to hd 128; 32 x 32 at hd 256, where the
+// four float32 tiles of the backward would not fit in the 227 KB a block
+// may hold.
 template <int HD> struct Tiles { static constexpr int R = 64, C = 64; };
 template <> struct Tiles<256> { static constexpr int R = 32, C = 32; };
+
+// Tensor-core backward (bfloat16): NW warps of 16 rows each own the CTA's
+// 16 NW rows (kv rows in dk/dv, q rows in dq); STREAM rows of the other
+// side per ring stage; DV dk/dv columns per warp.  A warp's dK and dV
+// accumulators are 16 x DV f32 each, DV registers a thread for the pair:
+// at hd 256 (256 registers) they would not fit, so there DV = 128 and the
+// CTA runs two groups of NW warps, one per column half, sharing the tiles
+// and each recomputing S and dP (16 pairs*hd FLOPs in all against 12).  dq
+// keeps 16 x hd f32, hd / 2 registers a thread (the same split there was
+// slower: PERF.md).  Shared memory, bf16 rows padded to hd + 8: dk/dv
+// (2 * 16 NW + 4 STREAM) rows + 16 STREAM bytes of lse/delta, dq (2 * 16 NW
+// + 4 STREAM) rows; 105 KB at hd 128 (two CTAs per SM) and 203 KB at hd
+// 256 (one).
+template <int HD> struct MmaTiles {
+  static constexpr int NW = 4, STREAM = 64, DV = HD < 128 ? HD : 128;
+};
+
+template <int HD> constexpr size_t dkdv_mma_smem() {
+  using M = MmaTiles<HD>;
+  return sizeof(bf16) * (2 * 16 * M::NW + 4 * M::STREAM) * (HD + 8) +
+         sizeof(float) * 4 * M::STREAM;
+}
+template <int HD> constexpr size_t dq_mma_smem() {
+  using M = MmaTiles<HD>;
+  return sizeof(bf16) * (2 * 16 * M::NW + 4 * M::STREAM) * (HD + 8);
+}
 
 template <int HD> constexpr size_t fwd_smem() {
   return sizeof(float) * ((Tiles<HD>::R + 2 * Tiles<HD>::C) * (HD + 1) +
@@ -522,6 +958,64 @@ template <typename T, int HD> cudaError_t launch_fwd(const Args& a) {
                                           (T*)a.o, a.lse, a.S, a.H, a.KH, a.causal, a.window,
                                           a.scale);
   return cudaGetLastError();
+}
+
+template <int HD> cudaError_t launch_dq_mma(const Args& a) {
+  using M = MmaTiles<HD>;
+  auto kern = flash_bwd_dq_mma_kernel<HD, M::NW, M::STREAM>;
+  constexpr size_t smem = dq_mma_smem<HD>();
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  constexpr int BR = 16 * M::NW;
+  dim3 grid(a.B * a.H, (a.S + BR - 1) / BR);
+  kern<<<grid, 32 * M::NW, smem, a.stream>>>((const bf16*)a.q, (const bf16*)a.k,
+                                             (const bf16*)a.v, (const bf16*)a.dout, a.lse,
+                                             a.delta, (bf16*)a.dq, a.S, a.H, a.KH, a.causal,
+                                             a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// dk, dv: bf16 (B, S, KH, HD) where H == KH, else float32 partials
+// (B, S, H, HD) that the caller sums over each group of H / KH heads.
+template <int HD> cudaError_t launch_dkdv_mma(const Args& a) {
+  using M = MmaTiles<HD>;
+  auto kern = flash_bwd_dkdv_mma_kernel<HD, M::DV, M::NW, M::STREAM>;
+  constexpr size_t smem = dkdv_mma_smem<HD>();
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  constexpr int BC = 16 * M::NW;
+  dim3 grid(a.B * a.H, (a.S + BC - 1) / BC);
+  kern<<<grid, 32 * M::NW * (HD / M::DV), smem, a.stream>>>((const bf16*)a.q, (const bf16*)a.k,
+                                             (const bf16*)a.v, (const bf16*)a.dout, a.lse,
+                                             a.delta, a.dk, a.dv, a.S, a.H, a.KH, a.causal,
+                                             a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// out = {registers a thread, dynamic shared bytes, threads, CTAs per SM}
+template <typename K>
+cudaError_t occupancy(K kern, size_t smem, int threads, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kern);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kern, threads, smem);
+  if (e != cudaSuccess) return e;
+  out[0] = attr.numRegs;
+  out[1] = (int)smem;
+  out[2] = threads;
+  return cudaSuccess;
+}
+template <int HD> cudaError_t mma_occupancy(int which, int* out) {
+  using M = MmaTiles<HD>;
+  if (which == 0)
+    return occupancy(flash_bwd_dq_mma_kernel<HD, M::NW, M::STREAM>, dq_mma_smem<HD>(),
+                     32 * M::NW, out);
+  return occupancy(flash_bwd_dkdv_mma_kernel<HD, M::DV, M::NW, M::STREAM>,
+                   dkdv_mma_smem<HD>(), 32 * M::NW * (HD / M::DV), out);
 }
 
 template <typename T, int HD> cudaError_t launch_dq(const Args& a) {
@@ -570,8 +1064,19 @@ template <template <typename, int> class L> struct Dispatch {
   }
 };
 template <typename T, int HD> struct Fwd { static cudaError_t run(const Args& a) { return launch_fwd<T, HD>(a); } };
-template <typename T, int HD> struct Dq { static cudaError_t run(const Args& a) { return launch_dq<T, HD>(a); } };
-template <typename T, int HD> struct Dkdv { static cudaError_t run(const Args& a) { return launch_dkdv<T, HD>(a); } };
+// The backward: float32 on the FMA kernels, bfloat16 on the tensor cores.
+template <typename T, int HD> struct Dq {
+  static cudaError_t run(const Args& a) {
+    if constexpr (std::is_same<T, bf16>::value) return launch_dq_mma<HD>(a);
+    else return launch_dq<T, HD>(a);
+  }
+};
+template <typename T, int HD> struct Dkdv {
+  static cudaError_t run(const Args& a) {
+    if constexpr (std::is_same<T, bf16>::value) return launch_dkdv_mma<HD>(a);
+    else return launch_dkdv<T, HD>(a);
+  }
+};
 
 }  // namespace
 
@@ -614,6 +1119,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   return (int)Dispatch<Dq>::run(dtype, hd, a);
 }
 
+// bfloat16 with H > KH: dk and dv are float32 (B, S, H, hd) partials, one
+// per query head, for the caller to sum over each group of H / KH heads.
 extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, void* dk, void* dv, int B,
                               int S, int H, int KH, int hd, int causal, int window,
@@ -623,4 +1130,17 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const
   a.dk = dk; a.dv = dv; a.B = B; a.S = S; a.H = H; a.KH = KH; a.causal = causal;
   a.window = window; a.scale = scale; a.stream = (cudaStream_t)stream;
   return (int)Dispatch<Dkdv>::run(dtype, hd, a);
+}
+
+// The bfloat16 backward kernels' resources at head dim hd (which: 0 dq,
+// 1 dk/dv): out = {registers a thread, dynamic shared bytes, threads, CTAs
+// per SM}.
+extern "C" int flash_bwd_occupancy(int which, int hd, int* out) {
+  switch (hd) {
+    case 32: return (int)mma_occupancy<32>(which, out);
+    case 64: return (int)mma_occupancy<64>(which, out);
+    case 128: return (int)mma_occupancy<128>(which, out);
+    case 256: return (int)mma_occupancy<256>(which, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -20,6 +20,13 @@ wrapper             kernel                  plain version
 :func:`bwd_dkdv`    ``flash_bwd_dkdv``      :func:`plain_bwd` (dk, dv)
 ==================  ======================  ============================
 
+For bfloat16 the backward kernels run on the tensor cores and take P and
+dS as a hi + lo pair of bfloat16 values (:func:`round_operand` emulates
+the choice for the CPU tests); with more than one query head per kv head,
+``flash_bwd_dkdv`` writes float32 partials per query head and
+:func:`bwd_dkdv` sums them over the group (:func:`sum_groups`).  float32
+keeps the FMA kernels.
+
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
 it launches its kernel or raises (no fallback).  :func:`flash_attention` is
 the differentiable entry point (:class:`FlashAttention`).
@@ -68,6 +75,7 @@ def load_library() -> ctypes.CDLL:
                 "flash_bwd_delta": [p, p, p, i, i, i, i, i, p],
                 "flash_bwd_dq": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p],
                 "flash_bwd_dkdv": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p],
+                "flash_bwd_occupancy": [i, i, p],
             })
         return _lib
 
@@ -139,9 +147,35 @@ def plain_bwd_delta(o, do):
     return (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def plain_bwd(q, k, v, do, lse, delta, causal=True, window=None):
+def sum_groups(partial: torch.Tensor, K: int) -> torch.Tensor:
+    """Per-query-head partials (B, S, H, hd) summed over each group of
+    H / K heads sharing a kv head: (B, S, K, hd).  Query head h belongs
+    to kv head h // (H / K)."""
+    B, S, H, hd = partial.shape
+    return partial.view(B, S, K, H // K, hd).sum(3)
+
+
+def round_operand(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """P or dS as it enters the backward's second products: ``"f32"`` as
+    it is, ``"bf16"`` rounded once to bfloat16, ``"split"`` as the
+    bfloat16 pair hi = bf16(x), lo = bf16(x - hi) that the tensor-core
+    kernels multiply in two products (hi + lo, exact in float32)."""
+    if rounding == "f32":
+        return x
+    hi = x.to(torch.bfloat16).float()
+    if rounding == "bf16":
+        return hi
+    if rounding == "split":
+        return hi + (x - hi).to(torch.bfloat16).float()
+    raise ValueError(f"rounding must be 'f32', 'bf16' or 'split', got {rounding!r}")
+
+
+def plain_bwd(q, k, v, do, lse, delta, causal=True, window=None, rounding="f32"):
     """(dq, dk, dv) in the inputs' dtype: ``flash_bwd_dq`` and
-    ``flash_bwd_dkdv`` together."""
+    ``flash_bwd_dkdv`` together.  ``rounding`` emulates how P and dS enter
+    the second products (:func:`round_operand`); the kernels' check and the
+    model use ``"f32"``, the other two pin the tensor-core kernels' choice
+    in the CPU tests."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     s, qs, kf, mask = _scores(q, k, causal, window)
@@ -150,9 +184,10 @@ def plain_bwd(q, k, v, do, lse, delta, causal=True, window=None):
     p = torch.exp(s - lse[..., None]) * mask
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None])
+    p, ds = round_operand(p, rounding), round_operand(ds, rounding)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * (1.0 / math.sqrt(hd))
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs).reshape(B, S, K, H // K, hd).sum(3)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(B, S, K, H // K, hd).sum(3)
+    dk = sum_groups(torch.einsum("bhqk,bqhd->bkhd", ds, qs), K)
+    dv = sum_groups(torch.einsum("bhqk,bqhd->bkhd", p, dof), K)
     return (dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
             dv.to(v.dtype).contiguous())
 
@@ -199,6 +234,9 @@ def _check_bwd(q, k, v, do, lse, delta):
     check_same(q, do)
     if do.shape != q.shape:
         raise ValueError("dO must have q's shape")
+    if q.is_cuda and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("q, k, v and dO must start on a 16-byte boundary (the "
+                         "backward kernels copy 16-byte rows)")
     B, S, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (B, H, S) or t.dtype != torch.float32 or t.device != q.device \
@@ -230,15 +268,35 @@ def bwd_dkdv(q, k, v, do, lse, delta, causal=True, window=None):
     if not q.is_cuda:
         return plain_bwd(q, k, v, do, lse, delta, causal, window)[1:]
     B, S, H, hd = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    K = k.shape[2]
+    # bf16 with G = H / K > 1: one CTA per query head writes float32
+    # partials (B, S, H, hd), summed here over the group (no atomics)
+    partial = q.dtype == torch.bfloat16 and H != K
+    if partial:
+        dk = torch.empty(B, S, H, hd, dtype=torch.float32, device=q.device)
+        dv = torch.empty_like(dk)
+    else:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = load_library().flash_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, K, hd,
         int(causal), w, 1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
     LAUNCHES["flash_bwd_dkdv"] += 1
     raise_on(err, "flash_bwd_dkdv")
+    if partial:
+        dk, dv = sum_groups(dk, K).to(k.dtype), sum_groups(dv, K).to(v.dtype)
     return dk, dv
+
+
+def bwd_occupancy(kernel: str, hd: int) -> dict:
+    """Resources of the bfloat16 backward kernel ``kernel``
+    (``"flash_bwd_dq"`` or ``"flash_bwd_dkdv"``) at head dim ``hd``, as the
+    CUDA runtime reports them: registers a thread, dynamic shared bytes,
+    threads and CTAs per SM.  Launches nothing."""
+    out = (ctypes.c_int * 4)()
+    raise_on(load_library().flash_bwd_occupancy(
+        ("flash_bwd_dq", "flash_bwd_dkdv").index(kernel), hd, out), "flash_bwd_occupancy")
+    return dict(zip(("registers", "smem_bytes", "threads", "ctas_per_sm"), out))
 
 
 class FlashAttention(torch.autograd.Function):

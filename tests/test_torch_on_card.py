@@ -19,8 +19,15 @@ from repro_torch.kernels import wkv6 as wk
 
 LIMITS = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (2e-4, 2e-4)}
 
-pytestmark = [pytest.mark.cuda, pytest.mark.skipif(
-    not torch.cuda.is_available(), reason="needs a CUDA device: the kernels have no CPU mode")]
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _needs_cuda():
+    """Decided when each test runs, not at import: every worker collects
+    the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
 
 
 def _assert_close(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
@@ -38,10 +45,13 @@ def _inputs(S, H, K, hd, dtype):
 
 
 class TestOnCard:
-    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("S,H,K,hd,window", [(300, 4, 2, 64, None),
-                                                 (512, 4, 1, 256, 100),
-                                                 (1024, 4, 4, 128, None)])
+    @pytest.mark.parametrize("dtype,S,H,K,hd,window", [
+        *((dt, *shape) for dt in (torch.float32, torch.bfloat16)
+          for shape in ((300, 4, 2, 64, None), (512, 4, 1, 256, 100), (1024, 4, 4, 128, None))),
+        # the bf16 tensor-core backward at hd 32 ragged, hd 64, hd 256 ragged with K > 1
+        (torch.bfloat16, 300, 2, 1, 32, 32),
+        (torch.bfloat16, 512, 4, 2, 64, 100),
+        (torch.bfloat16, 1000, 8, 2, 256, None)])
     def test_kernels_vs_plain(self, dtype, S, H, K, hd, window):
         q, k, v, do = _inputs(S, H, K, hd, dtype)
         o, lse = fa.fwd(q, k, v, True, window)
@@ -54,6 +64,20 @@ class TestOnCard:
                                 ("delta", delta, fa.plain_bwd_delta(o, do)),
                                 ("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
             _assert_close(got, want, what)
+
+    @pytest.mark.parametrize("S,H,K,hd,window", [(1024, 4, 4, 128, None),
+                                                 (1000, 8, 2, 256, None),
+                                                 (512, 10, 1, 256, 2048)])
+    def test_backward_is_bitwise_deterministic(self, S, H, K, hd, window):
+        """bf16 ``bwd_dq`` and ``bwd_dkdv`` twice: equal bits (no atomics;
+        the group partials are summed in a fixed order)."""
+        q, k, v, do = _inputs(S, H, K, hd, torch.bfloat16)
+        o, lse = fa.fwd(q, k, v, True, window)
+        delta = fa.bwd_delta(o, do)
+        runs = [(fa.bwd_dq(q, k, v, do, lse, delta, True, window),
+                 *fa.bwd_dkdv(q, k, v, do, lse, delta, True, window)) for _ in range(2)]
+        for what, a, b in zip(("dq", "dk", "dv"), *runs):
+            assert torch.equal(a, b), what
 
     def test_ops_autograd_vs_ref_float32(self):
         """The differentiable path the model takes (``ops.attention`` on CUDA
