@@ -5,9 +5,10 @@ Phases, in order; any failure ends the script with a non-zero code:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every kernel library from ``src/repro_torch/csrc`` (flash
    attention, RG-LRU and wkv6, one ``nvcc`` each, at once); print the flash
-   backward kernels' ``-Xptxas -v`` lines, each bfloat16 instantiation's
-   registers, shared memory and CTAs per SM, and their HMMA count in the
-   SASS (fails on a spill or a tensor-core kernel without HMMA);
+   forward and backward kernels' ``-Xptxas -v`` lines, each bfloat16
+   tensor-core instantiation's registers, shared memory and CTAs per SM,
+   and their HMMA count in the SASS (fails on a spill or a tensor-core
+   kernel without HMMA);
 3. hold every flash kernel (forward, delta, dq, dk/dv) against its plain
    PyTorch version on the card, element by element, at qwen1.5-4b's
    shape, at recurrentgemma-2b's local-attention shape (hd 256, one KV
@@ -25,12 +26,15 @@ Phases, in order; any failure ends the script with a non-zero code:
    decays (w down to 1e-3) and where bfloat16 rounds w to exactly 1; hold
    a reduced qwen1.5-4b's, recurrentgemma-2b's and rwkv6-1.6b's loss and
    gradients on the card (through the kernels) against the same model on
-   the CPU (plain versions); run the bfloat16 flash backward twice at the
-   main paths' shapes and require bitwise-equal dq, dk and dv;
-4. time each kernel, its plain version, its bound and the PyTorch library
-   call that computes the same function (``scaled_dot_product_attention``
-   and its backward, timed here only and never called by the port; none
-   for the RG-LRU and wkv6 scans), at the main paths' shapes;
+   the CPU (plain versions); run the bfloat16 flash forward and backward
+   twice at the main paths' shapes and require bitwise-equal o, lse, dq, dk
+   and dv;
+4. time each kernel, its plain version and the PyTorch library call that
+   computes the same function (``scaled_dot_product_attention`` and its
+   backward, ``torch.linalg.vecdot`` for delta, timed here only and never
+   called by the port; none for the RG-LRU and wkv6 scans), each with L2
+   refilled before every call, at the main paths' shapes, and compute each
+   kernel's bound;
 5. run ``repro_torch.measure`` for qwen1.5-4b (2 units), recurrentgemma-2b
    (one RRL unit) and rwkv6-1.6b (2 units) at their published widths with 2
    gloo ranks on the card and all three sync policies; check each written
@@ -239,44 +243,55 @@ def check_kernels() -> dict:
     return worst
 
 
-@phase("flash backward determinism")
+@phase("flash determinism")
 def check_determinism() -> None:
-    """``bwd_dq`` and ``bwd_dkdv`` twice on the same inputs at the main
-    paths' shapes: dq, dk and dv must be bitwise equal (no atomics; the
-    group partials are summed in a fixed order)."""
+    """``fwd``, then ``bwd_dq`` and ``bwd_dkdv`` on its lse, twice on the
+    same inputs at the main paths' shapes: o, lse, dq, dk and dv must be
+    bitwise equal (each output written by one thread, no atomics; the group
+    partials are summed in a fixed order)."""
     from repro_torch.kernels import flash_attention as fa
 
     failed = []
     for label, shp in (("slice", SLICE), ("l_block", L_BLOCK)):
         q, k, v, do = make_inputs(**shp, seed=2)
-        o, lse = fa.fwd(q, k, v, True, shp["window"])
-        delta = fa.bwd_delta(o, do)
-        runs = [(fa.bwd_dq(q, k, v, do, lse, delta, True, shp["window"]),
-                 *fa.bwd_dkdv(q, k, v, do, lse, delta, True, shp["window"])) for _ in range(2)]
-        same = {name: torch.equal(a, b) for name, a, b in zip(("dq", "dk", "dv"), *runs)}
+        w = shp["window"]
+        runs = []
+        for _ in range(2):
+            o, lse = fa.fwd(q, k, v, True, w)
+            delta = fa.bwd_delta(o, do)
+            runs.append((o, lse, fa.bwd_dq(q, k, v, do, lse, delta, True, w),
+                         *fa.bwd_dkdv(q, k, v, do, lse, delta, True, w)))
+        same = {name: torch.equal(a, b)
+                for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs)}
         print(f"  {label:15s} bitwise equal over two runs: {same}", flush=True)
         if not all(same.values()):
             failed.append(label)
         del q, k, v, do, o, lse, delta, runs
     if failed:
-        raise SystemExit(f"the flash backward is not deterministic at {failed}")
+        raise SystemExit(f"the flash kernels are not deterministic at {failed}")
 
 
 def _kernel_label(mangled: str) -> str:
-    """flash_bwd_dq_mma_kernel<bf16,128,4,64> from a mangled name."""
+    """flash_bwd_dq_mma_kernel<bf16,128,4,64> from a mangled name (the
+    tensor-core kernels take bfloat16, the others float32)."""
     name = re.search(r"flash_(?:fwd|bwd)\w*?_kernel", mangled).group()
-    dtype = "f32" if re.search(r"_kernelIf", mangled) else "bf16"
+    dtype = "bf16" if "_mma_" in name else "f32"
     args = [dtype, *re.findall(r"Li(\d+)E", mangled)]
     return f"{name}<{','.join(args)}>"
 
 
-@phase("flash backward build")
+#: the flash kernels whose build is reported (forward, dq, dk/dv; not delta)
+_REPORTED = re.compile(r"flash_(?:fwd|bwd_d(?:q|kdv))")
+
+
+@phase("flash build")
 def report_flash_build() -> None:
-    """For every flash backward kernel: its ``-Xptxas -v`` lines from the
-    build log (registers, spills), the CUDA runtime's registers, dynamic
-    shared memory and CTAs per SM of each bfloat16 instantiation, and the
-    HMMA instructions in its SASS (``cuobjdump -sass``).  Fails if a
-    tensor-core kernel spills or has no HMMA."""
+    """For every flash forward and backward kernel: its ``-Xptxas -v``
+    lines from the build log (registers, spills), the CUDA runtime's
+    registers, dynamic shared memory and CTAs per SM of each bfloat16
+    tensor-core instantiation, and the HMMA instructions in its SASS
+    (``cuobjdump -sass``).  Fails if a tensor-core kernel spills or has no
+    HMMA."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.build import library_path
 
@@ -285,7 +300,7 @@ def report_flash_build() -> None:
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            cur = m.group(1) if re.search(r"flash_bwd_d(?:q|kdv)", m.group(1)) else None
+            cur = m.group(1) if _REPORTED.search(m.group(1)) else None
         elif cur and ("spill" in line or "Used" in line):
             info.setdefault(_kernel_label(cur), []).append(line.strip())
     for label, lines in sorted(info.items()):
@@ -293,9 +308,9 @@ def report_flash_build() -> None:
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill", " ".join(lines))]
         if "_mma_" in label and any(spills):
             failed.append(f"{label} spills")
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkdv"):
+    for kernel in fa.MMA_KERNELS:
         for hd in fa.SUPPORTED_HEAD_DIMS:
-            print(f"  runtime {kernel} bf16 hd {hd}: {fa.bwd_occupancy(kernel, hd)}", flush=True)
+            print(f"  runtime {kernel} bf16 hd {hd}: {fa.occupancy(kernel, hd)}", flush=True)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         print("  cuobjdump not found: HMMA not counted", flush=True)
@@ -306,8 +321,7 @@ def report_flash_build() -> None:
         for line in sass.splitlines():
             m = re.search(r"Function : (\w+)", line)
             if m:
-                cur = _kernel_label(m.group(1)) if re.search(r"flash_bwd_d(?:q|kdv)",
-                                                             m.group(1)) else None
+                cur = _kernel_label(m.group(1)) if _REPORTED.search(m.group(1)) else None
                 if cur:
                     counts[cur] = 0
             elif cur and "HMMA" in line:
@@ -316,8 +330,12 @@ def report_flash_build() -> None:
             print(f"  sass {label}: {n} HMMA", flush=True)
             if "_mma_" in label and n == 0:
                 failed.append(f"{label} has no HMMA")
+        failed += [f"{kernel}_mma_kernel at hd {hd} not in the SASS"
+                   for kernel in fa.MMA_KERNELS for hd in fa.SUPPORTED_HEAD_DIMS
+                   if not any(label.startswith(f"{kernel}_mma_kernel<bf16,{hd},")
+                              for label in counts)]
     if failed:
-        raise SystemExit(f"flash backward build: {failed}")
+        raise SystemExit(f"flash build: {failed}")
 
 
 def autograd_vs_ref(q, k, v, do, window):
@@ -505,17 +523,32 @@ def check_model() -> None:
 # ----------------------------------------------------------------------
 # 4. timing at the slice shape
 # ----------------------------------------------------------------------
-def time_ms(fn, iters=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
+#: GPU cycles (~2 ms) the stream sleeps before a timed run, so that the
+#: host has queued the launches ahead of the device: a kernel shorter than
+#: its wrapper's host time is timed on the device, not on the host.
+QUEUE_AHEAD_CYCLES = 4_000_000
+
+
+def time_ms(fn, iters=20) -> float:
+    """Mean device time of one call of ``fn``, with the 50 MB L2 refilled
+    before each call by reading 64 MB (a read leaves no dirty lines to
+    write back during the timed call) and only the calls timed: the time
+    of a call whose inputs come from device memory, not from L2, as on the
+    main path, where a layer's activations do not stay in L2 between its
+    forward and its backward."""
+    flush = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
+    fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+    for start, end in events:
+        flush.sum()
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
 def bounds(B, S, H, K, hd, window, dtype, **_) -> dict:
@@ -674,7 +707,7 @@ def time_rglru(shp: dict, label: str) -> dict:
     bnd = rglru_bounds(**shp)
     out = {}
     for name, (kern, plain) in runs.items():
-        out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=3, warmup=1),
+        out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=3),
                      "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": None}
         print_row(label, name, out[name])
     return out
@@ -697,7 +730,7 @@ def time_wkv6(shp: dict, label: str) -> dict:
     bnd = wkv6_bounds(**shp)
     out = {}
     for name, (kern, plain) in runs.items():
-        out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=3, warmup=1),
+        out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=3),
                      "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": None}
         print_row(label, name, out[name])
     return out

@@ -8,8 +8,9 @@
 // Layout: q, o, dq (B, S, H, hd); k, v, dk, dv (B, S, K, hd), all contiguous;
 // H % K == 0 and query head h reads kv head h / (H / K) (GQA without
 // expanded heads in memory).  lse and delta are (B, H, S) float32.
-// Inputs are float32 or bfloat16; all arithmetic is float32 and every
-// output is written in the input dtype.  Masks: causal (kpos <= qpos),
+// Inputs are float32 or bfloat16; all sums are float32 (bf16 products on
+// the tensor cores accumulate in float32) and every output is written in the
+// input dtype.  Masks: causal (kpos <= qpos),
 // optional sliding window (kpos > qpos - window) and the ragged tail
 // (pos < S); kv tiles a q tile cannot see are skipped as a whole.
 //
@@ -17,44 +18,54 @@
 // heads of 128, causal, bf16) the forward does ~255 operations per byte it
 // must move, just under the H100's ridge of ~295, so moving bytes bounds it
 // (12.6 us); the backward does ~2.5x the operations on ~2x the bytes, so
-// the tensor cores' rate bounds it (16 us dq, 22 us dk/dv).
+// the tensor cores' rate bounds it (16 us dq, 22 us dk/dv).  delta moves
+// bytes and does almost nothing with them (6.3 us for its 21 MB).
 //
-// The forward, delta, and the float32 backward do their arithmetic in
-// float32 FMA on the CUDA cores (67 TFLOP/s peak, not 989), from
-// shared-memory tiles held in float32 with one padding column so that the
-// inner loops read without bank conflicts, and a 4 x k register block per
-// thread: FMA issue and shared-memory reads bound them, far above either
-// bound (times in PERF.md).  float32 stays there because TF32 would not
-// meet its 2e-4 check.
+// The float32 kernels (forward, dq, dk/dv) do their arithmetic in float32
+// FMA on the CUDA cores (67 TFLOP/s peak, not 989), from shared-memory tiles
+// held in float32 with one padding column so that the inner loops read
+// without bank conflicts, and a 4 x k register block per thread: FMA issue
+// and shared-memory reads bound them, far above either bound (times in
+// PERF.md).  float32 stays there because TF32 would not meet its 2e-4 check.
 //
-// The bfloat16 backward (flash_bwd_dq_mma, flash_bwd_dkdv_mma) runs on the
-// tensor cores: all five products are mma.sync.m16n8k16 bf16 -> f32, with
-// operands read by ldmatrix from bf16 shared tiles whose rows are padded by
-// 16 bytes (no bank conflicts).  Each warp owns 16 rows: the accumulators
-// of its S and dP block (m16n8, f32) turn into the A operand of the second
-// products (dV += P^T dO, dK += dS^T Q, dQ += dS K) in registers, never
-// through shared memory.  P and dS enter those products as a hi + lo pair of
-// bf16 values (hi = bf16(x), lo = bf16(x - hi)), two mma each, so they keep
-// ~16 mantissa bits: rounded once to bf16 they would put dq, dk and dv far
-// over the bf16 check's limit (6-13x at the reduced shapes of
-// tests/test_torch_flash_rounding.py, which pins this).  The split costs
-// 12 pairs*hd FLOPs in dk/dv and 8 in dq, against the function's 8 and 6.
-// The streamed tiles (Q, dO and their lse and
-// delta in dk/dv; K, V in dq) go through a two-stage cp.async ring, the
-// next tile loading while this one computes; rows at or past S are
-// zero-filled by the copy.  dk/dv has one CTA per (kv tile, query head,
+// The bfloat16 kernels (flash_fwd_mma, flash_bwd_dq_mma, flash_bwd_dkdv_mma)
+// run on the tensor cores: every product is mma.sync.m16n8k16 bf16 -> f32,
+// with operands read by ldmatrix from bf16 shared tiles whose rows are
+// padded by 16 bytes (no bank conflicts).  Each warp owns 16 rows: the
+// accumulators of its S (and dP) block (m16n8, f32) turn into the A operand
+// of the second products (O += P V; dV += P^T dO, dK += dS^T Q, dQ += dS K)
+// in registers, never through shared memory.  P and dS enter those
+// products as a hi + lo pair of bf16 values (hi = bf16(x), lo = bf16(x -
+// hi)), two mma each, so they keep ~16 mantissa bits: rounded once to bf16
+// they would put o, dq, dk and dv far over the bf16 check's limit (6-13x at
+// the reduced shapes of tests/test_torch_flash_rounding.py, which pins
+// this).  The split costs 6 pairs*hd FLOPs in the forward, 8 in dq and 12
+// in dk/dv, against the function's 4, 6 and 8.  The streamed tiles (K, V in
+// the forward and dq; Q, dO and their lse and delta in dk/dv) go through a
+// two-stage cp.async ring, the next tile loading while this one computes;
+// rows at or past S are zero-filled by the copy.  The forward updates its
+// online softmax once per 64-row kv tile (32 at hd 256), with the row max
+// over the 4 lanes of a quad.  dk/dv has one CTA per (kv tile, query head,
 // batch): with more than one query head per kv head it writes float32
-// partials per query head, which the wrapper sums over the group (no
-// atomics: bitwise the same from run to run).  They still take 6-12x their
-// operations bound (PERF.md): what holds them there (mma.sync issue, the
-// ldmatrix reads, the exp of every score, a 4-warp CTA per SM at hd 256 in
-// dq) is not measured apart; wgmma fed by TMA is the next step.
+// partials per query head, which the wrapper sums over the group.  No
+// kernel uses atomics: each output is bitwise the same from run to run.
+// What holds the tensor-core kernels above their bounds (mma.sync issue,
+// the ldmatrix reads, the exp of every score, few warps per SM at hd 256)
+// is not measured apart (PERF.md); wgmma fed by TMA is the next step.
 //
-// Six kernels:
-//   flash_fwd       one CTA per (q tile, head, batch); the kv loop runs inside
-//                   the CTA (the TPU's sequential grid axis); running max, sum
-//                   and accumulator in f32; writes o and the row logsumexp.
-//   flash_bwd_delta delta = rowsum(dO * O), one warp per row.
+// delta reads 16 bytes a lane, a row over hd * size / 16 lanes, in many
+// small CTAs: bound by the bytes it reads, it runs at about twice that
+// bound with L2 cold, the kernel's launch and the memory's ramp included.
+//
+// Seven kernels:
+//   flash_fwd       (float32) one CTA per (q tile, head, batch); the kv loop
+//                   runs inside the CTA (the TPU's sequential grid axis);
+//                   running max, sum and accumulator in f32; writes o and the
+//                   row logsumexp.
+//   flash_fwd_mma   (bfloat16) the same, one CTA per (q tile, head, batch),
+//                   heaviest causal q tiles first.
+//   flash_bwd_delta delta = rowsum(dO * O), one CTA per run of rows
+//                   (b, s, h).
 //   flash_bwd_dkdv  (float32) one CTA per (kv tile, kv head, batch); loops
 //                   over the G query heads of its group and the q tiles the
 //                   mask allows, so dk/dv of a GQA group are reduced with no
@@ -80,14 +91,6 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 256;  // 16 x 16 thread grid
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Reduction over the 16 lanes that share a row (lanes 0-15 or 16-31).
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
@@ -100,16 +103,16 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// rows [row0, row0 + ROWS) of one head into dst[r * LD + d] as f32,
-// multiplied by `mul`; rows at or past S are zero.
-template <typename T, int ROWS, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int S,
+// rows [row0, row0 + ROWS) of one head into dst[r * LD + d], multiplied by
+// `mul`; rows at or past S are zero.
+template <int ROWS, int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int S,
                                           int row_stride, float mul) {
   constexpr int LD = HD + 1;
   for (int idx = threadIdx.x; idx < ROWS * HD; idx += THREADS) {
     int r = idx / HD, d = idx - r * HD;
     int pos = row0 + r;
-    dst[r * LD + d] = pos < S ? to_f(src[(size_t)pos * row_stride + d]) * mul : 0.f;
+    dst[r * LD + d] = pos < S ? src[(size_t)pos * row_stride + d] * mul : 0.f;
   }
 }
 
@@ -132,11 +135,11 @@ __device__ __forceinline__ void kv_range(int q0, int R, int C, int S, int causal
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
-template <typename T, int HD, int R, int C>
+template <int HD, int R, int C>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int S, int H, int KH, int causal,
-                 int window, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int S, int H, int KH, int causal, int window, float scale) {
   constexpr int LD = HD + 1, LP = C + 1;
   constexpr int RM = R / 16, CN = C / 16, DN = HD / 16;
   extern __shared__ float smem[];
@@ -149,11 +152,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int kh = h / (H / KH);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qstride = H * HD, kstride = KH * HD;
-  const T* qb = q + ((size_t)b * S * H + h) * HD;
-  const T* kb = k + ((size_t)b * S * KH + kh) * HD;
-  const T* vb = v + ((size_t)b * S * KH + kh) * HD;
+  const float* qb = q + ((size_t)b * S * H + h) * HD;
+  const float* kb = k + ((size_t)b * S * KH + kh) * HD;
+  const float* vb = v + ((size_t)b * S * KH + kh) * HD;
 
-  load_tile<T, R, HD>(Qs, qb, q0, S, qstride, scale);
+  load_tile<R, HD>(Qs, qb, q0, S, qstride, scale);
 
   float acc[RM][DN], m[RM], l[RM];
 #pragma unroll
@@ -169,8 +172,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * C;
     __syncthreads();
-    load_tile<T, C, HD>(Ks, kb, k0, S, kstride, 1.f);
-    load_tile<T, C, HD>(Vs, vb, k0, S, kstride, 1.f);
+    load_tile<C, HD>(Ks, kb, k0, S, kstride, 1.f);
+    load_tile<C, HD>(Vs, vb, k0, S, kstride, 1.f);
     __syncthreads();
 
     float s[RM][CN];
@@ -236,9 +239,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qpos = q0 + ty * RM + i;
     if (qpos >= S) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* ob = o + (((size_t)b * S + qpos) * H + h) * HD;
+    float* ob = o + (((size_t)b * S + qpos) * H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < DN; ++j) ob[tx + 16 * j] = from_f<T>(acc[i][j] / lc);
+    for (int j = 0; j < DN; ++j) ob[tx + 16 * j] = acc[i][j] / lc;
     if (tx == 0) lse[((size_t)b * H + h) * S + qpos] = m[i] + logf(lc);
   }
 }
@@ -246,21 +249,61 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // ---------------------------------------------------------------------------
 // backward: delta = rowsum(dO * O)
 // ---------------------------------------------------------------------------
+// acc + the sum of the products of two 16-byte chunks of T (8 bf16 or 4
+// float32 values).
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta, int rows, int S, int H, int hd) {
-  const int row = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);  // (b, s, h)
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const T* ob = o + (size_t)row * hd;
-  const T* db = dout + (size_t)row * hd;
-  float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f(ob[d]), to_f(db[d]), acc);
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b, float acc) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float* x = reinterpret_cast<const float*>(&a);
+    const float* y = reinterpret_cast<const float*>(&b);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const int h = row % H, bs = row / H, s = bs % S, b = bs / S;
+    for (int i = 0; i < 4; ++i) acc = fmaf(x[i], y[i], acc);
+  } else {
+    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(x[i]), yf = __bfloat1622float2(y[i]);
+      acc = fmaf(xf.x, yf.x, acc);
+      acc = fmaf(xf.y, yf.y, acc);
+    }
+  }
+  return acc;
+}
+
+// A row (b, s, h) is read by L lanes, 16 bytes a lane (CPL chunks a lane
+// where 32 lanes do not cover it), a CTA taking DELTA_THREADS / L
+// consecutive rows; its sum is a shuffle over the L lanes, written by the
+// first.  One row a thread group and many small CTAs measured faster with
+// L2 cold than several rows a thread in flight or a CTA's writes staged
+// into contiguous runs (PERF.md).
+constexpr int DELTA_THREADS = 256;
+template <typename T, int HD>
+__global__ void __launch_bounds__(DELTA_THREADS)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int S, int H, int rows) {
+  constexpr int CPR = HD * sizeof(T) / 16;  // 16-byte chunks a row
+  constexpr int L = CPR < 32 ? CPR : 32, CPL = CPR / L;
+  const int r = blockIdx.x * (DELTA_THREADS / L) + threadIdx.x / L, li = threadIdx.x % L;
+  const uint4* ob = reinterpret_cast<const uint4*>(o) + (size_t)r * CPR + li;
+  const uint4* db = reinterpret_cast<const uint4*>(dout) + (size_t)r * CPR + li;
+  uint4 x[CPL], y[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    if (r < rows) {
+      x[c] = __ldg(ob + c * L);
+      y[c] = __ldg(db + c * L);
+    } else {
+      x[c] = y[c] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) acc = dot16<T>(x[c], y[c], acc);
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (li == 0 && r < rows) {
+    const int h = r % H, bs = r / H, s = bs % S, b = bs / S;
     delta[((size_t)b * H + h) * S + s] = acc;
   }
 }
@@ -268,12 +311,13 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // ---------------------------------------------------------------------------
 // backward: dq.  P = exp(s - lse), dS = P * (dO.V - delta), dq = scale * dS K.
 // ---------------------------------------------------------------------------
-template <typename T, int HD, int R, int C>
+template <int HD, int R, int C>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int S, int H, int KH,
-                    int causal, int window, float scale) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int S, int H, int KH, int causal, int window,
+                    float scale) {
   constexpr int LD = HD + 1, LP = C + 1;
   constexpr int RM = R / 16, CN = C / 16, DN = HD / 16;
   extern __shared__ float smem[];
@@ -288,13 +332,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qstride = H * HD, kstride = KH * HD;
   const size_t head_off = ((size_t)b * S * H + h) * HD;
-  const T* kb = k + ((size_t)b * S * KH + kh) * HD;
-  const T* vb = v + ((size_t)b * S * KH + kh) * HD;
+  const float* kb = k + ((size_t)b * S * KH + kh) * HD;
+  const float* vb = v + ((size_t)b * S * KH + kh) * HD;
   const float* lseb = lse + ((size_t)b * H + h) * S;
   const float* deltab = delta + ((size_t)b * H + h) * S;
 
-  load_tile<T, R, HD>(Qs, q + head_off, q0, S, qstride, scale);
-  load_tile<T, R, HD>(dOs, dout + head_off, q0, S, qstride, 1.f);
+  load_tile<R, HD>(Qs, q + head_off, q0, S, qstride, scale);
+  load_tile<R, HD>(dOs, dout + head_off, q0, S, qstride, 1.f);
 
   float lse_r[RM], delta_r[RM], acc[RM][DN];
 #pragma unroll
@@ -311,8 +355,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * C;
     __syncthreads();
-    load_tile<T, C, HD>(Ks, kb, k0, S, kstride, 1.f);
-    load_tile<T, C, HD>(Vs, vb, k0, S, kstride, 1.f);
+    load_tile<C, HD>(Ks, kb, k0, S, kstride, 1.f);
+    load_tile<C, HD>(Vs, vb, k0, S, kstride, 1.f);
     __syncthreads();
 
     float s[RM][CN], dp[RM][CN];
@@ -371,9 +415,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < RM; ++i) {
     const int qpos = q0 + ty * RM + i;
     if (qpos >= S) continue;
-    T* db = dq + (((size_t)b * S + qpos) * H + h) * HD;
+    float* db = dq + (((size_t)b * S + qpos) * H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < DN; ++j) db[tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+    for (int j = 0; j < DN; ++j) db[tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
@@ -381,13 +425,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // backward: dk, dv.  Works on the transposed tiles (kv rows x q columns):
 // dv = P^T dO, dk = dS^T (scale * q), summed over the G heads of the group.
 // ---------------------------------------------------------------------------
-template <typename T, int HD, int R, int C>
+template <int HD, int R, int C>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KH, int causal,
-                      int window, float scale) {
+                      float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KH,
+                      int causal, int window, float scale) {
   constexpr int LD = HD + 1, LP = C + 1;
   constexpr int RM = R / 16, CN = C / 16, DN = HD / 16;
   extern __shared__ float smem[];
@@ -404,8 +448,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qstride = H * HD, kstride = KH * HD;
   const size_t kv_off = ((size_t)b * S * KH + kh) * HD;
 
-  load_tile<T, R, HD>(Ks, k + kv_off, k0, S, kstride, 1.f);
-  load_tile<T, R, HD>(Vs, v + kv_off, k0, S, kstride, 1.f);
+  load_tile<R, HD>(Ks, k + kv_off, k0, S, kstride, 1.f);
+  load_tile<R, HD>(Vs, v + kv_off, k0, S, kstride, 1.f);
 
   float dk_acc[RM][DN], dv_acc[RM][DN];
 #pragma unroll
@@ -425,8 +469,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
       const int q0 = qt * C;
       __syncthreads();
-      load_tile<T, C, HD>(Qs, q + head_off, q0, S, qstride, scale);
-      load_tile<T, C, HD>(dOs, dout + head_off, q0, S, qstride, 1.f);
+      load_tile<C, HD>(Qs, q + head_off, q0, S, qstride, scale);
+      load_tile<C, HD>(dOs, dout + head_off, q0, S, qstride, 1.f);
       float lse_c[CN], delta_c[CN];
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
@@ -506,14 +550,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = (((size_t)b * S + kpos) * KH + kh) * HD;
 #pragma unroll
     for (int j = 0; j < DN; ++j) {
-      dk[off + tx + 16 * j] = from_f<T>(dk_acc[i][j]);
-      dv[off + tx + 16 * j] = from_f<T>(dv_acc[i][j]);
+      dk[off + tx + 16 * j] = dk_acc[i][j];
+      dv[off + tx + 16 * j] = dv_acc[i][j];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 backward on the tensor cores
+// bfloat16 on the tensor cores: the forward, dk/dv and dq
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
@@ -598,6 +642,178 @@ __device__ __forceinline__ void load_stats_async(float* dst, const float* src, i
   for (int r = threadIdx.x; r < ROWS; r += NT) {
     const int pos = row0 + r;
     cp_async4(dst + r, src + (pos < S ? pos : 0), pos < S ? 4 : 0);
+  }
+}
+
+// The forward for bfloat16.  CTA: BR = 16 NW q rows of one query head; warp
+// w owns q rows 16w..16w+15 and, per kv tile of BC rows, builds S = Q K^T
+// (16 x BC f32), updates its online softmax once for the tile, and feeds P
+// (hi + lo) as A to O += P V.  A row's BC scores lie in the 4 lanes of a
+// quad (columns 2t, 2t + 1 of each n8 block), so its max is two shuffles;
+// its sum stays a per-lane partial until the epilogue.  Scores are kept as
+// s * scale * log2(e), so P = exp2(s' - m').
+template <int HD, int NW, int BC>
+__global__ void __launch_bounds__(NW * 32, 1)  // up to 255 registers: no spills
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     int S, int H, int KH, int causal, int window, float scale) {
+  constexpr int NT = NW * 32, BR = 16 * NW, LDS = HD + 8, NC = BC / 16;
+  constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BR * LDS;        // two stages of BC x LDS
+  bf16* Vs = Ks + 2 * BC * LDS;    // two stages
+
+  const int nqt = (S + BR - 1) / BR;
+  const int q0 = (nqt - 1 - blockIdx.y) * BR;  // y = 0 first: the last q tile sees the most kv tiles
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kh = h / (H / KH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int qstride = H * HD, kstride = KH * HD;
+  const size_t q_off = ((size_t)b * S * H + h) * HD, kv_off = ((size_t)b * S * KH + kh) * HD;
+
+  int lo, hi;
+  kv_range(q0, BR, BC, S, causal, window, &lo, &hi);
+  auto load_kv = [&](int kt, int st) {
+    load_tile_async<BC, HD, NT>(Ks + st * BC * LDS, k + kv_off, kt * BC, S, kstride);
+    load_tile_async<BC, HD, NT>(Vs + st * BC * LDS, v + kv_off, kt * BC, S, kstride);
+  };
+  load_tile_async<BR, HD, NT>(Qs, q + q_off, q0, S, qstride);
+  load_kv(lo, 0);
+  cp_async_commit();
+
+  const int qw0 = q0 + warp * 16;  // this warp's first q row
+  const float sl2 = scale * LOG2E;
+  // rows g and g + 8: running max of s', this lane's part of the running sum
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  const uint32_t q_addr = smem_u32(Qs + (warp * 16 + a_row) * LDS + a_col);
+
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int st = (kt - lo) & 1;
+    if (kt < hi) load_kv(kt + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + st * BC * LDS;
+    const bf16* Vt = Vs + st * BC * LDS;
+    const int k0 = kt * BC;
+    // the 16-column blocks of which this warp sees something (warp-uniform)
+    unsigned vis = 0;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int kc0 = k0 + c * 16;
+      if (!(qw0 >= S || kc0 >= S || (causal && kc0 > qw0 + 15) ||
+            (window > 0 && qw0 - (kc0 + 15) >= window)))
+        vis |= 1u << c;
+    }
+    if (vis) {
+      float s[NC][2][4];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[c][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(q_addr + kk * 32, a);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          if (!((vis >> c) & 1)) continue;
+          uint32_t bb[4];
+          ldsm_x4(smem_u32(Kt + (c * 16 + b_row) * LDS + b_col) + kk * 32, bb);
+          mma16816(s[c][0], a, bb[0], bb[1]);
+          mma16816(s[c][1], a, bb[2], bb[3]);
+        }
+      }
+      // entry e of n8 block j of block c: q row g (+8 for e >= 2), kv column
+      // c * 16 + j * 8 + 2t (+1 for odd e)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (!((vis >> c) & 1)) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const bool ok = visible(qw0 + g + r * 8, k0 + c * 16 + j * 8 + 2 * t + (e & 1), S,
+                                    causal, window);
+            s[c][j][e] = ok ? s[c][j][e] * sl2 : NEG_INF;
+            mx[r] = fmaxf(mx[r], s[c][j][e]);
+          }
+      }
+      float corr[2], mu[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f(m[r] - mx[r]);  // 1 while the row has seen nothing, 0 from NEG_INF
+        m[r] = mx[r];
+        mu[r] = mx[r] == NEG_INF ? 0.f : mx[r];  // masked entries then give exp2(NEG_INF) = 0
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (!((vis >> c) & 1)) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            s[c][j][e] = exp2f(s[c][j][e] - mu[r]);
+            l[r] += s[c][j][e];
+          }
+        uint32_t ph[4], pl[4];
+        to_a_frag(s[c][0], s[c][1], ph, pl);
+        const uint32_t vt_addr = smem_u32(Vt + (c * 16 + a_row) * LDS + a_col);
+#pragma unroll
+        for (int n = 0; n < HD / 16; ++n) {
+          uint32_t bb[4];
+          ldsm_x4_t(vt_addr + n * 32, bb);
+          mma16816(acc[2 * n], ph, bb[0], bb[1]);
+          mma16816(acc[2 * n], pl, bb[0], bb[1]);
+          mma16816(acc[2 * n + 1], ph, bb[2], bb[3]);
+          mma16816(acc[2 * n + 1], pl, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration loads into this stage
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qpos = qw0 + g + half * 8;
+    if (qpos >= S) continue;
+    bf16* ob = o + (((size_t)b * S + qpos) * H + h) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(ob + n * 8) = __float22bfloat162_rn(
+          make_float2(acc[n][2 * half] / l[half], acc[n][2 * half + 1] / l[half]));
+    if (t == 0) lse[((size_t)b * H + h) * S + qpos] = m[half] * LN2 + logf(l[half]);
   }
 }
 
@@ -914,6 +1130,16 @@ template <int HD> struct MmaTiles {
   static constexpr int NW = 4, STREAM = 64, DV = HD < 128 ? HD : 128;
 };
 
+// Tensor-core forward (bfloat16): NW warps of 16 q rows each, BC kv rows
+// per ring stage.  A warp's O accumulator is 16 x hd f32, hd / 2 registers a
+// thread, and its scores BC / 2 more.  Shared memory (16 NW + 4 BC) rows of
+// hd + 8 bf16: 85 KB at hd 128 (two CTAs per SM); at hd 256 a 32-row stream
+// keeps it at 99 KB, two CTAs per SM (a 64-row one would take 165 KB, one).
+template <int HD> struct FwdTiles { static constexpr int NW = 4, BC = HD < 256 ? 64 : 32; };
+
+template <int HD> constexpr size_t fwd_mma_smem() {
+  return sizeof(bf16) * (16 * FwdTiles<HD>::NW + 4 * FwdTiles<HD>::BC) * (HD + 8);
+}
 template <int HD> constexpr size_t dkdv_mma_smem() {
   using M = MmaTiles<HD>;
   return sizeof(bf16) * (2 * 16 * M::NW + 4 * M::STREAM) * (HD + 8) +
@@ -946,17 +1172,32 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int HD> cudaError_t launch_fwd(const Args& a) {
+template <int HD> cudaError_t launch_fwd(const Args& a) {
   constexpr int R = Tiles<HD>::R, C = Tiles<HD>::C;
-  auto kern = flash_fwd_kernel<T, HD, R, C>;
+  auto kern = flash_fwd_kernel<HD, R, C>;
   constexpr size_t smem = fwd_smem<HD>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.S + R - 1) / R, a.H, a.B);
-  kern<<<grid, THREADS, smem, a.stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v,
-                                          (T*)a.o, a.lse, a.S, a.H, a.KH, a.causal, a.window,
+  kern<<<grid, THREADS, smem, a.stream>>>((const float*)a.q, (const float*)a.k, (const float*)a.v,
+                                          (float*)a.o, a.lse, a.S, a.H, a.KH, a.causal, a.window,
                                           a.scale);
+  return cudaGetLastError();
+}
+
+template <int HD> cudaError_t launch_fwd_mma(const Args& a) {
+  using F = FwdTiles<HD>;
+  auto kern = flash_fwd_mma_kernel<HD, F::NW, F::BC>;
+  constexpr size_t smem = fwd_mma_smem<HD>();
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  constexpr int BR = 16 * F::NW;
+  dim3 grid(a.B * a.H, (a.S + BR - 1) / BR);
+  kern<<<grid, 32 * F::NW, smem, a.stream>>>((const bf16*)a.q, (const bf16*)a.k,
+                                             (const bf16*)a.v, (bf16*)a.o, a.lse, a.S, a.H,
+                                             a.KH, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1009,40 +1250,47 @@ cudaError_t occupancy(K kern, size_t smem, int threads, int* out) {
   out[2] = threads;
   return cudaSuccess;
 }
+// which: 0 the forward, 1 dq, 2 dk/dv
 template <int HD> cudaError_t mma_occupancy(int which, int* out) {
+  using F = FwdTiles<HD>;
   using M = MmaTiles<HD>;
   if (which == 0)
+    return occupancy(flash_fwd_mma_kernel<HD, F::NW, F::BC>, fwd_mma_smem<HD>(), 32 * F::NW,
+                     out);
+  if (which == 1)
     return occupancy(flash_bwd_dq_mma_kernel<HD, M::NW, M::STREAM>, dq_mma_smem<HD>(),
                      32 * M::NW, out);
-  return occupancy(flash_bwd_dkdv_mma_kernel<HD, M::DV, M::NW, M::STREAM>,
-                   dkdv_mma_smem<HD>(), 32 * M::NW * (HD / M::DV), out);
+  if (which == 2)
+    return occupancy(flash_bwd_dkdv_mma_kernel<HD, M::DV, M::NW, M::STREAM>,
+                     dkdv_mma_smem<HD>(), 32 * M::NW * (HD / M::DV), out);
+  return cudaErrorInvalidValue;
 }
 
-template <typename T, int HD> cudaError_t launch_dq(const Args& a) {
+template <int HD> cudaError_t launch_dq(const Args& a) {
   constexpr int R = Tiles<HD>::R, C = Tiles<HD>::C;
-  auto kern = flash_bwd_dq_kernel<T, HD, R, C>;
+  auto kern = flash_bwd_dq_kernel<HD, R, C>;
   constexpr size_t smem = dq_smem<HD>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.S + R - 1) / R, a.H, a.B);
-  kern<<<grid, THREADS, smem, a.stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v,
-                                          (const T*)a.dout, a.lse, a.delta, (T*)a.dq, a.S,
+  kern<<<grid, THREADS, smem, a.stream>>>((const float*)a.q, (const float*)a.k, (const float*)a.v,
+                                          (const float*)a.dout, a.lse, a.delta, (float*)a.dq, a.S,
                                           a.H, a.KH, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD> cudaError_t launch_dkdv(const Args& a) {
+template <int HD> cudaError_t launch_dkdv(const Args& a) {
   constexpr int R = Tiles<HD>::R, C = Tiles<HD>::C;
-  auto kern = flash_bwd_dkdv_kernel<T, HD, R, C>;
+  auto kern = flash_bwd_dkdv_kernel<HD, R, C>;
   constexpr size_t smem = dkdv_smem<HD>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.S + R - 1) / R, a.KH, a.B);
-  kern<<<grid, THREADS, smem, a.stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v,
-                                          (const T*)a.dout, a.lse, a.delta, (T*)a.dk,
-                                          (T*)a.dv, a.S, a.H, a.KH, a.causal, a.window,
+  kern<<<grid, THREADS, smem, a.stream>>>((const float*)a.q, (const float*)a.k, (const float*)a.v,
+                                          (const float*)a.dout, a.lse, a.delta, (float*)a.dk,
+                                          (float*)a.dv, a.S, a.H, a.KH, a.causal, a.window,
                                           a.scale);
   return cudaGetLastError();
 }
@@ -1063,20 +1311,45 @@ template <template <typename, int> class L> struct Dispatch {
     return cudaErrorInvalidValue;
   }
 };
-template <typename T, int HD> struct Fwd { static cudaError_t run(const Args& a) { return launch_fwd<T, HD>(a); } };
-// The backward: float32 on the FMA kernels, bfloat16 on the tensor cores.
+// float32 on the FMA kernels, bfloat16 on the tensor cores.
+template <typename T, int HD> struct Fwd {
+  static cudaError_t run(const Args& a) {
+    if constexpr (std::is_same<T, bf16>::value) return launch_fwd_mma<HD>(a);
+    else return launch_fwd<HD>(a);
+  }
+};
 template <typename T, int HD> struct Dq {
   static cudaError_t run(const Args& a) {
     if constexpr (std::is_same<T, bf16>::value) return launch_dq_mma<HD>(a);
-    else return launch_dq<T, HD>(a);
+    else return launch_dq<HD>(a);
   }
 };
 template <typename T, int HD> struct Dkdv {
   static cudaError_t run(const Args& a) {
     if constexpr (std::is_same<T, bf16>::value) return launch_dkdv_mma<HD>(a);
-    else return launch_dkdv<T, HD>(a);
+    else return launch_dkdv<HD>(a);
   }
 };
+
+template <typename T, int HD> cudaError_t launch_delta(const void* o, const void* dout,
+                                                        float* delta, int B, int S, int H,
+                                                        cudaStream_t st) {
+  constexpr int CPR = HD * sizeof(T) / 16, ROWS = DELTA_THREADS / (CPR < 32 ? CPR : 32);
+  const int rows = B * S * H;
+  flash_bwd_delta_kernel<T, HD><<<(rows + ROWS - 1) / ROWS, DELTA_THREADS, 0, st>>>(
+      (const T*)o, (const T*)dout, delta, S, H, rows);
+  return cudaGetLastError();
+}
+template <typename T> cudaError_t delta_by_hd(const void* o, const void* dout, float* delta,
+                                              int B, int S, int H, int hd, cudaStream_t st) {
+  switch (hd) {
+    case 32: return launch_delta<T, 32>(o, dout, delta, B, S, H, st);
+    case 64: return launch_delta<T, 64>(o, dout, delta, B, S, H, st);
+    case 128: return launch_delta<T, 128>(o, dout, delta, B, S, H, st);
+    case 256: return launch_delta<T, 256>(o, dout, delta, B, S, H, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
@@ -1091,21 +1364,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
   return (int)Dispatch<Fwd>::run(dtype, hd, a);
 }
 
+// o and dout start on a 16-byte boundary (the kernel reads 16-byte chunks).
 extern "C" int flash_bwd_delta(const void* o, const void* dout, float* delta, int B, int S,
                                int H, int hd, int dtype, void* stream) {
-  const int rows = B * S * H;
-  dim3 grid((rows + THREADS / 32 - 1) / (THREADS / 32));
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    flash_bwd_delta_kernel<float><<<grid, THREADS, 0, st>>>((const float*)o,
-                                                            (const float*)dout, delta, rows,
-                                                            S, H, hd);
-  else if (dtype == 1)
-    flash_bwd_delta_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, delta, rows, S, H, hd);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 0) return (int)delta_by_hd<float>(o, dout, delta, B, S, H, hd, st);
+  if (dtype == 1) return (int)delta_by_hd<__nv_bfloat16>(o, dout, delta, B, S, H, hd, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -1132,10 +1397,10 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const
   return (int)Dispatch<Dkdv>::run(dtype, hd, a);
 }
 
-// The bfloat16 backward kernels' resources at head dim hd (which: 0 dq,
-// 1 dk/dv): out = {registers a thread, dynamic shared bytes, threads, CTAs
-// per SM}.
-extern "C" int flash_bwd_occupancy(int which, int hd, int* out) {
+// The bfloat16 tensor-core kernels' resources at head dim hd (which: 0 the
+// forward, 1 dq, 2 dk/dv): out = {registers a thread, dynamic shared bytes,
+// threads, CTAs per SM}.
+extern "C" int flash_mma_occupancy(int which, int hd, int* out) {
   switch (hd) {
     case 32: return (int)mma_occupancy<32>(which, out);
     case 64: return (int)mma_occupancy<64>(which, out);

@@ -20,12 +20,18 @@ wrapper             kernel                  plain version
 :func:`bwd_dkdv`    ``flash_bwd_dkdv``      :func:`plain_bwd` (dk, dv)
 ==================  ======================  ============================
 
-For bfloat16 the backward kernels run on the tensor cores and take P and
-dS as a hi + lo pair of bfloat16 values (:func:`round_operand` emulates
-the choice for the CPU tests); with more than one query head per kv head,
+For bfloat16 the forward, dq and dk/dv kernels run on the tensor cores
+(``mma.sync``) and take P (and dS) as a hi + lo pair of bfloat16 values:
+rounded once, they would put the outputs over the bfloat16 check's limit
+(:func:`round_operand` emulates the choice for the CPU tests, in
+:func:`plain_fwd` and :func:`plain_bwd`).  Their bound at the main
+paths' shapes is the tensor cores' rate (the forward's, at qwen1.5-4b's
+shape, its bytes, just under the ridge); they run 8-12x above it
+(``PERF.md``), which ``wgmma`` fed by TMA would narrow.
+``flash_bwd_delta`` only moves bytes: it reads 16 bytes a lane.  With more than one query head per kv head,
 ``flash_bwd_dkdv`` writes float32 partials per query head and
 :func:`bwd_dkdv` sums them over the group (:func:`sum_groups`).  float32
-keeps the FMA kernels.
+keeps the FMA kernels: TF32 would not meet its 2e-4 check.
 
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
 it launches its kernel or raises (no fallback).  :func:`flash_attention` is
@@ -60,6 +66,16 @@ def reset_launches() -> None:
 # ----------------------------------------------------------------------
 # Load
 # ----------------------------------------------------------------------
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: The library's entry points and their ``argtypes``.
+SIGNATURES = {
+    "flash_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p],
+    "flash_bwd_delta": [_p, _p, _p, _i, _i, _i, _i, _i, _p],
+    "flash_bwd_dq": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p],
+    "flash_bwd_dkdv": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _i,
+                       _p],
+    "flash_mma_occupancy": [_i, _i, _p],
+}
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -69,14 +85,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            _lib = load(SOURCE, {
-                "flash_fwd": [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p],
-                "flash_bwd_delta": [p, p, p, i, i, i, i, i, p],
-                "flash_bwd_dq": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p],
-                "flash_bwd_dkdv": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p],
-                "flash_bwd_occupancy": [i, i, p],
-            })
+            _lib = load(SOURCE, SIGNATURES)
         return _lib
 
 
@@ -97,6 +106,15 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
     check_same(q, k, v)
+    check_aligned("q, k and v", q, k, v)
+
+
+def check_aligned(names: str, *ts: torch.Tensor) -> None:
+    """CUDA tensors must start on a 16-byte boundary: the kernels copy
+    16-byte chunks, and a misaligned one would kill the CUDA context."""
+    if ts[0].is_cuda and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{names} must start on a 16-byte boundary (the flash "
+                         "kernels copy 16-byte chunks)")
 
 
 def _window_arg(window: int | None) -> int:
@@ -130,14 +148,22 @@ def _scores(q, k, causal, window):
     return s.masked_fill(~mask, NEG_INF), qs, kf, mask
 
 
-def plain_fwd(q, k, v, causal=True, window=None):
-    """(o in q's dtype, lse (B, H, S) f32): what ``flash_fwd`` computes."""
+def plain_fwd(q, k, v, causal=True, window=None, rounding="f32"):
+    """(o in q's dtype, lse (B, H, S) f32): what ``flash_fwd`` computes.
+    ``rounding`` other than ``"f32"`` emulates how the unnormalised
+    probabilities exp(s - m) enter O = P V on the tensor cores
+    (:func:`round_operand`), before the division by the float32 row sum;
+    the kernels' check and the model use ``"f32"``."""
     s, _, _, mask = _scores(q, k, causal, window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * mask
     lc = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     vf = repeat_kv(v.float(), q.shape[2] // v.shape[2])
-    o = torch.einsum("bhqk,bkhd->bqhd", p / lc, vf)
+    if rounding == "f32":
+        o = torch.einsum("bhqk,bkhd->bqhd", p / lc, vf)
+    else:
+        o = torch.einsum("bhqk,bkhd->bqhd", round_operand(p, rounding), vf) \
+            / lc.permute(0, 2, 1, 3)
     lse = (m + torch.log(lc)).squeeze(-1)
     return o.to(q.dtype).contiguous(), lse.contiguous()
 
@@ -156,9 +182,9 @@ def sum_groups(partial: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def round_operand(x: torch.Tensor, rounding: str) -> torch.Tensor:
-    """P or dS as it enters the backward's second products: ``"f32"`` as
-    it is, ``"bf16"`` rounded once to bfloat16, ``"split"`` as the
-    bfloat16 pair hi = bf16(x), lo = bf16(x - hi) that the tensor-core
+    """P or dS as it enters a second product (O = P V, dV = P^T dO, ...):
+    ``"f32"`` as it is, ``"bf16"`` rounded once to bfloat16, ``"split"`` as
+    the bfloat16 pair hi = bf16(x), lo = bf16(x - hi) that the tensor-core
     kernels multiply in two products (hi + lo, exact in float32)."""
     if rounding == "f32":
         return x
@@ -217,7 +243,10 @@ def bwd_delta(o, do):
     """delta (B, H, S) f32.  ``flash_bwd_delta`` on CUDA tensors."""
     if o.dim() != 4 or o.shape != do.shape:
         raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must match")
+    if o.shape[3] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {o.shape[3]} not in {SUPPORTED_HEAD_DIMS}")
     check_same(o, do)
+    check_aligned("o and dO", o, do)
     if not o.is_cuda:
         return plain_bwd_delta(o, do)
     B, S, H, hd = o.shape
@@ -234,9 +263,7 @@ def _check_bwd(q, k, v, do, lse, delta):
     check_same(q, do)
     if do.shape != q.shape:
         raise ValueError("dO must have q's shape")
-    if q.is_cuda and any(t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("q, k, v and dO must start on a 16-byte boundary (the "
-                         "backward kernels copy 16-byte rows)")
+    check_aligned("dO", do)
     B, S, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (B, H, S) or t.dtype != torch.float32 or t.device != q.device \
@@ -288,14 +315,22 @@ def bwd_dkdv(q, k, v, do, lse, delta, causal=True, window=None):
     return dk, dv
 
 
-def bwd_occupancy(kernel: str, hd: int) -> dict:
-    """Resources of the bfloat16 backward kernel ``kernel``
-    (``"flash_bwd_dq"`` or ``"flash_bwd_dkdv"``) at head dim ``hd``, as the
-    CUDA runtime reports them: registers a thread, dynamic shared bytes,
-    threads and CTAs per SM.  Launches nothing."""
+#: The bfloat16 tensor-core kernels, in the order of ``flash_mma_occupancy``.
+MMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+
+
+def occupancy(kernel: str, hd: int) -> dict:
+    """Resources of the bfloat16 tensor-core kernel ``kernel`` (one of
+    :data:`MMA_KERNELS`) at head dim ``hd``, as the CUDA runtime reports
+    them: registers a thread, dynamic shared bytes, threads and CTAs per
+    SM.  Launches nothing."""
+    if kernel not in MMA_KERNELS:
+        raise ValueError(f"kernel must be one of {MMA_KERNELS}, got {kernel!r}")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
     out = (ctypes.c_int * 4)()
-    raise_on(load_library().flash_bwd_occupancy(
-        ("flash_bwd_dq", "flash_bwd_dkdv").index(kernel), hd, out), "flash_bwd_occupancy")
+    raise_on(load_library().flash_mma_occupancy(MMA_KERNELS.index(kernel), hd, out),
+             "flash_mma_occupancy")
     return dict(zip(("registers", "smem_bytes", "threads", "ctas_per_sm"), out))
 
 

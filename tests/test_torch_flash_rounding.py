@@ -1,10 +1,11 @@
-"""Why the tensor-core flash backward splits P and dS into two bfloat16
+"""Why the tensor-core flash kernels split P (and dS) into two bfloat16
 values, pinned on the CPU.
 
-The bfloat16 kernels ``flash_bwd_dq`` and ``flash_bwd_dkdv`` take the
-second products (dV += P^T dO, dK += dS^T Q, dQ += dS K) on the tensor
-cores, whose operands are bfloat16.  ``plain_bwd(..., rounding=...)``
-emulates the two ways P and dS can enter them, in float32 on
+The bfloat16 kernels ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkdv``
+take their second products (O = P V in the forward; dV += P^T dO, dK +=
+dS^T Q, dQ += dS K in the backward) on the tensor cores, whose operands are
+bfloat16.  ``plain_fwd(..., rounding=...)`` and ``plain_bwd(...,
+rounding=...)`` emulate the two ways P and dS can enter them, in float32 on
 bfloat16-valued inputs, against the same sums with P and dS in float32
 (what the kernels are held to on the card): rounded once to bfloat16 they
 read far over the bfloat16 check's limit, |err| <= 1e-2 |want| + 1e-3
@@ -13,6 +14,8 @@ within one rounding step of the output.  Inputs: recurrentgemma-2b's
 local-attention shape cut to B 1, S 256, H 4 (one kv head, hd 256), and
 qwen1.5-4b's cut to B 1, S 256, H 4 (hd 128), from numpy seeds.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +38,15 @@ def _of_limit(got: torch.Tensor, want: torch.Tensor) -> float:
     g, w = got.float(), want.float()
     limit = LIMIT[0] * w.abs() + LIMIT[1] * w.square().mean().sqrt()
     return float(((g - w).abs() / limit.clamp_min(1e-30)).max())
+
+
+def _fwd_reading(shape, seed, rounding):
+    """o with the unnormalised P rounded as ``rounding``, against o with P
+    in float32."""
+    q, k, v, _ = _inputs(*SHAPES[shape], seed)
+    want, _ = fa.plain_fwd(q, k, v, True, None)
+    got, _ = fa.plain_fwd(q, k, v, True, None, rounding=rounding)
+    return _of_limit(got, want)
 
 
 def _readings(shape, seed, rounding):
@@ -61,6 +73,42 @@ def test_hi_lo_split_keeps_the_bf16_limit(out, shape, seed):
     """P and dS as hi + lo: under 0.8 of the limit (0.60-0.76 here), the
     output's own rounding step."""
     assert _readings(shape, seed, "split")[out] < 0.8
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_forward_rounding_p_once_breaks_the_bf16_limit(shape, seed):
+    """exp(s - m) rounded once to bfloat16 before O = P V: over the limit
+    (5.9-6.8x here)."""
+    assert _fwd_reading(shape, seed, "bf16") > 1.0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_forward_hi_lo_split_keeps_the_bf16_limit(shape, seed):
+    """exp(s - m) as hi + lo: under 0.8 of the limit (0.66-0.71 here)."""
+    assert _fwd_reading(shape, seed, "split") < 0.8
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_forward_f32_rounding_is_the_plain_forward(shape, seed):
+    """``rounding="f32"`` (the default) is the softmax-then-product the
+    kernels are held to, bit for bit."""
+    q, k, v, _ = _inputs(*SHAPES[shape], seed)
+    B, S, H, hd = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / math.sqrt(hd)),
+                     fa.repeat_kv(k.float(), H // k.shape[2]))
+    mask = torch.ones(S, S, dtype=torch.bool).tril()
+    s = s.masked_fill(~mask, fa.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    lc = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    want = torch.einsum("bhqk,bkhd->bqhd", p / lc, fa.repeat_kv(v.float(), H // v.shape[2]))
+    o, lse = fa.plain_fwd(q, k, v, True, None, rounding="f32")
+    assert torch.equal(o, want.to(q.dtype))
+    assert torch.equal(lse, (m + torch.log(lc)).squeeze(-1))
+    assert torch.equal(o, fa.plain_fwd(q, k, v, True, None)[0])
 
 
 def test_round_operand():

@@ -193,6 +193,19 @@ class TestDispatchAndChecks:
         with pytest.raises(ValueError, match="one dtype"):
             fa.fwd(q, k.to(torch.bfloat16), v)
 
+    @pytest.mark.parametrize("hd", [48, 96, 512])
+    def test_delta_unsupported_head_dim_raises(self, hd):
+        o = torch.zeros(1, 8, 2, hd)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.bwd_delta(o, o)
+
+    @pytest.mark.parametrize("kernel,hd", [("flash_bwd_delta", 128), ("flash_fwd", 96)])
+    def test_occupancy_rejects_what_has_no_tensor_core_kernel(self, kernel, hd):
+        """Checked before the library is built or loaded."""
+        with pytest.raises(ValueError, match="kernel must be|head dim"):
+            fa.occupancy(kernel, hd)
+        assert fa._lib is None
+
     def test_unknown_impl_raises(self):
         q, k, v = _torch(_inputs(1, 32, 2, 2, 64), "float32")
         with pytest.raises(ValueError, match="impl"):

@@ -79,6 +79,34 @@ class TestOnCard:
         for what, a, b in zip(("dq", "dk", "dv"), *runs):
             assert torch.equal(a, b), what
 
+    @pytest.mark.parametrize("S,H,K,hd,window", [(1024, 4, 4, 128, None),
+                                                 (1000, 8, 2, 256, None),
+                                                 (512, 10, 1, 256, 2048),
+                                                 (300, 2, 1, 32, 32)])
+    def test_forward_is_bitwise_deterministic(self, S, H, K, hd, window):
+        """bf16 ``fwd`` twice: equal o and lse (each written by one thread)."""
+        q, k, v, _ = _inputs(S, H, K, hd, torch.bfloat16)
+        (o1, lse1), (o2, lse2) = (fa.fwd(q, k, v, True, window) for _ in range(2))
+        assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+    def test_delta_raises_on_unaligned_rows(self):
+        """``bwd_delta`` reads 16-byte chunks: a view that starts off a
+        16-byte boundary raises, with no fallback."""
+        _, _, _, do = _inputs(64, 2, 2, 64, torch.bfloat16)
+        flat = torch.zeros(do.numel() + 1, dtype=torch.bfloat16, device="cuda")
+        o = flat[1:].view(do.shape)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.bwd_delta(o, do)
+
+    def test_fwd_raises_on_unaligned_rows(self):
+        """The bf16 ``fwd`` copies q, k and v in 16-byte chunks: a view that
+        starts off a 16-byte boundary raises, with no fallback."""
+        q, k, v, _ = _inputs(64, 2, 2, 64, torch.bfloat16)
+        flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+        q = flat[1:].view(q.shape)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.fwd(q, k, v, True, None)
+
     def test_ops_autograd_vs_ref_float32(self):
         """The differentiable path the model takes (``ops.attention`` on CUDA
         tensors) against autograd through ``ref.attention``, in float32,
