@@ -8,7 +8,9 @@ Phases, in order; any failure ends the script with a non-zero code:
    forward and backward kernels' ``-Xptxas -v`` lines, each bfloat16
    tensor-core instantiation's registers, shared memory and CTAs per SM,
    and their HMMA count in the SASS (fails on a spill or a tensor-core
-   kernel without HMMA);
+   kernel without HMMA); print every wkv6 kernel's ``-Xptxas -v`` lines and
+   the bfloat16 instantiations' registers, shared memory and CTAs per SM
+   (fails on a spill);
 3. hold every flash kernel (forward, delta, dq, dk/dv) against its plain
    PyTorch version on the card, element by element, at qwen1.5-4b's
    shape, at recurrentgemma-2b's local-attention shape (hd 256, one KV
@@ -23,26 +25,30 @@ Phases, in order; any failure ends the script with a non-zero code:
    hold the wkv6 forward against its plain version and its backward
    against autograd through ``ref.wkv6``, at rwkv6-1.6b's shape in bfloat16
    and float32, at a ragged shape (hd 32) with a carried state, at strong
-   decays (w down to 1e-3) and where bfloat16 rounds w to exactly 1; hold
-   a reduced qwen1.5-4b's, recurrentgemma-2b's and rwkv6-1.6b's loss and
-   gradients on the card (through the kernels) against the same model on
-   the CPU (plain versions); run the bfloat16 flash forward and backward
-   twice at the main paths' shapes and require bitwise-equal o, lse, dq, dk
-   and dv;
+   decays (w down to 1e-3), where bfloat16 rounds w to exactly 1 and with w
+   exactly 0 in a quarter of the entries; hold a reduced qwen1.5-4b's,
+   recurrentgemma-2b's and rwkv6-1.6b's loss and gradients on the card
+   (through the kernels, run twice and required bitwise equal) against the
+   same model on the CPU (plain versions); run the bfloat16 flash forward
+   and backward, and the wkv6 forward and backward, twice at the main
+   paths' shapes and require bitwise-equal outputs;
 4. time each kernel, its plain version and the PyTorch library call that
    computes the same function (``scaled_dot_product_attention`` and its
    backward, ``torch.linalg.vecdot`` for delta, timed here only and never
    called by the port; none for the RG-LRU and wkv6 scans), each with L2
    refilled before every call, at the main paths' shapes, and compute each
-   kernel's bound;
-5. run ``repro_torch.measure`` for qwen1.5-4b (2 units), recurrentgemma-2b
+   kernel's bound; print the CUDA kernels of each wkv6 wrapper call with
+   their device times (``torch.profiler``);
+5. profile one unit's forward and backward on each main path at its
+   published widths (``torch.profiler``, device time per kernel name);
+6. run ``repro_torch.measure`` for qwen1.5-4b (2 units), recurrentgemma-2b
    (one RRL unit) and rwkv6-1.6b (2 units) at their published widths with 2
    gloo ranks on the card and all three sync policies; check each written
    trace, the counted all-reduce bytes and that the three policies leave
    the same momentum;
-6. check that every kernel of each path launched during its run (the
+7. check that every kernel of each path launched during its run (the
    counters are set to 0 before each);
-7. print the ``kernels`` line, then the ``ok`` line last.
+8. print the ``kernels`` line, then the ``ok`` line last.
 
 It imports nothing of JAX and nothing of the reference package ``repro``.
 """
@@ -62,6 +68,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+
+# the port first: without it (the script alone) the import fails, nothing is printed
+from repro_torch.kernels.bench import (  # noqa: E402
+    L_BLOCK, SLICE, WKV6_SLICE, card_line, device_times, make_inputs, print_profile, time_ms,
+    wkv6_inputs)
 
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
 # sheet): HBM bytes/s and FLOP/s by input type (bf16 on the tensor cores,
@@ -88,10 +99,8 @@ AUTOGRAD_BF16_LIMIT = (1e-2, 1e-1)
 #: gradient instead of the mean over both shards.
 MOMENTUM_RTOL = 1e-2
 
-# The main paths' attention shapes at batch_per_gpu 2, seq 1024: qwen1.5-4b's
-# G blocks, and recurrentgemma-2b's L blocks (window 2048 >= S: causal only).
-SLICE = dict(B=2, S=1024, H=20, K=20, hd=128, window=None, dtype=torch.bfloat16)
-L_BLOCK = dict(B=2, S=1024, H=10, K=1, hd=256, window=2048, dtype=torch.bfloat16)
+# The main paths' attention shapes: ``SLICE`` (qwen1.5-4b's G blocks) and
+# ``L_BLOCK`` (recurrentgemma-2b's L blocks), from ``repro_torch.kernels.bench``.
 CHECK_SHAPES = [
     ("slice", SLICE),
     ("l_block", L_BLOCK),
@@ -117,17 +126,16 @@ RGLRU_SHAPES = [
     ("f32_ragged_h0", dict(B=2, S=1000, W=200, dtype=torch.float32, h0=True)),
     ("f32_a_near_1", dict(B=2, S=1024, W=256, dtype=torch.float32, h0=True, r_shift=-40.0)),
 ]
-# rwkv6-1.6b's wkv shape at batch_per_gpu 2, seq 1024 (32 heads of 64).  decay:
-# "mild" exp(-exp(N(0, 1) - 3)) as the repository's kernel tests, "strong" w
-# uniform in [1e-3, 0.2], "one" exp(-exp(N(0, 1) - 12)), which bfloat16
-# rounds to exactly 1.0 (checked where the inputs are made).
-WKV6_SLICE = dict(B=2, S=1024, H=32, hd=64, dtype=torch.bfloat16)
+# rwkv6-1.6b's wkv shape (``WKV6_SLICE``) and others; ``decay`` as in
+# ``bench.wkv6_inputs``.
 WKV6_SHAPES = [
     ("slice", WKV6_SLICE),
     ("f32_slice", dict(WKV6_SLICE, dtype=torch.float32)),
     ("f32_ragged_state", dict(B=2, S=1000, H=4, hd=32, dtype=torch.float32, state=True)),
     ("f32_strong_decay", dict(B=2, S=1024, H=4, hd=64, dtype=torch.float32, decay="strong")),
     ("w_one", dict(B=2, S=512, H=4, hd=64, dtype=torch.bfloat16, decay="one")),
+    ("w_zero_ragged", dict(B=2, S=1000, H=4, hd=32, dtype=torch.bfloat16, state=True,
+                           decay="zero")),
 ]
 _COMMON = ["--seq-len", "1024", "--batch-per-gpu", "2", "--devices", "2", "--repeats", "3",
            "--step-iters", "3"]
@@ -158,18 +166,6 @@ def phase(name):
             return out
         return run
     return wrap
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def make_inputs(B, S, H, K, hd, dtype, seed=0, **_):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)  # noqa: E731
-    return mk(B, S, H, hd), mk(B, S, K, hd), mk(B, S, K, hd), mk(B, S, H, hd)
 
 
 def close(got: torch.Tensor, want: torch.Tensor, rtol: float,
@@ -243,13 +239,16 @@ def check_kernels() -> dict:
     return worst
 
 
-@phase("flash determinism")
+@phase("determinism")
 def check_determinism() -> None:
     """``fwd``, then ``bwd_dq`` and ``bwd_dkdv`` on its lse, twice on the
     same inputs at the main paths' shapes: o, lse, dq, dk and dv must be
     bitwise equal (each output written by one thread, no atomics; the group
-    partials are summed in a fixed order)."""
+    partials are summed in a fixed order).  Likewise the wkv6 forward and
+    backward at rwkv6-1.6b's shape: out, s_last, the checkpoints, dr, dk,
+    dv, dw, du and ds0."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
 
     failed = []
     for label, shp in (("slice", SLICE), ("l_block", L_BLOCK)):
@@ -267,8 +266,20 @@ def check_determinism() -> None:
         if not all(same.values()):
             failed.append(label)
         del q, k, v, do, o, lse, delta, runs
+    r, k, v, w, u, _, dout, ds_last = wkv6_inputs(**WKV6_SLICE, seed=2)
+    runs = []
+    for _ in range(2):
+        out, s_last, ckpt = wk.fwd(r, k, v, w, u, None, save_ckpt=True)
+        runs.append((out, s_last, ckpt, *wk.bwd(r, k, v, w, u, ckpt, dout, ds_last)))
+    same = {name: torch.equal(a, b) for name, a, b in zip(
+        ("out", "s_last", "ckpt", "dr", "dk", "dv", "dw", "du", "ds0"), *runs)}
+    print(f"  {'wkv6 slice':15s} bitwise equal over two runs: {same}", flush=True)
+    if not all(same.values()):
+        failed.append("wkv6 slice")
+    del r, k, v, w, dout, runs
+    torch.cuda.empty_cache()
     if failed:
-        raise SystemExit(f"the flash kernels are not deterministic at {failed}")
+        raise SystemExit(f"the kernels are not deterministic at {failed}")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -338,6 +349,38 @@ def report_flash_build() -> None:
         raise SystemExit(f"flash build: {failed}")
 
 
+@phase("wkv6 build")
+def report_wkv6_build() -> None:
+    """For every wkv6 kernel: its ``-Xptxas -v`` lines from the build log
+    (registers, spills) and, for its bfloat16 instantiation at hd 32 and
+    64, the CUDA runtime's registers, shared memory, threads and CTAs per
+    SM.  Fails on a spill."""
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.kernels.build import library_path
+
+    failed, cur, info = [], None, {}
+    for line in library_path(wk.SOURCE).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1) if "wkv6" in m.group(1) else None
+        elif cur and ("spill" in line or "Used" in line):
+            info.setdefault(cur, []).append(line.strip())
+    for name, lines in sorted(info.items()):
+        args = ["bf16" if "nv_bfloat16" in name else "f32", *re.findall(r"L[ib](\d+)E", name)]
+        kernel = re.search(r"\d(wkv6_[a-z0-9_]+_kernel)I", name).group(1)
+        label = f"{kernel}<{','.join(args)}>"
+        print(f"  ptxas {label}: {' | '.join(lines)}", flush=True)
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill", " ".join(lines))):
+            failed.append(f"{name} spills")
+    for kernel in wk.KERNELS:
+        for hd in wk.HEAD_DIMS:
+            print(f"  runtime wkv6 {kernel} bf16 hd {hd}: {wk.occupancy(kernel, hd)}", flush=True)
+    if not info:
+        failed.append("no wkv6 kernel in the build log")
+    if failed:
+        raise SystemExit(f"wkv6 build: {failed}")
+
+
 def autograd_vs_ref(q, k, v, do, window):
     """(output, dq, dk, dv) through the kernels' autograd.Function and
     through autograd of the plain ``ref.attention`` (the independent oracle
@@ -405,27 +448,6 @@ def check_rglru() -> dict:
     return worst
 
 
-def wkv6_inputs(B, S, H, hd, dtype, state=False, decay="mild", seed=0, **_):
-    """r, k (0.5 N(0, 1)), v, w, dout (B, S, H, hd) in ``dtype``; u (H, hd)
-    0.3 N(0, 1) f32; the state (B, H, hd, hd) f32 (None unless asked) and
-    a final-state cotangent ds_last (B, H, hd, hd) f32."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
-    r, k, v, dout = 0.5 * mk(B, S, H, hd), 0.5 * mk(B, S, H, hd), mk(B, S, H, hd), \
-        mk(B, S, H, hd)
-    if decay == "strong":
-        w = 1e-3 + (0.2 - 1e-3) * torch.rand(B, S, H, hd, generator=g, device="cuda")
-    else:
-        w = torch.exp(-torch.exp(mk(B, S, H, hd) - (12.0 if decay == "one" else 3.0)))
-    u = 0.3 * mk(H, hd)
-    st = mk(B, H, hd, hd) if state else None
-    ds_last = mk(B, H, hd, hd)
-    r, k, v, w, dout = (t.to(dtype) for t in (r, k, v, w, dout))
-    if decay == "one" and not bool((w == 1.0).all()):
-        raise SystemExit("the w = 1 shape does not round w to 1.0")
-    return r, k, v, w, u, st, dout, ds_last
-
-
 @phase("wkv6 kernels vs plain")
 def check_wkv6() -> dict:
     """``wkv6_fwd`` (out, s_last, the f32 checkpoints) against the plain
@@ -473,20 +495,29 @@ MODEL_CHECKS = {"qwen1.5-4b": (2, {"flash_fwd": 1}),
                 "rwkv6-1.6b": (2, {"wkv6_fwd": 1})}
 
 
+#: CPU threads of the model check's CPU side, so that its sums run in one
+#: order from run to run
+MODEL_CHECK_THREADS = 4
+
+
 @phase("model on the card vs the CPU")
 def check_model() -> None:
     """Reduced qwen1.5-4b (float32, 2 layers, head dim 64), reduced
     recurrentgemma-2b (float32, RRL, rnn width 256, window 64 under 256
     tokens) and reduced rwkv6-1.6b (float32, 2 W layers, 4 wkv heads of
     64): loss and every gradient leaf through the kernels on the card
-    against the plain versions on the CPU, from the same parameters and
-    batch.  Tolerance 1e-4 of each leaf's scale: both sides are float32
-    (TF32 off), summed in different orders."""
+    against the plain versions on the CPU (``MODEL_CHECK_THREADS``
+    threads), from the same parameters and batch.  Tolerance 1e-4 of each
+    leaf's scale: both sides are float32 (TF32 off), summed in different
+    orders.  The card side runs twice and must give bitwise-equal loss
+    and leaves; the worst leaf of each arch is printed."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    threads = torch.get_num_threads()
+    torch.set_num_threads(MODEL_CHECK_THREADS)
     failed = []
     for arch, (depth, per_unit) in MODEL_CHECKS.items():
         cfg = get_config(arch).reduced(num_layers=depth)
@@ -495,7 +526,7 @@ def check_model() -> None:
                           for _ in range(2))
         params = T.init_lm(cfg, seed=0)
         results = []
-        for dev in ("cpu", "cuda"):
+        for dev in ("cpu", "cuda", "cuda"):
             p = T.map_leaves(lambda _, t: t.to(dev).requires_grad_(), params)
             leaves = [t for _, t in T.leaf_order(p)]
             before = kernels.all_launches()
@@ -507,50 +538,29 @@ def check_model() -> None:
             if dev == "cuda" and any(launched[k] != n for k, n in want.items()):
                 raise SystemExit(f"{arch} on the card: forward launches {launched}, "
                                  f"want {want}")
-        (l_cpu, g_cpu), (l_gpu, g_gpu) = results
-        worst, leaf = max((float((a - b).abs().max()) / max(float(a.abs().max()), 1e-6),
-                           "/".join(path))
-                          for (path, _), a, b in zip(T.leaf_order(params), g_cpu, g_gpu))
+        (l_cpu, g_cpu), (l_gpu, g_gpu), (l_gpu2, g_gpu2) = results
+        paths = ["/".join(path) for path, _ in T.leaf_order(params)]
+        worst, leaf = max((float((a - b).abs().max()) / max(float(a.abs().max()), 1e-6), path)
+                          for path, a, b in zip(paths, g_cpu, g_gpu))
+        varied = [path for path, a, b in zip(paths, g_gpu, g_gpu2) if not torch.equal(a, b)]
         print(f"  {arch}: loss cpu {l_cpu:.6f} card {l_gpu:.6f}; worst gradient leaf "
-              f"{leaf} error {worst:.3e} of its scale (tol 1e-4)", flush=True)
+              f"{leaf} error {worst:.3e} of its scale (tol 1e-4); card twice: loss "
+              f"{'equal' if l_gpu == l_gpu2 else f'{l_gpu2:.9g} vs {l_gpu:.9g}'}, "
+              f"{len(paths) - len(varied)} of {len(paths)} leaves bitwise equal"
+              f"{'' if not varied else f' (differ: {varied})'}", flush=True)
         if not (math.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)) \
                 or worst > 1e-4:
             failed.append(arch)
+        if varied or l_gpu != l_gpu2:
+            failed.append(f"{arch} (card runs differ)")
+    torch.set_num_threads(threads)
     if failed:
-        raise SystemExit(f"model on the card disagrees with the CPU: {failed}")
+        raise SystemExit(f"model on the card disagrees with the CPU or with itself: {failed}")
 
 
 # ----------------------------------------------------------------------
 # 4. timing at the slice shape
 # ----------------------------------------------------------------------
-#: GPU cycles (~2 ms) the stream sleeps before a timed run, so that the
-#: host has queued the launches ahead of the device: a kernel shorter than
-#: its wrapper's host time is timed on the device, not on the host.
-QUEUE_AHEAD_CYCLES = 4_000_000
-
-
-def time_ms(fn, iters=20) -> float:
-    """Mean device time of one call of ``fn``, with the 50 MB L2 refilled
-    before each call by reading 64 MB (a read leaves no dirty lines to
-    write back during the timed call) and only the calls timed: the time
-    of a call whose inputs come from device memory, not from L2, as on the
-    main path, where a layer's activations do not stay in L2 between its
-    forward and its backward."""
-    flush = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(iters)]
-    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
-    for start, end in events:
-        flush.sum()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(start.elapsed_time(end) for start, end in events) / iters
-
-
 def bounds(B, S, H, K, hd, window, dtype, **_) -> dict:
     """Least time per kernel at this shape: max(bytes / HBM rate, FLOPs /
     peak rate for the input type).  FLOPs count only the matrix products
@@ -733,7 +743,49 @@ def time_wkv6(shp: dict, label: str) -> dict:
         out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=3),
                      "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": None}
         print_row(label, name, out[name])
+        print_profile(f"{label} {name}'s CUDA kernels (L2 warm)", device_times(kern))
     return out
+
+
+@phase("device profile of one unit")
+def profile_units() -> None:
+    """One unit's forward, then its backward, on each main path at the
+    published widths (batch 2 x 1024 tokens, bfloat16, one rank, random
+    parameters from seed 0; a unit is one layer pattern: qwen1.5-4b ``G``,
+    recurrentgemma-2b ``RRL``, rwkv6-1.6b ``W``): device time per kernel
+    name from ``torch.profiler``, and the wall time of the same call
+    (CUDA events, L2 warm), so that the two can be set side by side."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as Bk
+    from repro_torch.models import transformer as T
+
+    for arch in MAIN_PATHS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        unit = {f"b{i}": Bk.init_block(cfg, kind, gen, "cuda")
+                for i, kind in enumerate(cfg.layer_pattern)}
+        leaves = [t.requires_grad_() for _, t in T.leaf_order(unit)]
+        x = torch.randn(2, 1024, cfg.d_model, generator=gen, device="cuda").to(cfg.dtype)
+        x.requires_grad_()
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(cfg.dtype)
+
+        def fwd():
+            y = x
+            for i, kind in enumerate(cfg.layer_pattern):
+                y = Bk.apply_block(cfg, kind, unit[f"b{i}"], y)
+            return y
+
+        def bwd(y):
+            return torch.autograd.grad(y, [x, *leaves], dy, retain_graph=True)
+
+        with torch.no_grad():
+            print_profile(f"{arch} unit forward ({cfg.layer_pattern}), "
+                          f"{time_ms(fwd, iters=5):.4f} ms a call", device_times(fwd))
+        y = fwd()
+        print_profile(f"{arch} unit backward, {time_ms(lambda: bwd(y), iters=5):.4f} ms a call",
+                      device_times(lambda: bwd(y)))
+        del unit, leaves, x, dy, y
+        torch.cuda.empty_cache()
 
 
 @phase("timing")
@@ -817,7 +869,6 @@ def check_measurement(doc: dict, trace_text: str) -> None:
 
 
 def main() -> int:
-    # the port first: without it (the script alone) nothing is printed
     from repro_torch import kernels
 
     if not torch.cuda.is_available():
@@ -829,10 +880,12 @@ def main() -> int:
 
     phase("build kernels")(kernels.load_libraries)()
     report_flash_build()
+    report_wkv6_build()
     worst = {**check_kernels(), **check_rglru(), **check_wkv6()}
     check_model()
     check_determinism()
     timing = time_kernels()
+    profile_units()
 
     launches: dict[str, int] = {}
     for arch, (args, must) in MAIN_PATHS.items():

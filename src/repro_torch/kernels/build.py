@@ -4,7 +4,8 @@ Every kernel module (``flash_attention``, ``rglru``, ``wkv6``) keeps its
 source in ``repro_torch/csrc/`` behind a plain C interface whose entry
 points take the stream last and return ``cudaGetLastError()``, and loads
 the library with ``ctypes`` (:func:`load`); :func:`check_same`,
-:func:`check_f32` and :func:`ptr` are the wrappers' shared input checks.  :func:`build` compiles sources for
+:func:`check_aligned`, :func:`check_f32` and :func:`ptr` are the wrappers' shared input
+checks.  :func:`build` compiles sources for
 ``sm_90a`` into ``build/kernels/<name>-<source digest>.so`` at the
 checkout root (listed in ``.gitignore``), from the repository's sources
 only, at first use.
@@ -114,6 +115,14 @@ def check_f32(name: str, t: torch.Tensor | None, shape: tuple, device) -> None:
 def ptr(t: torch.Tensor | None):
     """``t``'s device address for an entry point, None (NULL) for None."""
     return None if t is None else t.data_ptr()
+
+
+def check_aligned(names: str, *ts: torch.Tensor) -> None:
+    """CUDA tensors must start on a 16-byte boundary: the kernels copy
+    16-byte chunks, and a misaligned one would kill the CUDA context."""
+    if ts[0].is_cuda and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{names} must start on a 16-byte boundary (the kernels copy "
+                         "16-byte chunks)")
 
 
 def check_same(*ts: torch.Tensor) -> None:

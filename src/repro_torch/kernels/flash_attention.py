@@ -46,7 +46,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODE, check_same, load, raise_on, stream
+from repro_torch.kernels.build import (DTYPE_CODE, check_aligned, check_same, load,
+                                       raise_on, stream)
 from repro_torch.kernels.ref import NEG_INF, repeat_kv
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
@@ -107,14 +108,6 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
     check_same(q, k, v)
     check_aligned("q, k and v", q, k, v)
-
-
-def check_aligned(names: str, *ts: torch.Tensor) -> None:
-    """CUDA tensors must start on a 16-byte boundary: the kernels copy
-    16-byte chunks, and a misaligned one would kill the CUDA context."""
-    if ts[0].is_cuda and any(t.data_ptr() % 16 for t in ts):
-        raise ValueError(f"{names} must start on a 16-byte boundary (the flash "
-                         "kernels copy 16-byte chunks)")
 
 
 def _window_arg(window: int | None) -> int:

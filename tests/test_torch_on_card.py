@@ -173,13 +173,16 @@ class TestRGLRUOnCard:
             ops.rglru(x, r, i, lam.to(torch.bfloat16))
 
 
-def _wkv6_inputs(B, S, H, hd, dtype, strong=False):
+def _wkv6_inputs(B, S, H, hd, dtype, strong=False, zeros=False):
+    """``zeros``: a quarter of the strong decays set to exactly 0."""
     g = torch.Generator(device="cuda").manual_seed(2)
     mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
     r, k, v, dout = 0.5 * mk(B, S, H, hd), 0.5 * mk(B, S, H, hd), mk(B, S, H, hd), \
         mk(B, S, H, hd)
     w = 1e-3 + 0.2 * torch.rand(B, S, H, hd, generator=g, device="cuda") if strong else \
         torch.exp(-torch.exp(mk(B, S, H, hd) - 3.0))
+    if zeros:
+        w = w.masked_fill(torch.rand(w.shape, generator=g, device="cuda") < 0.25, 0.0)
     u, s0, ds_last = 0.3 * mk(H, hd), mk(B, H, hd, hd), mk(B, H, hd, hd)
     return [t.to(dtype) for t in (r, k, v, w)] + [u, s0, dout.to(dtype), ds_last]
 
@@ -199,6 +202,61 @@ class TestWKV6OnCard:
         for what, a, b in (("out", out, p_out), ("s_last", s_last, p_s), ("ckpt", ckpt, p_ckpt),
                            *zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want)):
             _assert_close(a, b, what)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("S,hd", [(1, 64), (7, 32), (64, 64), (65, 32)])
+    def test_short_sequences_vs_plain(self, dtype, S, hd):
+        """S below a 16-step tile, one whole 64-step chunk, and one step
+        past it, with a carried state."""
+        r, k, v, w, u, s0, dout, ds_last = _wkv6_inputs(2, S, 2, hd, dtype)
+        out, s_last, ckpt = wk.fwd(r, k, v, w, u, s0, save_ckpt=True)
+        got = wk.bwd(r, k, v, w, u, ckpt, dout, ds_last)
+        p_out, p_s, p_ckpt = wk.plain_fwd(r, k, v, w, u, s0, save_ckpt=True)
+        want = wk.plain_bwd(r, k, v, w, u, ckpt, dout, ds_last)
+        for what, a, b in (("out", out, p_out), ("s_last", s_last, p_s), ("ckpt", ckpt, p_ckpt),
+                           *zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want)):
+            _assert_close(a, b, what)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("S,hd", [(1000, 32), (130, 64)])
+    def test_zero_decay_vs_plain(self, dtype, S, hd):
+        """w = 0 in a quarter of the entries: the chunks' decay products are
+        exactly 0 there, and nothing divides by w."""
+        r, k, v, w, u, s0, dout, ds_last = _wkv6_inputs(2, S, 2, hd, dtype, strong=True,
+                                                        zeros=True)
+        assert bool((w == 0).any())
+        out, s_last, ckpt = wk.fwd(r, k, v, w, u, s0, save_ckpt=True)
+        got = wk.bwd(r, k, v, w, u, ckpt, dout, ds_last)
+        p_out, p_s, p_ckpt = wk.plain_fwd(r, k, v, w, u, s0, save_ckpt=True)
+        want = wk.plain_bwd(r, k, v, w, u, ckpt, dout, ds_last)
+        for what, a, b in (("out", out, p_out), ("s_last", s_last, p_s), ("ckpt", ckpt, p_ckpt),
+                           *zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want)):
+            _assert_close(a, b, what)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("S,hd", [(1024, 64), (300, 32)])
+    def test_forward_and_backward_are_bitwise_deterministic(self, dtype, S, hd):
+        """Twice on the same inputs: equal bits in every output (no atomics;
+        the sums over column groups and over chunks run in a fixed order)."""
+        r, k, v, w, u, s0, dout, ds_last = _wkv6_inputs(2, S, 4, hd, dtype)
+        runs = []
+        for _ in range(2):
+            out, s_last, ckpt = wk.fwd(r, k, v, w, u, s0, save_ckpt=True)
+            runs.append((out, s_last, ckpt, *wk.bwd(r, k, v, w, u, ckpt, dout, ds_last)))
+        for what, a, b in zip(("out", "s_last", "ckpt", "dr", "dk", "dv", "dw", "du", "ds0"),
+                              *runs):
+            assert torch.equal(a, b), what
+
+    def test_build_has_no_spill(self):
+        """``-Xptxas -v`` reports no spill for any wkv6 kernel."""
+        import re
+
+        from repro_torch.kernels.build import library_path
+
+        wk.load_library()
+        log = library_path(wk.SOURCE).with_suffix(".log").read_text()
+        assert "wkv6" in log
+        assert not any(int(n) for n in re.findall(r"(\d+) bytes spill", log)), log[-2000:]
 
     def test_ops_autograd_vs_ref_float32(self):
         r, k, v, w, u, s0, dout, _ = _wkv6_inputs(2, 200, 2, 64, torch.float32)

@@ -2,8 +2,9 @@
 
 Inputs are drawn with numpy from a seed and handed to both sides: r, k
 0.5 N(0, 1), v N(0, 1), u 0.3 N(0, 1), and the decay w "mild" (exp(-exp(N(0,
-1) - 3)), the repository's kernel tests), "strong" (uniform in [1e-3, 0.2])
-or "one" (exp(-exp(N(0, 1) - 12)), which bfloat16 rounds to exactly 1.0).
+1) - 3)), the repository's kernel tests), "strong" (uniform in [1e-3, 0.2]),
+"one" (exp(-exp(N(0, 1) - 12)), which bfloat16 rounds to exactly 1.0) or
+"zero" (strong, with a quarter of the entries exactly 0).
 
 Forward: ``repro_torch.kernels.ops.wkv6`` (``impl="ref"`` and
 ``impl="kernel"``, which on CPU tensors runs the kernels' plain versions)
@@ -23,6 +24,13 @@ decomposition (``WKV6`` running :func:`repro_torch.kernels.wkv6.plain_bwd`,
 the chunked reverse-time scan the CUDA kernel computes) and from autograd
 through the port's ref, against ``jax.grad`` of the reference's ref, with a
 final-state cotangent: f32 to 1e-5 of the gradient's scale, bf16 to 3e-2.
+Chunk algebra: :func:`repro_torch.kernels.wkv6.chunked_fwd` and
+``chunked_bwd`` compute, phase by phase and in torch, what the CUDA kernels
+compute (per-chunk local states and decay products, the combine over
+chunks, the per-chunk step scans); they are held against ``ref.wkv6`` and
+``jax.grad`` of it to ``TOL`` at every decay above, at S = 1000, 63 and 1
+and with a carried state, and their chunk-start states against
+``ref.wkv6_checkpointed``'s checkpoints.
 The kernels themselves run only on the card (``tests/test_torch_on_card.py``).
 """
 import jax
@@ -47,8 +55,10 @@ def _inputs(B, S, H, hd, seed=0, decay="mild"):
     rng = np.random.default_rng(seed)
     n = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
     r, k, v = 0.5 * n(B, S, H, hd), 0.5 * n(B, S, H, hd), n(B, S, H, hd)
-    if decay == "strong":
+    if decay in ("strong", "zero"):
         w = rng.uniform(1e-3, 0.2, (B, S, H, hd)).astype(np.float32)
+        if decay == "zero":
+            w[rng.uniform(size=w.shape) < 0.25] = 0.0
     else:
         w = np.exp(-np.exp(n(B, S, H, hd) - (12.0 if decay == "one" else 3.0)))
     return r, k, v, w.astype(np.float32), 0.3 * n(H, hd)
@@ -213,6 +223,106 @@ class TestBackward:
                 first = got
         for g, wnt in zip(first, got):
             assert float((g - wnt).abs().max()) <= 1e-5 * max(1.0, float(wnt.abs().max()))
+
+
+#: (B, S, H, hd, decay, dtype, carried state): S = 1000 (16 chunks, the last
+#: ragged), 63 (one partial chunk) and 1, at every decay and both dtypes
+CHUNK_CASES = [
+    (1, 1000, 2, 32, "mild", "float32", False),
+    (1, 1000, 1, 64, "strong", "float32", True),
+    (1, 1000, 1, 32, "zero", "bfloat16", True),
+    (2, 63, 2, 64, "strong", "bfloat16", False),
+    (2, 63, 1, 32, "one", "bfloat16", True),
+    (1, 130, 2, 64, "zero", "float32", False),
+    (2, 1, 2, 32, "mild", "float32", True),
+    (1, 1, 1, 64, "one", "bfloat16", False),
+]
+
+
+def _chunk_case(B, S, H, hd, decay, dtype, with_state, seed=11):
+    r, k, v, w, u = _inputs(B, S, H, hd, seed=seed, decay=decay)
+    rng = np.random.default_rng(seed + 1)
+    s0 = rng.standard_normal((B, H, hd, hd)).astype(np.float32) if with_state else None
+    dout = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    ds_last = rng.standard_normal((B, H, hd, hd)).astype(np.float32)
+    return (r, k, v, w, u), s0, dout, ds_last
+
+
+class TestChunkAlgebra:
+    """The kernels' three forward and three backward phases, emulated in
+    torch (``wk.chunked_fwd`` / ``wk.chunked_bwd``), against the JAX
+    reference: exact at any decay, since the phases take only products of
+    w (no log, exp or division)."""
+
+    @pytest.mark.parametrize("B,S,H,hd,decay,dtype,with_state", CHUNK_CASES)
+    def test_forward_vs_jax_ref(self, B, S, H, hd, decay, dtype, with_state):
+        arrs, s0, _, _ = _chunk_case(B, S, H, hd, decay, dtype, with_state)
+        want, ws = jref.wkv6(*_jax(arrs[:4], dtype), jnp.asarray(arrs[4]),
+                             state=None if s0 is None else jnp.asarray(s0))
+        args = _torch(arrs[:4], dtype)
+        if decay == "one":
+            assert bool((args[3] == 1.0).all())
+        out, s_last, ckpt = wk.chunked_fwd(*args, torch.from_numpy(arrs[4]),
+                                           None if s0 is None else torch.from_numpy(s0))
+        assert out.dtype == getattr(torch, dtype) and tuple(out.shape) == want.shape
+        assert ckpt.shape == (B, H, wk.num_checkpoints(S), hd, hd)
+        assert torch.isfinite(out).all() and torch.isfinite(s_last).all()
+        assert _close(_np(out), want.astype(jnp.float32), TOL[dtype])
+        assert _close(_np(s_last), ws, TOL[dtype])
+
+    @pytest.mark.parametrize("B,S,H,hd,decay,dtype,with_state", CHUNK_CASES)
+    def test_backward_vs_jax_grad(self, B, S, H, hd, decay, dtype, with_state):
+        """dr, dk, dv, dw, du and the carried state's gradient, with a
+        final-state cotangent, from the chunk-start states the forward
+        phases give."""
+        arrs, s0, dout, ds_last = _chunk_case(B, S, H, hd, decay, dtype, with_state)
+
+        def f(r, k, v, w, u, s0):
+            out, st = jref.wkv6(r, k, v, w, u, state=s0)
+            return jnp.sum(out.astype(jnp.float32) * dout) + jnp.sum(st * ds_last)
+
+        args = [*_jax(arrs[:4], dtype), jnp.asarray(arrs[4]),
+                None if s0 is None else jnp.asarray(s0)]
+        want = jax.grad(f, argnums=(0, 1, 2, 3, 4, 5) if with_state else (0, 1, 2, 3, 4))(*args)
+        ts = [*_torch(arrs[:4], dtype), torch.from_numpy(arrs[4])]
+        state = None if s0 is None else torch.from_numpy(s0)
+        _, _, ckpt = wk.chunked_fwd(*ts, state)
+        got = wk.chunked_bwd(*ts, ckpt, torch.from_numpy(dout).to(ts[0].dtype),
+                             torch.from_numpy(ds_last))
+        for name, g, wnt in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+            assert g.dtype == (ts[0].dtype if name in ("dr", "dk", "dv", "dw")
+                               else torch.float32), name
+            assert torch.isfinite(g).all(), name
+            assert _close(_np(g), wnt, TOL[dtype]), name
+
+    @pytest.mark.parametrize("S,decay,with_state", [(1000, "strong", True), (150, "zero", False),
+                                                    (64, "mild", True)])
+    def test_chunk_starts_are_the_reference_checkpoints(self, S, decay, with_state):
+        """Phase 2's chunk-start states equal the checkpoints of the port's
+        step scan (``ref.wkv6_checkpointed``), which the backward reads."""
+        arrs, s0, _, _ = _chunk_case(1, S, 2, 32, decay, "float32", with_state)
+        ts = _torch(arrs, "float32")
+        state = None if s0 is None else torch.from_numpy(s0)
+        _, s_last, ckpt = wk.chunked_fwd(*ts, state)
+        _, want_last, want = tref.wkv6_checkpointed(*ts, state, wk.CHECKPOINT)
+        assert ckpt.shape == want.shape
+        scale = max(1.0, float(want.abs().max()))
+        assert float((ckpt - want).abs().max()) <= 1e-5 * scale
+        assert float((s_last - want_last).abs().max()) <= 1e-5 * scale
+
+    def test_phases_match_the_plain_versions(self):
+        """The emulation and the plain versions (the reference scans the CPU
+        wrappers run) agree: two computations of one function."""
+        arrs, s0, dout, ds_last = _chunk_case(2, 150, 2, 32, "mild", "float32", True)
+        ts = _torch(arrs, "float32")
+        state, dout, ds_last = (torch.from_numpy(x) for x in (s0, dout, ds_last))
+        for got, want in zip(wk.chunked_fwd(*ts, state),
+                             wk.plain_fwd(*ts, state, save_ckpt=True)):
+            assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+        _, _, ckpt = wk.plain_fwd(*ts, state, save_ckpt=True)
+        for got, want in zip(wk.chunked_bwd(*ts, ckpt, dout, ds_last),
+                             wk.plain_bwd(*ts, ckpt, dout, ds_last)):
+            assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
 
 
 class TestDispatchAndChecks:
