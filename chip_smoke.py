@@ -8,9 +8,9 @@ Phases, in order; any failure ends the script with a non-zero code:
    forward and backward kernels' ``-Xptxas -v`` lines, each bfloat16
    tensor-core instantiation's registers, shared memory and CTAs per SM,
    and their HMMA count in the SASS (fails on a spill or a tensor-core
-   kernel without HMMA); print every wkv6 kernel's ``-Xptxas -v`` lines and
-   the bfloat16 instantiations' registers, shared memory and CTAs per SM
-   (fails on a spill);
+   kernel without HMMA); print every RG-LRU and wkv6 kernel's ``-Xptxas
+   -v`` lines and the bfloat16 instantiations' registers, shared memory and
+   CTAs per SM (fails on a spill);
 3. hold every flash kernel (forward, delta, dq, dk/dv) against its plain
    PyTorch version on the card, element by element, at qwen1.5-4b's
    shape, at recurrentgemma-2b's local-attention shape (hd 256, one KV
@@ -21,7 +21,9 @@ Phases, in order; any failure ends the script with a non-zero code:
    attention against autograd through ``ref.attention``; hold the RG-LRU
    forward against its plain version and its backward against autograd
    through ``ref.rglru``, at recurrentgemma-2b's shape in bfloat16 and
-   float32, at a ragged shape with a carried state and where sigmoid(r) ~ 0;
+   float32, at a ragged shape with a carried state, where sigmoid(r) ~ 0,
+   with a ragged last chunk in bfloat16, a sequence shorter than one chunk
+   at an odd width, and where the chunks' decay products underflow to 0;
    hold the wkv6 forward against its plain version and its backward
    against autograd through ``ref.wkv6``, at rwkv6-1.6b's shape in bfloat16
    and float32, at a ragged shape (hd 32) with a carried state, at strong
@@ -30,15 +32,16 @@ Phases, in order; any failure ends the script with a non-zero code:
    recurrentgemma-2b's and rwkv6-1.6b's loss and gradients on the card
    (through the kernels, run twice and required bitwise equal) against the
    same model on the CPU (plain versions); run the bfloat16 flash forward
-   and backward, and the wkv6 forward and backward, twice at the main
-   paths' shapes and require bitwise-equal outputs;
+   and backward, the RG-LRU forward and backward and the wkv6 forward and
+   backward twice at the main paths' shapes and require bitwise-equal
+   outputs;
 4. time each kernel, its plain version and the PyTorch library call that
    computes the same function (``scaled_dot_product_attention`` and its
    backward, ``torch.linalg.vecdot`` for delta, timed here only and never
    called by the port; none for the RG-LRU and wkv6 scans), each with L2
    refilled before every call, at the main paths' shapes, and compute each
-   kernel's bound; print the CUDA kernels of each wkv6 wrapper call with
-   their device times (``torch.profiler``);
+   kernel's bound; print the CUDA kernels of each RG-LRU and wkv6 wrapper
+   call with their device times (``torch.profiler``);
 5. profile one unit's forward and backward on each main path at its
    published widths (``torch.profiler``, device time per kernel name);
 6. run ``repro_torch.measure`` for qwen1.5-4b (2 units), recurrentgemma-2b
@@ -71,8 +74,8 @@ import torch  # noqa: E402
 
 # the port first: without it (the script alone) the import fails, nothing is printed
 from repro_torch.kernels.bench import (  # noqa: E402
-    L_BLOCK, SLICE, WKV6_SLICE, card_line, device_times, make_inputs, print_profile, time_ms,
-    wkv6_inputs)
+    L_BLOCK, RGLRU_SLICE, SLICE, WKV6_SLICE, card_line, device_times, make_inputs,
+    print_profile, rglru_inputs, time_ms, wkv6_inputs)
 
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
 # sheet): HBM bytes/s and FLOP/s by input type (bf16 on the tensor cores,
@@ -118,13 +121,19 @@ CHECK_SHAPES = [
     ("hd256_ragged_gqa", dict(B=1, S=1000, H=8, K=2, hd=256, window=None,
                               dtype=torch.bfloat16)),
 ]
-# recurrentgemma-2b's RG-LRU shape at batch_per_gpu 2, seq 1024 (W = rnn_width).
-RGLRU_SLICE = dict(B=2, S=1024, W=2560, dtype=torch.bfloat16)
+# recurrentgemma-2b's RG-LRU shape (``RGLRU_SLICE``) and others; ``lam``
+# and ``r_shift`` as in ``bench.rglru_inputs``.
 RGLRU_SHAPES = [
     ("slice", RGLRU_SLICE),
     ("f32_slice", dict(RGLRU_SLICE, dtype=torch.float32)),
     ("f32_ragged_h0", dict(B=2, S=1000, W=200, dtype=torch.float32, h0=True)),
     ("f32_a_near_1", dict(B=2, S=1024, W=256, dtype=torch.float32, h0=True, r_shift=-40.0)),
+    # the chunked scan's edges: a ragged last chunk in bfloat16, a sequence
+    # shorter than one chunk (odd W: the one-lane kernels), decay products
+    # that underflow to exactly 0
+    ("ragged", dict(B=2, S=1000, W=2560, dtype=torch.bfloat16, h0=True)),
+    ("f32_short_odd_w", dict(B=2, S=20, W=201, dtype=torch.float32, h0=True)),
+    ("f32_strong_decay", dict(B=2, S=1000, W=256, dtype=torch.float32, h0=True, lam=20.0)),
 ]
 # rwkv6-1.6b's wkv shape (``WKV6_SLICE``) and others; ``decay`` as in
 # ``bench.wkv6_inputs``.
@@ -246,8 +255,11 @@ def check_determinism() -> None:
     bitwise equal (each output written by one thread, no atomics; the group
     partials are summed in a fixed order).  Likewise the wkv6 forward and
     backward at rwkv6-1.6b's shape: out, s_last, the checkpoints, dr, dk,
-    dv, dw, du and ds0."""
+    dv, dw, du and ds0; and the RG-LRU forward and backward at
+    recurrentgemma-2b's shape: out, h_last, states, dx, dr, di, dlam and
+    dh0."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import wkv6 as wk
 
     failed = []
@@ -277,6 +289,17 @@ def check_determinism() -> None:
     if not all(same.values()):
         failed.append("wkv6 slice")
     del r, k, v, w, dout, runs
+    x, r, i, lam, h0, dout, dh_last = rglru_inputs(**RGLRU_SLICE, seed=2)
+    runs = []
+    for _ in range(2):
+        out, h_last, states = rg.fwd(x, r, i, lam, h0, save_states=True)
+        runs.append((out, h_last, states, *rg.bwd(x, r, i, lam, h0, states, dout, dh_last)))
+    same = {name: torch.equal(a, b) for name, a, b in zip(
+        ("out", "h_last", "states", "dx", "dr", "di", "dlam", "dh0"), *runs)}
+    print(f"  {'rglru slice':15s} bitwise equal over two runs: {same}", flush=True)
+    if not all(same.values()):
+        failed.append("rglru slice")
+    del x, r, i, dout, runs
     torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"the kernels are not deterministic at {failed}")
@@ -349,36 +372,55 @@ def report_flash_build() -> None:
         raise SystemExit(f"flash build: {failed}")
 
 
-@phase("wkv6 build")
-def report_wkv6_build() -> None:
-    """For every wkv6 kernel: its ``-Xptxas -v`` lines from the build log
-    (registers, spills) and, for its bfloat16 instantiation at hd 32 and
-    64, the CUDA runtime's registers, shared memory, threads and CTAs per
-    SM.  Fails on a spill."""
-    from repro_torch.kernels import wkv6 as wk
+def report_scan_build(mod, runtime: dict) -> None:
+    """For every kernel of a scan module (``rglru`` or ``wkv6``): its
+    ``-Xptxas -v`` lines from the build log (registers, spills), then
+    ``runtime`` (label -> the CUDA runtime's registers, shared memory,
+    threads and CTAs per SM of a bfloat16 instantiation).  Fails on a
+    spill."""
     from repro_torch.kernels.build import library_path
 
+    prefix = mod.__name__.rsplit(".", 1)[1]
     failed, cur, info = [], None, {}
-    for line in library_path(wk.SOURCE).with_suffix(".log").read_text().splitlines():
+    for line in library_path(mod.SOURCE).with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            cur = m.group(1) if "wkv6" in m.group(1) else None
+            cur = m.group(1) if prefix in m.group(1) else None
         elif cur and ("spill" in line or "Used" in line):
             info.setdefault(cur, []).append(line.strip())
     for name, lines in sorted(info.items()):
-        args = ["bf16" if "nv_bfloat16" in name else "f32", *re.findall(r"L[ib](\d+)E", name)]
-        kernel = re.search(r"\d(wkv6_[a-z0-9_]+_kernel)I", name).group(1)
-        label = f"{kernel}<{','.join(args)}>"
-        print(f"  ptxas {label}: {' | '.join(lines)}", flush=True)
+        dtype = re.search(r"_kernelI(f|13__nv_bfloat16)", name)
+        args = ([] if dtype is None else ["f32" if dtype.group(1) == "f" else "bf16"]) \
+            + re.findall(r"L[ib](\d+)E", name)
+        kernel = re.search(rf"\d({prefix}_[a-z0-9_]+_kernel)I", name).group(1)
+        print(f"  ptxas {kernel}<{','.join(args)}>: {' | '.join(lines)}", flush=True)
         if any(int(n) for n in re.findall(r"(\d+) bytes spill", " ".join(lines))):
             failed.append(f"{name} spills")
-    for kernel in wk.KERNELS:
-        for hd in wk.HEAD_DIMS:
-            print(f"  runtime wkv6 {kernel} bf16 hd {hd}: {wk.occupancy(kernel, hd)}", flush=True)
+    for label, occ in runtime.items():
+        print(f"  runtime {label}: {occ}", flush=True)
     if not info:
-        failed.append("no wkv6 kernel in the build log")
+        failed.append(f"no {prefix} kernel in the build log")
     if failed:
-        raise SystemExit(f"wkv6 build: {failed}")
+        raise SystemExit(f"{prefix} build: {failed}")
+
+
+@phase("rglru build")
+def report_rglru_build() -> None:
+    """Every RG-LRU kernel's ptxas lines, and the resources of the bfloat16
+    instantiations the main path runs (``rg.occupancy``)."""
+    from repro_torch.kernels import rglru as rg
+
+    report_scan_build(rg, {f"rglru {k} bf16": rg.occupancy(k) for k in rg.KERNELS})
+
+
+@phase("wkv6 build")
+def report_wkv6_build() -> None:
+    """Every wkv6 kernel's ptxas lines, and the resources of its bfloat16
+    instantiations at hd 32 and 64 (``wk.occupancy``)."""
+    from repro_torch.kernels import wkv6 as wk
+
+    report_scan_build(wk, {f"wkv6 {k} bf16 hd {hd}": wk.occupancy(k, hd)
+                           for k in wk.KERNELS for hd in wk.HEAD_DIMS})
 
 
 def autograd_vs_ref(q, k, v, do, window):
@@ -395,18 +437,6 @@ def autograd_vs_ref(q, k, v, do, window):
         o = fn(*leaves, causal=True, window=window)
         out.extend([o.detach(), *torch.autograd.grad(o, leaves, ins[3])])
     return got, want
-
-
-def rglru_inputs(B, S, W, dtype, h0=False, r_shift=0.0, seed=0, **_):
-    """x, r, i, dout (B, S, W) in ``dtype``; lam = linspace(0.1, 2, W) as
-    the model's init; h0 and dh_last (B, W) f32 (h0 None unless asked)."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x, r, i, dout = (torch.randn(B, S, W, generator=g, device="cuda") for _ in range(4))
-    lam = torch.linspace(0.1, 2.0, W, device="cuda")
-    h_0 = torch.randn(B, W, generator=g, device="cuda") if h0 else None
-    dh_last = torch.randn(B, W, generator=g, device="cuda")
-    return (x.to(dtype), (r + r_shift).to(dtype), i.to(dtype), lam, h_0, dout.to(dtype),
-            dh_last)
 
 
 @phase("rglru kernels vs plain")
@@ -720,6 +750,7 @@ def time_rglru(shp: dict, label: str) -> dict:
         out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=3),
                      "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": None}
         print_row(label, name, out[name])
+        print_profile(f"{label} {name}'s CUDA kernels (L2 warm)", device_times(kern))
     return out
 
 
@@ -880,6 +911,7 @@ def main() -> int:
 
     phase("build kernels")(kernels.load_libraries)()
     report_flash_build()
+    report_rglru_build()
     report_wkv6_build()
     worst = {**check_kernels(), **check_rglru(), **check_wkv6()}
     check_model()

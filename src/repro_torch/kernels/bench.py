@@ -8,6 +8,7 @@ runs on import: the functions need a CUDA device when called.
 """
 from __future__ import annotations
 
+import re
 import subprocess
 
 import torch
@@ -18,6 +19,8 @@ SLICE = dict(B=2, S=1024, H=20, K=20, hd=128, window=None, dtype=torch.bfloat16)
 L_BLOCK = dict(B=2, S=1024, H=10, K=1, hd=256, window=2048, dtype=torch.bfloat16)
 # rwkv6-1.6b's wkv shape at batch_per_gpu 2, seq 1024 (32 heads of 64).
 WKV6_SLICE = dict(B=2, S=1024, H=32, hd=64, dtype=torch.bfloat16)
+# recurrentgemma-2b's RG-LRU shape at batch_per_gpu 2, seq 1024 (W = rnn_width).
+RGLRU_SLICE = dict(B=2, S=1024, W=2560, dtype=torch.bfloat16)
 
 #: GPU cycles (~2 ms) the stream sleeps before a timed run, so that the
 #: host has queued the launches ahead of the device: a kernel shorter than
@@ -37,6 +40,21 @@ def make_inputs(B, S, H, K, hd, dtype, seed=0, **_):
     g = torch.Generator(device="cuda").manual_seed(seed)
     mk = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)  # noqa: E731
     return mk(B, S, H, hd), mk(B, S, K, hd), mk(B, S, K, hd), mk(B, S, H, hd)
+
+
+def rglru_inputs(B, S, W, dtype, h0=False, r_shift=0.0, lam=None, seed=0, **_):
+    """x, r, i, dout (B, S, W) in ``dtype``; lam = linspace(0.1, 2, W) as
+    the model's init, or ``lam`` in every lane (20: a ~ e^-160 sigmoid(r),
+    so the decay products underflow to 0); h0 and dh_last (B, W) f32 (h0
+    None unless asked)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, r, i, dout = (torch.randn(B, S, W, generator=g, device="cuda") for _ in range(4))
+    lam = torch.linspace(0.1, 2.0, W, device="cuda") if lam is None else \
+        torch.full((W,), float(lam), device="cuda")
+    h_0 = torch.randn(B, W, generator=g, device="cuda") if h0 else None
+    dh_last = torch.randn(B, W, generator=g, device="cuda")
+    return (x.to(dtype), (r + r_shift).to(dtype), i.to(dtype), lam, h_0, dout.to(dtype),
+            dh_last)
 
 
 def wkv6_inputs(B, S, H, hd, dtype, state=False, decay="mild", seed=0, **_):
@@ -106,17 +124,23 @@ def device_times(fn) -> dict[str, float]:
     return out
 
 
+#: the port's own CUDA kernels, as the profiler names them
+PORT_KERNEL = re.compile(r"void \(anonymous namespace\)::(flash|rglru|wkv6)_")
+
+
 def print_profile(label: str, times: dict[str, float], top: int = 12) -> None:
-    """The ``top`` kernels by device time, the rest summed, and the total."""
+    """The ``top`` kernels by device time and every one of the port's own
+    kernels, the rest summed, and the total."""
     if not times:
         print(f"  {label}: the profiler recorded no device time", flush=True)
         return
     ranked = sorted(times.items(), key=lambda kv: -kv[1])
     total = sum(times.values())
     print(f"  {label}: device {total:.4f} ms in {len(times)} kernels", flush=True)
-    for name, ms in ranked[:top]:
+    shown = ranked[:top] + [kv for kv in ranked[top:] if PORT_KERNEL.match(kv[0])]
+    for name, ms in shown:
         print(f"    {ms:9.4f} ms {100 * ms / total:5.1f} %  {name[:110]}", flush=True)
-    if len(ranked) > top:
-        rest = sum(ms for _, ms in ranked[top:])
-        print(f"    {rest:9.4f} ms {100 * rest / total:5.1f} %  ({len(ranked) - top} more)",
-              flush=True)
+    if len(ranked) > len(shown):
+        rest = total - sum(ms for _, ms in shown)
+        print(f"    {rest:9.4f} ms {100 * rest / total:5.1f} %  ({len(ranked) - len(shown)} "
+              f"more)", flush=True)

@@ -12,9 +12,11 @@ only the calls timed, the ``ms`` of ``chip_smoke.py``'s kernels line):
 * ``flash_fwd`` and ``flash_bwd_delta`` in bfloat16 at the two flash shapes
   of the main paths (``bench.SLICE``: qwen1.5-4b's G blocks;
   ``bench.L_BLOCK``: recurrentgemma-2b's L blocks);
-* the ``wkv6_fwd`` and ``wkv6_bwd`` wrappers at ``bench.WKV6_SLICE``
-  (rwkv6-1.6b: B 2, S 1024, H 32, hd 64, bfloat16), each wrapper call whole
-  (its launches and whatever it sums afterwards).
+* the ``rglru_fwd`` and ``rglru_bwd`` wrappers at ``bench.RGLRU_SLICE``
+  (recurrentgemma-2b: B 2, S 1024, W 2560, bfloat16) and the ``wkv6_fwd``
+  and ``wkv6_bwd`` wrappers at ``bench.WKV6_SLICE`` (rwkv6-1.6b: B 2, S
+  1024, H 32, hd 64, bfloat16), each wrapper call whole (its launches and
+  whatever it sums afterwards).
 
 Every build's outputs are held against this checkout's plain versions
 (the max abs error is printed).  Run from the repository root on a machine
@@ -43,7 +45,7 @@ import torch
 from repro_torch.kernels import bench
 
 #: the kernel modules this tool compares
-MODULES = ("flash_attention", "wkv6")
+MODULES = ("flash_attention", "rglru", "wkv6")
 ROUNDS = 5
 
 
@@ -72,6 +74,26 @@ def flash_cases(mods):
             runs["flash_fwd"][build] = lambda mod=mod: mod.fwd(q, k, v, True, w)[0]
             runs["flash_bwd_delta"][build] = lambda mod=mod: mod.bwd_delta(o, do)
         yield label, {name: (want[name], runs[name]) for name in want}
+
+
+def rglru_cases(mods):
+    """(label, {kernel: (want, {build: fn})}) at recurrentgemma-2b's shape,
+    as ``chip_smoke.time_rglru`` calls the wrappers (no h0; the states
+    saved; a zero dh_last)."""
+    rg = mods["this"]["rglru"]
+    x, r, i, lam, _, dout, dh_last = bench.rglru_inputs(**bench.RGLRU_SLICE, seed=1)
+    dh_last = torch.zeros_like(dh_last)
+    out, _, states = rg.plain_fwd(x, r, i, lam, None, save_states=True)
+    dx = rg.plain_bwd(x, r, i, lam, None, states, dout, dh_last)[0]
+    runs = {"rglru_fwd": {}, "rglru_bwd": {}}
+    for build, m in mods.items():
+        mod = m["rglru"]
+        runs["rglru_fwd"][build] = lambda mod=mod: mod.fwd(x, r, i, lam, None,
+                                                           save_states=True)[0]
+        runs["rglru_bwd"][build] = lambda mod=mod: mod.bwd(x, r, i, lam, None, states, dout,
+                                                           dh_last)[0]
+    yield "rglru", {"rglru_fwd": (out.float(), runs["rglru_fwd"]),
+                    "rglru_bwd": (dx.float(), runs["rglru_bwd"])}
 
 
 def wkv6_cases(mods):
@@ -107,7 +129,7 @@ def main(argv=None) -> int:
         for mod in m.values():
             mod.load_library()
     out: dict = {}
-    for cases in (flash_cases, wkv6_cases):
+    for cases in (flash_cases, rglru_cases, wkv6_cases):
         for label, kernels in cases(mods):
             for build in ("other", "this", "this", "other") * ROUNDS:
                 for kernel, (want, fns) in kernels.items():

@@ -128,21 +128,32 @@ class TestOnCard:
             ops.attention(q, k, v)
 
 
-def _rglru_inputs(B, S, W, dtype, r_shift=0.0):
+def _rglru_inputs(B, S, W, dtype, r_shift=0.0, lam=None):
+    """``lam``: that value in every lane (20: the chunks' decay products
+    underflow to 0), else linspace(0.1, 2, W)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     x, r, i, dout = (torch.randn(B, S, W, generator=g, device="cuda") for _ in range(4))
-    lam = torch.linspace(0.1, 2.0, W, device="cuda")
+    lam = torch.linspace(0.1, 2.0, W, device="cuda") if lam is None else \
+        torch.full((W,), float(lam), device="cuda")
     h0 = torch.randn(B, W, generator=g, device="cuda")
     return x.to(dtype), (r + r_shift).to(dtype), i.to(dtype), lam, h0, dout.to(dtype)
 
 
 class TestRGLRUOnCard:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("B,S,W,r_shift,with_h0", [(2, 1024, 256, 0.0, False),
-                                                       (1, 1000, 200, 0.0, True),
-                                                       (2, 64, 96, -40.0, True)])
-    def test_kernels_vs_plain(self, dtype, B, S, W, r_shift, with_h0):
-        x, r, i, lam, h0, dout = _rglru_inputs(B, S, W, dtype, r_shift)
+    @pytest.mark.parametrize("B,S,W,r_shift,with_h0,lam", [
+        (2, 1024, 256, 0.0, False, None),
+        (1, 1000, 200, 0.0, True, None),
+        (2, 64, 96, -40.0, True, None),
+        # the chunked scan's edges: ragged last chunks (S 65, 1000) at an
+        # odd width (the one-lane kernels), one step, and decay products
+        # that underflow to exactly 0
+        (2, 65, 77, 0.0, True, None),
+        (1, 1, 64, 0.0, True, None),
+        (2, 1000, 130, 0.0, True, 20.0),
+        (2, 300, 33, 0.0, False, 20.0)])
+    def test_kernels_vs_plain(self, dtype, B, S, W, r_shift, with_h0, lam):
+        x, r, i, lam, h0, dout = _rglru_inputs(B, S, W, dtype, r_shift, lam)
         h0 = h0 if with_h0 else None
         dh_last = torch.randn_like(lam.expand(B, W).contiguous())
         out, h, states = rg.fwd(x, r, i, lam, h0, save_states=True)
@@ -152,6 +163,31 @@ class TestRGLRUOnCard:
         for what, a, b in (("out", out, p_out), ("h", h, p_h), ("states", states, p_states),
                            *zip(("dx", "dr", "di", "dlam", "dh0"), got, want)):
             _assert_close(a, b, what)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("S,W", [(1024, 2560), (300, 77)])
+    def test_forward_and_backward_are_bitwise_deterministic(self, dtype, S, W):
+        """Twice on the same inputs: equal bits in every output (no atomics;
+        dlam's per-chunk partials are summed in a fixed order)."""
+        x, r, i, lam, h0, dout = _rglru_inputs(2, S, W, dtype)
+        dh_last = torch.randn_like(h0)
+        runs = []
+        for _ in range(2):
+            out, h, states = rg.fwd(x, r, i, lam, h0, save_states=True)
+            runs.append((out, h, states, *rg.bwd(x, r, i, lam, h0, states, dout, dh_last)))
+        for what, a, b in zip(("out", "h", "states", "dx", "dr", "di", "dlam", "dh0"), *runs):
+            assert torch.equal(a, b), what
+
+    def test_build_has_no_spill(self):
+        """``-Xptxas -v`` reports no spill for any RG-LRU kernel."""
+        import re
+
+        from repro_torch.kernels.build import library_path
+
+        rg.load_library()
+        log = library_path(rg.SOURCE).with_suffix(".log").read_text()
+        assert "rglru" in log
+        assert not any(int(n) for n in re.findall(r"(\d+) bytes spill", log)), log[-2000:]
 
     def test_ops_autograd_vs_ref_float32(self):
         x, r, i, lam, h0, dout = _rglru_inputs(2, 300, 160, torch.float32)

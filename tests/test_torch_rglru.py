@@ -10,8 +10,11 @@ Backward: dx, dr, di, dlam and dh0 from the kernels' decomposition
 reverse-time scan the CUDA kernel computes) and from autograd through the
 port's ref, against ``jax.grad`` of the reference's ref: f32 to 1e-5 of the
 gradient's scale (both sides sum the same f32 terms over at most 128 steps
-in different orders; readings ~2e-7), bf16 to 3e-2.  The kernels
-themselves run only on the card (``tests/test_torch_on_card.py``)."""
+in different orders; readings ~2e-7), bf16 to 3e-2.  The CUDA kernels'
+three phases, emulated in torch (``rg.chunked_fwd`` / ``rg.chunked_bwd``),
+are held to the same references with the same tolerances
+(``TestChunkAlgebra``).  The kernels themselves run only on the card
+(``tests/test_torch_on_card.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -170,6 +173,133 @@ class TestBackward:
             assert torch.allclose(g, w, atol=1e-5)
 
 
+# (B, S, W, r_shift, lam, with_h0, with_dh_last): S below one chunk, one
+# whole chunk, one step past it, ragged at 100 and at 1000, sigmoid(r) ~ 0
+# (a ~ 1, the floor under mult taken), and lam = 20 (a ~ e^-160 sigmoid(r):
+# every chunk's decay product underflows to exactly 0)
+CHUNK_SHAPES = [
+    (2, rg.CHUNK - 5, 24, 0.0, None, True, True),
+    (2, rg.CHUNK, 16, 0.0, None, False, False),
+    (1, rg.CHUNK + 1, 16, 0.0, None, True, False),
+    (2, 100, 40, 0.0, None, False, True),
+    (1, 1000, 8, 0.0, None, True, True),
+    (1, 130, 16, -40.0, None, True, True),
+    (2, 200, 8, 0.0, 20.0, True, True),
+]
+CHUNK_CASES = [(*shape, dtype) for shape in CHUNK_SHAPES for dtype in ("float32", "bfloat16")]
+
+
+def _chunk_case(B, S, W, r_shift, lam, with_h0, with_dh_last):
+    """(x, r, i, lam), h0 or None, dout, dh_last or None as numpy."""
+    x, r, i, lam_ = _inputs(B, S, W, seed=8, r_shift=r_shift)
+    if lam is not None:
+        lam_ = np.full(W, lam, np.float32)
+    rng = np.random.default_rng(9)
+    h0 = rng.standard_normal((B, W), np.float32) if with_h0 else None
+    dout = rng.standard_normal((B, S, W), np.float32)
+    dh_last = rng.standard_normal((B, W), np.float32) if with_dh_last else None
+    return (x, r, i, lam_), h0, dout, dh_last
+
+
+def _opt(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+class TestChunkAlgebra:
+    """The kernels' three forward and three backward phases, emulated in
+    torch, against the JAX reference: exact however strong or weak the
+    decay, since the chunk algebra takes only products of a."""
+
+    @pytest.mark.parametrize("B,S,W,r_shift,lam,with_h0,with_dh_last,dtype", CHUNK_CASES)
+    def test_forward_vs_jax_ref(self, B, S, W, r_shift, lam, with_h0, with_dh_last, dtype):
+        arrs, h0, _, _ = _chunk_case(B, S, W, r_shift, lam, with_h0, with_dh_last)
+        want, wh = jref.rglru(*_jax(arrs[:3], dtype), jnp.asarray(arrs[3]),
+                              h0=None if h0 is None else jnp.asarray(h0))
+        ts = [*_torch(arrs[:3], dtype), torch.from_numpy(arrs[3])]
+        if lam is not None:  # the case does what it says: Π a over a chunk is 0.0
+            a = torch.exp(-8.0 * tref.softplus(ts[3]) * torch.sigmoid(ts[1].float()))
+            assert bool((a[:, :rg.CHUNK].prod(1) == 0.0).all())
+        out, h_last, states, starts = rg.chunked_fwd(*ts, _opt(h0))
+        assert out.dtype == getattr(torch, dtype) and tuple(out.shape) == want.shape
+        assert states.dtype == torch.float32 and states.shape == out.shape
+        assert starts.shape == (B, rg.num_chunks(S), W)
+        for t in (out, h_last, states, starts):
+            assert torch.isfinite(t).all()
+        assert _err(_np(out), want.astype(jnp.float32)) < _tol(dtype)
+        assert _err(_np(h_last), wh) < _tol(dtype)
+
+    @pytest.mark.parametrize("B,S,W,r_shift,lam,with_h0,with_dh_last,dtype", CHUNK_CASES)
+    def test_backward_vs_jax_grad(self, B, S, W, r_shift, lam, with_h0, with_dh_last, dtype):
+        """dx, dr, di, dlam and the carried state's gradient, with and
+        without a final-state cotangent, from the states the forward phases
+        give."""
+        arrs, h0, dout, dh_last = _chunk_case(B, S, W, r_shift, lam, with_h0, with_dh_last)
+
+        def f(x, r, i, lam, h0):
+            out, h = jref.rglru(x, r, i, lam, h0=h0)
+            loss = jnp.sum(out.astype(jnp.float32) * dout)
+            return loss if dh_last is None else loss + jnp.sum(h * dh_last)
+
+        args = [*_jax(arrs[:3], dtype), jnp.asarray(arrs[3]),
+                None if h0 is None else jnp.asarray(h0)]
+        want = jax.grad(f, argnums=(0, 1, 2, 3, 4) if with_h0 else (0, 1, 2, 3))(*args)
+        ts = [*_torch(arrs[:3], dtype), torch.from_numpy(arrs[3])]
+        states = rg.chunked_fwd(*ts, _opt(h0))[2]
+        got = rg.chunked_bwd(*ts, _opt(h0), states, torch.from_numpy(dout).to(ts[0].dtype),
+                             _opt(dh_last))
+        for name, g, w in zip(("dx", "dr", "di", "dlam", "dh0"), got, want):
+            w = np.asarray(w, np.float32)
+            assert g.dtype == (ts[0].dtype if name in ("dx", "dr", "di") else torch.float32)
+            assert torch.isfinite(g).all(), name
+            assert _err(_np(g), w) <= GRAD_TOL[dtype] * max(1.0, float(np.abs(w).max())), name
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_forward_vs_pallas_interpret(self, dtype):
+        """At a shape the Pallas kernel takes (S, W multiples of its blocks):
+        the chunks against its 64-step time blocks."""
+        x, r, i, lam = _inputs(2, 128, 128, seed=10)
+        h0 = np.random.default_rng(11).standard_normal((2, 128), np.float32)
+        want, wh = pallas_rglru(*_jax((x, r, i), dtype), jnp.asarray(lam), jnp.asarray(h0),
+                                block_t=64, block_w=128, interpret=True)
+        out, h_last, _, _ = rg.chunked_fwd(*_torch((x, r, i), dtype), torch.from_numpy(lam),
+                                           torch.from_numpy(h0))
+        assert _err(_np(out), want.astype(jnp.float32)) < _tol(dtype)
+        assert _err(_np(h_last), wh) < _tol(dtype)
+
+    @pytest.mark.parametrize("S,r_shift,lam,with_h0", [(1000, 0.0, None, True),
+                                                       (130, -40.0, None, False),
+                                                       (200, 0.0, 20.0, True)])
+    def test_chunk_starts_are_the_reference_states(self, S, r_shift, lam, with_h0):
+        """Phase 2's chunk-start states equal the port's step scan
+        (``ref.rglru_states``) at the chunk boundaries: h0 (or 0) before the
+        first chunk, h_{c CHUNK - 1} before chunk c."""
+        arrs, h0, _, _ = _chunk_case(2, S, 24, r_shift, lam, with_h0, False)
+        ts = _torch(arrs, "float32")
+        _, h_last, _, starts = rg.chunked_fwd(*ts, _opt(h0))
+        want, want_last = tref.rglru_states(*ts, _opt(h0))
+        first = torch.zeros(2, 24) if h0 is None else torch.from_numpy(h0)
+        want_starts = torch.cat([first[:, None], want[:, rg.CHUNK - 1:-1:rg.CHUNK]], 1)
+        assert starts.shape == want_starts.shape
+        scale = max(1.0, float(want.abs().max()))
+        assert float((starts - want_starts).abs().max()) <= 1e-5 * scale
+        assert float((h_last - want_last).abs().max()) <= 1e-5 * scale
+
+    @pytest.mark.parametrize("S", [rg.CHUNK - 5, 150])
+    def test_phases_match_the_plain_versions(self, S):
+        """The emulation and the plain versions (the reference scans the CPU
+        wrappers run) agree: two computations of one function."""
+        arrs, h0, dout, dh_last = _chunk_case(2, S, 24, 0.0, None, True, True)
+        ts = _torch(arrs, "float32")
+        h0, dout, dh_last = (torch.from_numpy(a) for a in (h0, dout, dh_last))
+        want_fwd = rg.plain_fwd(*ts, h0, save_states=True)
+        for got, want in zip(rg.chunked_fwd(*ts, h0)[:3], want_fwd):
+            assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+        states = want_fwd[2]
+        for got, want in zip(rg.chunked_bwd(*ts, h0, states, dout, dh_last),
+                             rg.plain_bwd(*ts, h0, states, dout, dh_last)):
+            assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+
+
 class TestDispatchAndChecks:
     def _args(self, dtype=torch.float32, B=1, S=8, W=16):
         return _torch(_inputs(B, S, W), "float32")[:3], torch.linspace(0.1, 2.0, W)
@@ -223,4 +353,19 @@ class TestDispatchAndChecks:
             ops.rglru(x, r, i, lam, impl="pallas")
 
     def test_importing_builds_nothing(self):
+        assert rg._lib is None
+
+    def test_chunk_is_the_source_chunk(self):
+        """``CHUNK`` (the emulation's, and the scratch buffers' sizes) is the
+        kernels' ``CK``."""
+        import re
+
+        src = rg.SOURCE.read_text()
+        assert int(re.search(r"constexpr int CK = (\d+);", src).group(1)) == rg.CHUNK
+        C = rg.CHUNK
+        assert [rg.num_chunks(S) for S in (1, C, C + 1, 16 * C)] == [1, 1, 2, 16]
+
+    def test_occupancy_rejects_an_unknown_kernel_before_building(self):
+        with pytest.raises(ValueError, match="one of"):
+            rg.occupancy("rglru_fwd")
         assert rg._lib is None
