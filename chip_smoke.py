@@ -14,7 +14,9 @@ Phases, in order; any failure ends the script with a non-zero code:
 3. hold every flash kernel (forward, delta, dq, dk/dv) against its plain
    PyTorch version on the card, element by element, at qwen1.5-4b's
    shape, at recurrentgemma-2b's local-attention shape (hd 256, one KV
-   head) and at a GQA + window (hd 256) shape in bfloat16 and in float32,
+   head), at gemma3-1b's two shapes (hd 256, one KV head, window 512 under
+   1024 tokens, and no window) and at a GQA + window (hd 256) shape in
+   bfloat16 and in float32,
    and at a ragged and two more float32 shapes, and in bfloat16 at hd 64,
    hd 32 ragged and hd 256 ragged with two kv heads (the tensor-core
    backward's other instantiations); hold the differentiable
@@ -29,29 +31,38 @@ Phases, in order; any failure ends the script with a non-zero code:
    and float32, at a ragged shape (hd 32) with a carried state, at strong
    decays (w down to 1e-3), where bfloat16 rounds w to exactly 1 and with w
    exactly 0 in a quarter of the entries; hold a reduced qwen1.5-4b's,
-   recurrentgemma-2b's and rwkv6-1.6b's loss and gradients on the card
+   recurrentgemma-2b's, rwkv6-1.6b's and gemma3-1b's loss and gradients on
+   the card
    (through the kernels, run twice and required bitwise equal) against the
    same model on the CPU (plain versions); run the bfloat16 flash forward
    and backward, the RG-LRU forward and backward and the wkv6 forward and
-   backward twice at the main paths' shapes and require bitwise-equal
-   outputs;
+   backward twice at the main paths' shapes (flash also at gemma3-1b's
+   windowed one) and require bitwise-equal outputs;
 4. time each kernel, its plain version and the PyTorch library call that
    computes the same function (``scaled_dot_product_attention`` and its
-   backward, ``torch.linalg.vecdot`` for delta, timed here only and never
-   called by the port; none for the RG-LRU and wkv6 scans), each with L2
-   refilled before every call, at the main paths' shapes, and compute each
-   kernel's bound; print the CUDA kernels of each RG-LRU and wkv6 wrapper
-   call with their device times (``torch.profiler``);
+   backward, with a boolean band mask on the first backend that takes it
+   where the window is shorter than the sequence; ``torch.linalg.vecdot``
+   for delta; timed here only and never called by the port; none for the
+   RG-LRU and wkv6 scans), each with L2 refilled before every call, at the
+   main paths' shapes, and compute each kernel's bound; print the CUDA
+   kernels of each RG-LRU and wkv6 wrapper call with their device times
+   (``torch.profiler``);
 5. profile one unit's forward and backward on each main path at its
    published widths (``torch.profiler``, device time per kernel name);
 6. run ``repro_torch.measure`` for qwen1.5-4b (2 units), recurrentgemma-2b
-   (one RRL unit) and rwkv6-1.6b (2 units) at their published widths with 2
-   gloo ranks on the card and all three sync policies; check each written
-   trace, the counted all-reduce bytes and that the three policies leave
-   the same momentum;
+   (one RRL unit), rwkv6-1.6b (2 units) and gemma3-1b (one LLLLLG unit) at
+   their published widths with 2 gloo ranks on the card and all three sync
+   policies; check each written trace, the counted all-reduce bytes and
+   that the three policies leave the same momentum;
 7. check that every kernel of each path launched during its run (the
    counters are set to 0 before each);
-8. print the ``kernels`` line, then the ``ok`` line last.
+8. model vs measured (the paper's Fig. 4): predict each path's step time
+   per sync policy from its trace, ``t_u`` and all-reduce fit with the
+   port's copy of the DAG model
+   (``repro_torch.measure.model_vs_measured``) and print the error against
+   the measured step time (no ceiling: gloo on shared host cores moves the
+   steps between runs);
+9. print the ``kernels`` line, then the ``ok`` line last.
 
 It imports nothing of JAX and nothing of the reference package ``repro``.
 """
@@ -74,8 +85,8 @@ import torch  # noqa: E402
 
 # the port first: without it (the script alone) the import fails, nothing is printed
 from repro_torch.kernels.bench import (  # noqa: E402
-    L_BLOCK, RGLRU_SLICE, SLICE, WKV6_SLICE, card_line, device_times, make_inputs,
-    print_profile, rglru_inputs, time_ms, wkv6_inputs)
+    GEMMA3_G, GEMMA3_L, L_BLOCK, RGLRU_SLICE, SLICE, WKV6_SLICE, card_line, device_times,
+    make_inputs, print_profile, rglru_inputs, time_ms, wkv6_inputs)
 
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
 # sheet): HBM bytes/s and FLOP/s by input type (bf16 on the tensor cores,
@@ -101,9 +112,16 @@ AUTOGRAD_BF16_LIMIT = (1e-2, 1e-1)
 #: gradients, bucketed f32); a leaf left unsynchronized holds one rank's own
 #: gradient instead of the mean over both shards.
 MOMENTUM_RTOL = 1e-2
+#: A library call timed beside a kernel must compute the kernel's function:
+#: its output is held to the kernel's with (rtol, atol) as
+#: ``AUTOGRAD_BF16_LIMIT`` (SDPA's kernels round P to bfloat16 before P V, an
+#: error the port's hi + lo split avoids); a mask it ignored would put whole
+#: rows off by the order of rms(o).
+LIBRARY_LIMIT = (1e-2, 1e-1)
 
-# The main paths' attention shapes: ``SLICE`` (qwen1.5-4b's G blocks) and
-# ``L_BLOCK`` (recurrentgemma-2b's L blocks), from ``repro_torch.kernels.bench``.
+# The main paths' attention shapes: ``SLICE`` (qwen1.5-4b's G blocks),
+# ``L_BLOCK`` (recurrentgemma-2b's L blocks), ``GEMMA3_L`` and ``GEMMA3_G``
+# (gemma3-1b's L and G blocks), from ``repro_torch.kernels.bench``.
 CHECK_SHAPES = [
     ("slice", SLICE),
     ("l_block", L_BLOCK),
@@ -120,6 +138,9 @@ CHECK_SHAPES = [
     ("hd32_ragged", dict(B=1, S=300, H=2, K=1, hd=32, window=32, dtype=torch.bfloat16)),
     ("hd256_ragged_gqa", dict(B=1, S=1000, H=8, K=2, hd=256, window=None,
                               dtype=torch.bfloat16)),
+    # gemma3-1b's main-path shapes: L blocks (window 512 < S) and G blocks
+    ("gemma3_l", GEMMA3_L),
+    ("gemma3_g", GEMMA3_G),
 ]
 # recurrentgemma-2b's RG-LRU shape (``RGLRU_SLICE``) and others; ``lam``
 # and ``r_shift`` as in ``bench.rglru_inputs``.
@@ -158,6 +179,8 @@ MAIN_PATHS = {
                            "rglru_fwd", "rglru_bwd")),
     "rwkv6-1.6b": (["--arch", "rwkv6-1.6b", "--num-layers", "2", *_COMMON],
                    ("wkv6_fwd", "wkv6_bwd")),
+    "gemma3-1b": (["--arch", "gemma3-1b", "--num-layers", "6", *_COMMON],
+                  ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
 }
 #: kernel module -> the TPU kernel its kernels replace (file:line)
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:35",
@@ -263,7 +286,7 @@ def check_determinism() -> None:
     from repro_torch.kernels import wkv6 as wk
 
     failed = []
-    for label, shp in (("slice", SLICE), ("l_block", L_BLOCK)):
+    for label, shp in (("slice", SLICE), ("l_block", L_BLOCK), ("gemma3_l", GEMMA3_L)):
         q, k, v, do = make_inputs(**shp, seed=2)
         w = shp["window"]
         runs = []
@@ -522,7 +545,8 @@ def check_wkv6() -> dict:
 #: per unit in one forward)
 MODEL_CHECKS = {"qwen1.5-4b": (2, {"flash_fwd": 1}),
                 "recurrentgemma-2b": (3, {"flash_fwd": 1, "rglru_fwd": 2}),
-                "rwkv6-1.6b": (2, {"wkv6_fwd": 1})}
+                "rwkv6-1.6b": (2, {"wkv6_fwd": 1}),
+                "gemma3-1b": (2, {"flash_fwd": 2})}
 
 
 #: CPU threads of the model check's CPU side, so that its sums run in one
@@ -534,8 +558,9 @@ MODEL_CHECK_THREADS = 4
 def check_model() -> None:
     """Reduced qwen1.5-4b (float32, 2 layers, head dim 64), reduced
     recurrentgemma-2b (float32, RRL, rnn width 256, window 64 under 256
-    tokens) and reduced rwkv6-1.6b (float32, 2 W layers, 4 wkv heads of
-    64): loss and every gradient leaf through the kernels on the card
+    tokens), reduced rwkv6-1.6b (float32, 2 W layers, 4 wkv heads of 64) and
+    reduced gemma3-1b (float32, LG, one kv head, window 64 under 256
+    tokens): loss and every gradient leaf through the kernels on the card
     against the plain versions on the CPU (``MODEL_CHECK_THREADS``
     threads), from the same parameters and batch.  Tolerance 1e-4 of each
     leaf's scale: both sides are float32 (TF32 off), summed in different
@@ -664,13 +689,14 @@ def wkv6_bounds(B, S, H, hd, dtype, **_) -> dict:
     return out
 
 
-def library_times(q, k, v, o, do) -> dict:
-    """scaled_dot_product_attention forward, its flash backward (one call
-    giving dq, dk, dv), and ``torch.linalg.vecdot`` for delta (rowsum(dO *
-    O), (B, S, H) in bf16 where the kernel writes (B, H, S) in f32), on the
+def library_times(q, k, v, o, do, window) -> dict:
+    """scaled_dot_product_attention forward, its backward (one call giving
+    dq, dk, dv), and ``torch.linalg.vecdot`` for delta (rowsum(dO * O),
+    (B, S, H) in bf16 where the kernel writes (B, H, S) in f32), on the
     same inputs; (B, H, S, hd) views for SDPA, with k and v expanded to the
     H query heads beforehand where K < H (the library's flash kernels take
-    equal head counts)."""
+    equal head counts).  Where the window is shorter than the sequence,
+    :func:`windowed_library_times` times the same windowed function."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ref import repeat_kv
@@ -678,9 +704,11 @@ def library_times(q, k, v, o, do) -> dict:
     H, K = q.shape[2], k.shape[2]
     k, v = repeat_kv(k, H // K).contiguous(), repeat_kv(v, H // K).contiguous()
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-    out = {"flash_fwd": time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True)),
-           "flash_bwd_delta": time_ms(lambda: torch.linalg.vecdot(o, do, dim=-1))}
+    out = {"flash_bwd_delta": time_ms(lambda: torch.linalg.vecdot(o, do, dim=-1))}
+    if window is not None and window < q.shape[1]:
+        return {**out, **windowed_library_times(qt, kt, vt, dot, window, o)}
+    out["flash_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=True))
     try:
         o, lse, cq, ck, mq, mk, seed, off, _ = \
             torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
@@ -690,6 +718,47 @@ def library_times(q, k, v, o, do) -> dict:
     except (RuntimeError, TypeError) as e:   # library op missing or refusing
         print(f"  library backward not timed: {e}", flush=True)
     return out
+
+
+def windowed_library_times(qt, kt, vt, dot, window, o) -> dict:
+    """SDPA forward and backward of the sliding-window function the kernels
+    compute (query i sees keys i - window < j <= i), through a boolean band
+    mask: the first SDPA backend that takes the mask (cuDNN, then memory
+    efficient, then math) and whose output agrees with the kernel's ``o``
+    within ``LIBRARY_LIMIT`` is named and timed, beside the reasons the
+    backends before it gave; the backward is the autograd node of that
+    forward (dq, dk, dv in one call).  Nothing when no backend takes it,
+    with the reasons printed."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    S = qt.shape[2]
+    pos = torch.arange(S, device=qt.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    refused = []
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                fwd = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=band)  # noqa: E731
+                out = fwd()
+                fwd_ms = time_ms(fwd)
+        except RuntimeError as e:            # the backend refuses the mask or shape
+            refused.append(f"{backend.name}: {str(e).splitlines()[0][:120]}")
+            continue
+        ratio = close(out.detach().transpose(1, 2), o, *LIBRARY_LIMIT)[3]
+        if ratio > 1.0:
+            refused.append(f"{backend.name}: output {ratio:.3f} of the limit from the kernel's")
+            continue
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True))
+        print(f"  library: windowed SDPA (boolean band mask, window {window}) on "
+              f"{backend.name}, output {ratio:.3f} of the limit from the kernel's; "
+              f"refused: {refused or 'none'}", flush=True)
+        return {"flash_fwd": fwd_ms, "flash_bwd_dq": bwd_ms, "flash_bwd_dkdv": bwd_ms}
+    print(f"  library: no SDPA backend takes the window-{window} band mask, so no library "
+          f"time (refused: {refused})", flush=True)
+    return {}
 
 
 def print_row(label: str, name: str, row: dict) -> None:
@@ -714,7 +783,7 @@ def time_flash(shp: dict, label: str) -> dict:
                            lambda: fa.plain_bwd(q, k, v, do, lse, delta, True, w)),
     }
     bnd = bounds(**shp)
-    lib = library_times(q, k, v, o, do)
+    lib = library_times(q, k, v, o, do, w)
     out = {}
     for name, (kern, plain) in runs.items():
         out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
@@ -822,23 +891,29 @@ def profile_units() -> None:
 @phase("timing")
 def time_kernels() -> dict:
     """Each kernel at its main path's shape (the kernels line); the flash
-    kernels also at recurrentgemma-2b's local-attention shape (printed
-    rows of their own)."""
+    kernels also at recurrentgemma-2b's local-attention shape and at
+    gemma3-1b's L and G shapes (printed rows of their own)."""
     timing = {**time_flash(SLICE, "slice"), **time_rglru(RGLRU_SLICE, "slice"),
               **time_wkv6(WKV6_SLICE, "slice")}
     time_flash(L_BLOCK, "l_block")
+    time_flash(GEMMA3_L, "gemma3_l")
+    time_flash(GEMMA3_G, "gemma3_g")
     return timing
 
 
 # ----------------------------------------------------------------------
 # 5-6. the main path: the measurement loop through the kernels
 # ----------------------------------------------------------------------
-def run_measure(arch: str, args: list[str]) -> dict:
+def run_measure(arch: str, args: list[str]) -> tuple[dict, dict]:
+    """(the measured JSON, the DAG model's error per policy on it): the
+    written trace goes through ``repro_torch.measure.model_vs_measured``
+    before its temporary directory goes."""
     from repro_torch import kernels
+    from repro_torch.measure.model_vs_measured import model_error
     from repro_torch.measure.run import main as measure_main
 
     @phase(f"measure {arch}")
-    def run() -> dict:
+    def run() -> tuple[dict, dict]:
         with tempfile.TemporaryDirectory() as tmp:
             kernels.reset_launches()
             rc = measure_main(args + ["--out-dir", tmp])
@@ -846,10 +921,36 @@ def run_measure(arch: str, args: list[str]) -> dict:
                 raise SystemExit(f"repro_torch.measure exited {rc}")
             doc = json.loads((Path(tmp) / f"{arch}.json").read_text())
             trace_text = (Path(tmp) / f"{arch}.trace").read_text()
+            errors = model_error(doc, Path(tmp) / f"{arch}.trace")
         check_measurement(doc, trace_text)
-        return doc
+        return doc, errors
 
     return run()
+
+
+@phase("model vs measured (Fig. 4)")
+def report_model_vs_measured(results: dict) -> None:
+    """For each main path (arch -> (measured JSON, errors)): the alpha-beta
+    fit and ``t_u`` the prediction used, then per sync policy the measured
+    and the predicted seconds per iteration and |predicted - measured| /
+    measured.  Fails if a prediction is not finite and positive or the
+    predicted policies are not the measured ones; sets no error ceiling."""
+    failed = []
+    for arch, (doc, errors) in results.items():
+        fit = doc["allreduce_fit"]
+        print(f"  {arch:18s} fit latency {fit['latency_s']:.6g} s, bandwidth "
+              f"{fit['bandwidth_bytes_per_s'] / 1e9:.6g} GB/s; t_u {doc['t_update_s']:.6g} s",
+              flush=True)
+        for pol, row in errors.items():
+            print(f"  {arch:18s} {pol:9s} measured {row['measured_s']:.6g} s/it  predicted "
+                  f"{row['predicted_s']:.6g} s/it  error {row['error_pct']:.2f} %", flush=True)
+            if not (math.isfinite(row["predicted_s"]) and row["predicted_s"] > 0):
+                failed.append(f"{arch} {pol}: predicted {row['predicted_s']}")
+        if set(errors) != set(doc["policy_times_s"]):
+            failed.append(f"{arch}: predicted {sorted(errors)}, measured "
+                          f"{sorted(doc['policy_times_s'])}")
+    if failed:
+        raise SystemExit(f"model vs measured: {failed}")
 
 
 def check_measurement(doc: dict, trace_text: str) -> None:
@@ -920,14 +1021,17 @@ def main() -> int:
     profile_units()
 
     launches: dict[str, int] = {}
+    measured: dict[str, tuple[dict, dict]] = {}
     for arch, (args, must) in MAIN_PATHS.items():
-        counts = run_measure(arch, args)["kernel_launches"]
+        measured[arch] = run_measure(arch, args)
+        counts = measured[arch][0]["kernel_launches"]
         print(f"  {arch}: launches {counts}", flush=True)
         missing = [name for name in must if counts.get(name, 0) <= 0]
         if missing:
             raise SystemExit(f"kernels not launched on the {arch} path: {missing}")
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
+    report_model_vs_measured(measured)
     line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),
              "replaces": REPLACES[mod.__name__.rsplit(".", 1)[1]], "launches": launches[name],
              "max_abs_err": worst[name], **timing[name]}

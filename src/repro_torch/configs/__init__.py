@@ -13,6 +13,7 @@ _MODULES = {
     "qwen1.5-4b": "repro_torch.configs.qwen15_4b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_16b",
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -14,7 +14,8 @@ artifacts into the output directory:
 
 By default the model is the arch at its published widths with the depth
 cut to ``--num-layers`` (default: one whole layer pattern and at least two
-layers; qwen1.5-4b, recurrentgemma-2b and rwkv6-1.6b are measured so);
+layers; qwen1.5-4b, recurrentgemma-2b, rwkv6-1.6b and gemma3-1b are
+measured so);
 giving any of ``--d-model``, ``--num-heads``, ``--d-ff`` or
 ``--vocab-size`` measures a ``reduced()`` variant instead, and ``--smoke``
 picks the reference's tiny CI preset.  The ranks share one device: the
@@ -35,7 +36,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-MEASURABLE_ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b")
+MEASURABLE_ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b")
 BACKEND = "gloo"
 
 _WIDTHS = ("d_model", "num_heads", "d_ff", "vocab_size")
@@ -67,8 +68,8 @@ SMOKE_GEOMETRY = Geometry(num_layers=4, d_model=128, num_heads=4, d_ff=256,
 def default_num_layers(cfg) -> int:
     """One whole pattern unit, and at least two layers: qwen1.5-4b (``G``)
     and rwkv6-1.6b (``W``) get 2 layers (2 units), recurrentgemma-2b
-    (``RRL``) 3 (one unit), so segmentation has a unit at both of its
-    depths."""
+    (``RRL``) 3 and gemma3-1b (``LLLLLG``) 6 (one unit), so segmentation
+    has a unit at both of its depths."""
     return max(2, len(cfg.layer_pattern))
 
 

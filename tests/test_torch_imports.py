@@ -31,7 +31,10 @@ def test_every_port_module_is_found():
                  "repro_torch.traces.format", "repro_torch.measure.__main__",
                  "repro_torch.kernels.rglru", "repro_torch.kernels.build",
                  "repro_torch.models.recurrent", "repro_torch.configs.recurrentgemma_2b",
-                 "repro_torch.kernels.wkv6", "repro_torch.configs.rwkv6_16b"):
+                 "repro_torch.kernels.wkv6", "repro_torch.configs.rwkv6_16b",
+                 "repro_torch.core.policies", "repro_torch.core.dag",
+                 "repro_torch.core.simulator", "repro_torch.core.predictor",
+                 "repro_torch.measure.model_vs_measured", "repro_torch.configs.gemma3_1b"):
         assert must in names
 
 

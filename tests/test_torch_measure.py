@@ -10,6 +10,9 @@ functions, on the CPU.
   that ``repro.traces.format.read_trace`` reads and that the unchanged
   sweep evaluates as ``trace:<path>`` through the closed form
   (``caffe-mpi``) and the bucket timeline (``bucketed-25mb``).
+* The port's Fig. 4 loop (``repro_torch.measure.model_vs_measured``)
+  predicts each policy of that run exactly as
+  ``benchmarks.bench_model_vs_measured.predict_policies`` does.
 """
 import dataclasses
 import json
@@ -34,12 +37,13 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import all_launches
 from repro_torch.measure import calibrate as tcal
 from repro_torch.measure import harness as tharness
+from repro_torch.measure import model_vs_measured as tmvm
 from repro_torch.measure import run as trun
 from repro_torch.traces import format as tformat
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 ARCH = "qwen1.5-4b"
-ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b")
+ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b")
 
 
 class TestCopies:
@@ -119,6 +123,7 @@ class TestCalibrate:
         ("qwen1.5-4b", 2, 79.3e6, 777.9e6),
         ("recurrentgemma-2b", 3, 256.9e6, 655.4e6),
         ("rwkv6-1.6b", 2, 58.76e6, 268.44e6),
+        ("gemma3-1b", 6, 161.05e6, 301.99e6),
     ])
     def test_full_width_payloads(self, arch, depth, unit_params, rest_params):
         """At the published widths: a qwen1.5-4b unit is 79.3 M parameters
@@ -127,7 +132,10 @@ class TestCalibrate:
         a local-attention block of 73.4 M), the tied embedding 655.4 M; a
         rwkv6-1.6b W unit is 58.7 M bf16 parameters and 14 336 float32 ones
         (``w_bias``, ``u``, ``ln_scale``, the layer norms), 117.5 MB, counted
-        here in bf16 equivalents; embedding + untied head 268.4 M."""
+        here in bf16 equivalents; embedding + untied head 268.4 M; a
+        gemma3-1b LLLLLG unit is 161.05 M (six blocks of 26.84 M: 2.95 M of
+        attention with one kv head, 23.89 M of MLP), the tied embedding of
+        262 144 x 1152 302.0 M."""
         cfg = dataclasses.replace(torch_get_config(arch), num_layers=depth)
         unit, rest = tcal.grad_payload_bytes(cfg)
         assert unit / 2 == pytest.approx(unit_params, rel=1e-3)
@@ -142,6 +150,7 @@ class TestRunner:
         ("qwen1.5-4b", (2560, 20, 6912, 151_936)),
         ("recurrentgemma-2b", (2560, 10, 7680, 256_000)),
         ("rwkv6-1.6b", (2048, 32, 7168, 65_536)),
+        ("gemma3-1b", (1152, 4, 6912, 262_144)),
     ])
     def test_config_for_published_width_and_reduced(self, arch, widths):
         full = trun.config_for(arch, trun.Geometry(num_layers=2))
@@ -155,12 +164,14 @@ class TestRunner:
         ("qwen1.5-4b", 2, 2, (2, 4)),
         ("recurrentgemma-2b", 3, 1, (1, 2)),
         ("rwkv6-1.6b", 2, 2, (2, 4)),
+        ("gemma3-1b", 6, 1, (1, 2)),
     ])
     def test_default_num_layers_is_one_pattern_and_at_least_two(self, arch, layers, units,
                                                                 depths):
         """``--num-layers`` left out: qwen1.5-4b (``G``) and rwkv6-1.6b
         (``W``) 2 layers, 2 units; recurrentgemma-2b (``RRL``) 3 layers, one
-        unit, segmented at 1 and 2 units (3 and 6 layers)."""
+        unit, segmented at 1 and 2 units (3 and 6 layers); gemma3-1b
+        (``LLLLLG``) 6 layers, one unit, segmented at 6 and 12 layers."""
         assert trun.Geometry().num_layers is None
         cfg = trun.config_for(arch, trun.Geometry())
         assert (cfg.num_layers, cfg.num_units, cfg.remainder_pattern) == (layers, units, "")
@@ -174,9 +185,10 @@ class TestRunner:
         assert (args.seq_len, args.n_devices, args.device, args.num_layers) == \
             (64, 3, "cpu", None)
         with pytest.raises(SystemExit):
-            trun.build_parser().parse_args(["--arch", "gemma3-1b"])
-        args = trun.build_parser().parse_args(["--arch", "recurrentgemma-2b"])
-        assert args.arch == "recurrentgemma-2b" and args.num_layers is None
+            trun.build_parser().parse_args(["--arch", "internlm2-20b"])
+        for arch in ("recurrentgemma-2b", "gemma3-1b"):
+            args = trun.build_parser().parse_args(["--arch", arch])
+            assert args.arch == arch and args.num_layers is None
 
     def test_cuda_is_the_default_and_never_falls_back(self):
         if torch.cuda.is_available():
@@ -205,7 +217,7 @@ class TestSmokeMeasurement:
     def test_trace_reads_back_with_the_layers_and_payloads(self, smoke_run):
         """qwen1.5-4b's and rwkv6-1.6b's 4 smoke layers are 4 units;
         recurrentgemma-2b's are one RRL unit and a remaining R block, counted
-        with the rest.  The per-layer times are what the run determines, not
+        with the rest; gemma3-1b's reduced pattern is ``LG``, 2 units.  The per-layer times are what the run determines, not
         CPU timings judged by size: each unit row holds the JSON's unit
         segment, the first row the rest's, times 1e6 (a segment is a clamped
         slope of two noisy timings and may be 0 on a shared CPU)."""
@@ -213,7 +225,7 @@ class TestSmokeMeasurement:
         trace = jformat.read_trace(out / f"{arch}.trace")
         cfg = trun.config_for(arch, trun.SMOKE_GEOMETRY)
         unit, rest = tcal.grad_payload_bytes(cfg)
-        n = {"qwen1.5-4b": 4, "recurrentgemma-2b": 1, "rwkv6-1.6b": 4}[arch]
+        n = {"qwen1.5-4b": 4, "recurrentgemma-2b": 1, "rwkv6-1.6b": 4, "gemma3-1b": 2}[arch]
         assert cfg.num_units == n == doc["num_units"]
         assert trace.cluster == "torch-cpu-gloo-x2"
         assert trace.batch_per_gpu == 2 and trace.bytes_per_sample == 8.0 * 32
@@ -259,7 +271,7 @@ class TestSmokeMeasurement:
         assert set(norms) == {"at_end", "wfbp", "bucketed"}
         leaves = list(norms["at_end"])
         mixer = {"qwen1.5-4b": "units/b0/attn/wq", "recurrentgemma-2b": "units/b0/rglru/lam",
-                 "rwkv6-1.6b": "units/b0/time_mix/u"}
+                 "rwkv6-1.6b": "units/b0/time_mix/u", "gemma3-1b": "units/b0/attn/wq"}
         assert "embedding" in leaves and mixer[arch] in leaves
         for leaf in leaves:
             vals = [norms[pol][leaf] for pol in norms]
@@ -283,3 +295,47 @@ class TestSmokeMeasurement:
                    "caffe-mpi,bucketed-25mb"])
         assert rc == 0
         assert "trace:" in capsys.readouterr().out
+
+
+class TestModelVsMeasured:
+    """The paper's Fig. 4 loop on the smoke run: the trace, the measured
+    ``t_u`` and the alpha-beta fit go through the port's copy of the DAG
+    model, as ``benchmarks/bench_model_vs_measured.py`` sends the
+    reference's through ``repro.core``."""
+
+    def test_trace_reads_like_the_reference(self, smoke_run):
+        out, doc, arch = smoke_run
+        path = out / f"{arch}.trace"
+        j, t = jformat.read_trace(path), tformat.read_trace(path)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert dataclasses.asdict(t.to_iteration_costs(t_u=doc["t_update_s"])) == \
+            dataclasses.asdict(j.to_iteration_costs(t_u=doc["t_update_s"]))
+
+    def test_predict_policies_equals_the_bench(self, smoke_run):
+        from benchmarks.bench_model_vs_measured import predict_policies
+
+        out, doc, arch = smoke_run
+        got = tmvm.predict_policies(doc, out / f"{arch}.trace")
+        assert got == predict_policies(doc, str(out / f"{arch}.trace"))
+        assert set(got) == {"at_end", "wfbp", "bucketed"}
+        errors = tmvm.model_error(doc, out / f"{arch}.trace")
+        for pol, row in errors.items():
+            assert row["predicted_s"] == got[pol] > 0
+            assert row["measured_s"] == doc["policy_times_s"][pol]
+            assert row["error_pct"] == \
+                abs(got[pol] - row["measured_s"]) / row["measured_s"] * 100
+
+    def test_cli_writes_finite_errors(self, smoke_run, tmp_path, capsys):
+        out, _, arch = smoke_run
+        dest = tmp_path / "fig4.json"
+        assert tmvm.main(["--out-dir", str(out), "--archs", arch, "--json", str(dest)]) == 0
+        doc = json.loads(dest.read_text())
+        rows = doc["archs"][arch]["policies"]
+        assert set(rows) == {"at_end", "wfbp", "bucketed"}
+        for row in rows.values():
+            assert all(np.isfinite(v) for v in row.values()) and row["predicted_s"] > 0
+        assert doc["max_error_pct"] == max(r["error_pct"] for r in rows.values())
+        assert f"{arch:18s} at_end" in capsys.readouterr().out
+        # a ceiling below the largest error fails the run
+        assert tmvm.main(["--out-dir", str(out), "--archs", arch,
+                          "--assert-error-ceiling", "-1"]) == 1

@@ -1,8 +1,9 @@
 """The port's model, loss and optimizer against the reference, on the CPU,
 for each measured arch: qwen1.5-4b (``G`` blocks, untied head),
 recurrentgemma-2b (``RRL``: RG-LRU and local-attention blocks, tied
-embedding) and rwkv6-1.6b (``W`` blocks: time mix and channel mix, layer
-norm, untied head).
+embedding), rwkv6-1.6b (``W`` blocks: time mix and channel mix, layer
+norm, untied head) and gemma3-1b (``LLLLLG``, reduced to ``LG``: windowed
+and global attention with one kv head, tied embedding).
 
 Parameters are initialised by the reference (``jax.random``) and carried
 over by the port's bridge (``repro_torch.models.transformer.
@@ -44,14 +45,14 @@ from repro_torch.models import transformer as TT
 from repro_torch.optim import sgd as tsgd
 
 ARCH = "qwen1.5-4b"
-ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b")
+ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b")
 #: Reduced depth per arch: one whole layer pattern or more (recurrentgemma's
-#: RRL needs 3 layers for one unit) and the sequence length of the model
-#: tests (above recurrentgemma's reduced window of 64, so the window bites;
-#: above the wkv6 checkpoint interval of 64, so rwkv6's backward rebuilds
-#: two chunks).
-DEPTH = {"qwen1.5-4b": 2, "recurrentgemma-2b": 3, "rwkv6-1.6b": 2}
-SEQ = {"qwen1.5-4b": 24, "recurrentgemma-2b": 80, "rwkv6-1.6b": 80}
+#: RRL needs 3 layers for one unit; gemma3-1b's LLLLLG reduces to LG at 2)
+#: and the sequence length of the model tests (above recurrentgemma's and
+#: gemma3-1b's reduced window of 64, so the window bites; above the wkv6
+#: checkpoint interval of 64, so rwkv6's backward rebuilds two chunks).
+DEPTH = {"qwen1.5-4b": 2, "recurrentgemma-2b": 3, "rwkv6-1.6b": 2, "gemma3-1b": 2}
+SEQ = {"qwen1.5-4b": 24, "recurrentgemma-2b": 80, "rwkv6-1.6b": 80, "gemma3-1b": 80}
 #: per-leaf gradient tolerance of the whole model, of the leaf's scale
 GRAD_TOL = 2e-5
 #: the leaves (by the end of their path) held to 1e-4 of their scale instead
@@ -174,11 +175,13 @@ class TestNumerics:
         np.testing.assert_allclose(_np(tcommon.rope_frequencies(64, 1e4)),
                                    np.asarray(jcommon.rope_frequencies(64, 1e4)), rtol=1e-6)
 
-    @pytest.mark.parametrize("V", [512, 20_000, 151_936])
+    @pytest.mark.parametrize("V", [512, 20_000, 151_936, 262_144])
     def test_num_chunks_rule(self, V):
         assert tloss._num_chunks(V, min(8192, V)) == jloss._num_chunks(V, min(8192, V))
         if V == 151_936:
             assert tloss._num_chunks(V, 8192) == 32 and V // 32 == 4748
+        if V == 262_144:
+            assert tloss._num_chunks(V, 8192) == 32 and V // 32 == 8192
 
     @pytest.mark.parametrize("V", [16_384, 20_000])
     def test_chunked_cross_entropy_fwd_bwd(self, V):
@@ -202,11 +205,12 @@ class TestModel:
     def test_init_layout_equals_reference_at_full_width(self, arch):
         """Key paths, shapes and dtypes of every leaf, in flatten order, at
         the published widths and one pattern's depth or two layers (shapes
-        only: the meta device and ``jax.eval_shape``).  recurrentgemma-2b's
+        only: the meta device and ``jax.eval_shape``; gemma3-1b at 6).  recurrentgemma-2b's
         ``lam`` and rwkv6-1.6b's ``w_bias``, ``u`` and ``ln_scale`` stay
         float32 in the bf16 model."""
-        jcfg = dataclasses.replace(jax_get_config(arch), num_layers=DEPTH[arch])
-        tcfg = dataclasses.replace(torch_get_config(arch), num_layers=DEPTH[arch])
+        depth = max(DEPTH[arch], len(jax_get_config(arch).layer_pattern))
+        jcfg = dataclasses.replace(jax_get_config(arch), num_layers=depth)
+        tcfg = dataclasses.replace(torch_get_config(arch), num_layers=depth)
         jshape = jax.eval_shape(lambda k: JT.init_lm(jcfg, k), jax.random.PRNGKey(0))
         jleaves = [(_key_path(p), leaf) for p, leaf in
                    jax.tree_util.tree_flatten_with_path(jshape)[0]]
@@ -249,8 +253,9 @@ class TestModel:
     @pytest.mark.parametrize("vocab", [512, 16_384])
     def test_loss_and_every_gradient_leaf_match(self, arch, vocab):
         """Reduced model (f32; qwen1.5-4b 2 layers, recurrentgemma-2b 3:
-        RRL, window 64 under 80 tokens); vocab 16 384 takes the chunked
-        cross-entropy on both sides, through recurrentgemma's tied head."""
+        RRL, gemma3-1b 2: LG, window 64 under 80 tokens); vocab 16 384 takes
+        the chunked cross-entropy on both sides, through recurrentgemma's and
+        gemma3-1b's tied heads."""
         jcfg, tcfg = _configs(arch, num_layers=DEPTH[arch], vocab_size=vocab)
         tree = _perturbed(jax.tree_util.tree_map(
             np.asarray, JT.init_lm(jcfg, jax.random.PRNGKey(0))))

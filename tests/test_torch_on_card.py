@@ -51,7 +51,10 @@ class TestOnCard:
         # the bf16 tensor-core backward at hd 32 ragged, hd 64, hd 256 ragged with K > 1
         (torch.bfloat16, 300, 2, 1, 32, 32),
         (torch.bfloat16, 512, 4, 2, 64, 100),
-        (torch.bfloat16, 1000, 8, 2, 256, None)])
+        (torch.bfloat16, 1000, 8, 2, 256, None),
+        # gemma3-1b's main-path shapes: L blocks (window 512 < S) and G blocks
+        pytest.param(torch.bfloat16, 1024, 4, 1, 256, 512, id="gemma3_l"),
+        pytest.param(torch.bfloat16, 1024, 4, 1, 256, None, id="gemma3_g")])
     def test_kernels_vs_plain(self, dtype, S, H, K, hd, window):
         q, k, v, do = _inputs(S, H, K, hd, dtype)
         o, lse = fa.fwd(q, k, v, True, window)
@@ -67,7 +70,9 @@ class TestOnCard:
 
     @pytest.mark.parametrize("S,H,K,hd,window", [(1024, 4, 4, 128, None),
                                                  (1000, 8, 2, 256, None),
-                                                 (512, 10, 1, 256, 2048)])
+                                                 (512, 10, 1, 256, 2048),
+                                                 pytest.param(1024, 4, 1, 256, 512,
+                                                              id="gemma3_l")])
     def test_backward_is_bitwise_deterministic(self, S, H, K, hd, window):
         """bf16 ``bwd_dq`` and ``bwd_dkdv`` twice: equal bits (no atomics;
         the group partials are summed in a fixed order)."""
@@ -82,7 +87,9 @@ class TestOnCard:
     @pytest.mark.parametrize("S,H,K,hd,window", [(1024, 4, 4, 128, None),
                                                  (1000, 8, 2, 256, None),
                                                  (512, 10, 1, 256, 2048),
-                                                 (300, 2, 1, 32, 32)])
+                                                 (300, 2, 1, 32, 32),
+                                                 pytest.param(1024, 4, 1, 256, 512,
+                                                              id="gemma3_l")])
     def test_forward_is_bitwise_deterministic(self, S, H, K, hd, window):
         """bf16 ``fwd`` twice: equal o and lse (each written by one thread)."""
         q, k, v, _ = _inputs(S, H, K, hd, torch.bfloat16)
