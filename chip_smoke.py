@@ -15,8 +15,10 @@ Phases, in order; any failure ends the script with a non-zero code:
    PyTorch version on the card, element by element, at qwen1.5-4b's
    shape, at recurrentgemma-2b's local-attention shape (hd 256, one KV
    head), at gemma3-1b's two shapes (hd 256, one KV head, window 512 under
-   1024 tokens, and no window) and at a GQA + window (hd 256) shape in
-   bfloat16 and in float32,
+   1024 tokens, and no window), at the hd 128 shapes of internlm2-20b's
+   (48 query heads on 8 kv heads: a group of 6), qwen1.5-32b's (40 heads)
+   and qwen2-moe-a2.7b's (16 heads) G blocks, and at a GQA + window (hd 256)
+   shape in bfloat16 and in float32,
    and at a ragged and two more float32 shapes, and in bfloat16 at hd 64,
    hd 32 ragged and hd 256 ragged with two kv heads (the tensor-core
    backward's other instantiations); hold the differentiable
@@ -31,13 +33,15 @@ Phases, in order; any failure ends the script with a non-zero code:
    and float32, at a ragged shape (hd 32) with a carried state, at strong
    decays (w down to 1e-3), where bfloat16 rounds w to exactly 1 and with w
    exactly 0 in a quarter of the entries; hold a reduced qwen1.5-4b's,
-   recurrentgemma-2b's, rwkv6-1.6b's and gemma3-1b's loss and gradients on
-   the card
+   recurrentgemma-2b's, rwkv6-1.6b's, gemma3-1b's, qwen2-moe-a2.7b's (8
+   experts, top-4, shared experts), grok-1-314b's (8 experts, top-2) and
+   internlm2-20b's loss and gradients on the card
    (through the kernels, run twice and required bitwise equal) against the
    same model on the CPU (plain versions); run the bfloat16 flash forward
    and backward, the RG-LRU forward and backward and the wkv6 forward and
    backward twice at the main paths' shapes (flash also at gemma3-1b's
-   windowed one) and require bitwise-equal outputs;
+   windowed one and at internlm2-20b's group of 6) and require
+   bitwise-equal outputs;
 4. time each kernel, its plain version and the PyTorch library call that
    computes the same function (``scaled_dot_product_attention`` and its
    backward, with a boolean band mask on the first backend that takes it
@@ -50,7 +54,8 @@ Phases, in order; any failure ends the script with a non-zero code:
 5. profile one unit's forward and backward on each main path at its
    published widths (``torch.profiler``, device time per kernel name);
 6. run ``repro_torch.measure`` for qwen1.5-4b (2 units), recurrentgemma-2b
-   (one RRL unit), rwkv6-1.6b (2 units) and gemma3-1b (one LLLLLG unit) at
+   (one RRL unit), rwkv6-1.6b (2 units), gemma3-1b (one LLLLLG unit),
+   internlm2-20b (2 units) and qwen2-moe-a2.7b (2 units, the MoE MLP) at
    their published widths with 2 gloo ranks on the card and all three sync
    policies; check each written trace, the counted all-reduce bytes and
    that the three policies leave the same momentum;
@@ -85,8 +90,9 @@ import torch  # noqa: E402
 
 # the port first: without it (the script alone) the import fails, nothing is printed
 from repro_torch.kernels.bench import (  # noqa: E402
-    GEMMA3_G, GEMMA3_L, L_BLOCK, RGLRU_SLICE, SLICE, WKV6_SLICE, card_line, device_times,
-    make_inputs, print_profile, rglru_inputs, time_ms, wkv6_inputs)
+    GEMMA3_G, GEMMA3_L, INTERNLM2_G, L_BLOCK, QWEN2MOE_G, QWEN32_G, RGLRU_SLICE, SLICE,
+    WKV6_SLICE, card_line, device_times, make_inputs, print_profile, rglru_inputs, time_ms,
+    wkv6_inputs)
 
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
 # sheet): HBM bytes/s and FLOP/s by input type (bf16 on the tensor cores,
@@ -121,7 +127,9 @@ LIBRARY_LIMIT = (1e-2, 1e-1)
 
 # The main paths' attention shapes: ``SLICE`` (qwen1.5-4b's G blocks),
 # ``L_BLOCK`` (recurrentgemma-2b's L blocks), ``GEMMA3_L`` and ``GEMMA3_G``
-# (gemma3-1b's L and G blocks), from ``repro_torch.kernels.bench``.
+# (gemma3-1b's L and G blocks), ``INTERNLM2_G``, ``QWEN32_G`` and
+# ``QWEN2MOE_G`` (the G blocks of internlm2-20b and grok-1-314b, of
+# qwen1.5-32b and of qwen2-moe-a2.7b), from ``repro_torch.kernels.bench``.
 CHECK_SHAPES = [
     ("slice", SLICE),
     ("l_block", L_BLOCK),
@@ -141,6 +149,10 @@ CHECK_SHAPES = [
     # gemma3-1b's main-path shapes: L blocks (window 512 < S) and G blocks
     ("gemma3_l", GEMMA3_L),
     ("gemma3_g", GEMMA3_G),
+    # hd 128 at 48 query heads on 8 kv heads (a group of 6), 40 and 16 heads
+    ("internlm2_g", INTERNLM2_G),
+    ("qwen32_g", QWEN32_G),
+    ("qwen2moe_g", QWEN2MOE_G),
 ]
 # recurrentgemma-2b's RG-LRU shape (``RGLRU_SLICE``) and others; ``lam``
 # and ``r_shift`` as in ``bench.rglru_inputs``.
@@ -181,6 +193,10 @@ MAIN_PATHS = {
                    ("wkv6_fwd", "wkv6_bwd")),
     "gemma3-1b": (["--arch", "gemma3-1b", "--num-layers", "6", *_COMMON],
                   ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
+    "internlm2-20b": (["--arch", "internlm2-20b", "--num-layers", "2", *_COMMON],
+                      ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
+    "qwen2-moe-a2.7b": (["--arch", "qwen2-moe-a2.7b", "--num-layers", "2", *_COMMON],
+                        ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
 }
 #: kernel module -> the TPU kernel its kernels replace (file:line)
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:35",
@@ -286,7 +302,8 @@ def check_determinism() -> None:
     from repro_torch.kernels import wkv6 as wk
 
     failed = []
-    for label, shp in (("slice", SLICE), ("l_block", L_BLOCK), ("gemma3_l", GEMMA3_L)):
+    for label, shp in (("slice", SLICE), ("l_block", L_BLOCK), ("gemma3_l", GEMMA3_L),
+                       ("internlm2_g", INTERNLM2_G)):
         q, k, v, do = make_inputs(**shp, seed=2)
         w = shp["window"]
         runs = []
@@ -542,11 +559,15 @@ def check_wkv6() -> dict:
 
 
 #: reduced models of the model check: arch -> (depth, kernel -> launches
-#: per unit in one forward)
-MODEL_CHECKS = {"qwen1.5-4b": (2, {"flash_fwd": 1}),
-                "recurrentgemma-2b": (3, {"flash_fwd": 1, "rglru_fwd": 2}),
-                "rwkv6-1.6b": (2, {"wkv6_fwd": 1}),
-                "gemma3-1b": (2, {"flash_fwd": 2})}
+#: per unit in one forward, overrides of ``reduced()``: the MoE archs take
+#: 8 experts, so that top-k selects)
+MODEL_CHECKS = {"qwen1.5-4b": (2, {"flash_fwd": 1}, {}),
+                "recurrentgemma-2b": (3, {"flash_fwd": 1, "rglru_fwd": 2}, {}),
+                "rwkv6-1.6b": (2, {"wkv6_fwd": 1}, {}),
+                "gemma3-1b": (2, {"flash_fwd": 2}, {}),
+                "qwen2-moe-a2.7b": (2, {"flash_fwd": 1}, {"num_experts": 8}),
+                "grok-1-314b": (2, {"flash_fwd": 1}, {"num_experts": 8}),
+                "internlm2-20b": (2, {"flash_fwd": 1}, {})}
 
 
 #: CPU threads of the model check's CPU side, so that its sums run in one
@@ -558,9 +579,12 @@ MODEL_CHECK_THREADS = 4
 def check_model() -> None:
     """Reduced qwen1.5-4b (float32, 2 layers, head dim 64), reduced
     recurrentgemma-2b (float32, RRL, rnn width 256, window 64 under 256
-    tokens), reduced rwkv6-1.6b (float32, 2 W layers, 4 wkv heads of 64) and
+    tokens), reduced rwkv6-1.6b (float32, 2 W layers, 4 wkv heads of 64),
     reduced gemma3-1b (float32, LG, one kv head, window 64 under 256
-    tokens): loss and every gradient leaf through the kernels on the card
+    tokens), reduced qwen2-moe-a2.7b (float32, 2 G layers, 8 experts, top-4,
+    shared experts; 512 tokens, 8 groups of 64), reduced grok-1-314b (the
+    same with top-2, no shared experts) and reduced internlm2-20b (float32,
+    2 G layers): loss and every gradient leaf through the kernels on the card
     against the plain versions on the CPU (``MODEL_CHECK_THREADS``
     threads), from the same parameters and batch.  Tolerance 1e-4 of each
     leaf's scale: both sides are float32 (TF32 off), summed in different
@@ -574,8 +598,8 @@ def check_model() -> None:
     threads = torch.get_num_threads()
     torch.set_num_threads(MODEL_CHECK_THREADS)
     failed = []
-    for arch, (depth, per_unit) in MODEL_CHECKS.items():
-        cfg = get_config(arch).reduced(num_layers=depth)
+    for arch, (depth, per_unit, over) in MODEL_CHECKS.items():
+        cfg = get_config(arch).reduced(num_layers=depth, **over)
         g = torch.Generator().manual_seed(0)
         tokens, labels = (torch.randint(0, cfg.vocab_size, (2, 256), generator=g)
                           for _ in range(2))
@@ -852,9 +876,12 @@ def profile_units() -> None:
     """One unit's forward, then its backward, on each main path at the
     published widths (batch 2 x 1024 tokens, bfloat16, one rank, random
     parameters from seed 0; a unit is one layer pattern: qwen1.5-4b ``G``,
-    recurrentgemma-2b ``RRL``, rwkv6-1.6b ``W``): device time per kernel
-    name from ``torch.profiler``, and the wall time of the same call
-    (CUDA events, L2 warm), so that the two can be set side by side."""
+    recurrentgemma-2b ``RRL``, rwkv6-1.6b ``W``, gemma3-1b ``LLLLLG``,
+    internlm2-20b ``G``, qwen2-moe-a2.7b ``G`` with the MoE MLP, whose
+    router, dispatch, expert and combine einsums are device work of their
+    own): device time per kernel name from ``torch.profiler``, and the wall
+    time of the same call (CUDA events, L2 warm), so that the two can be
+    set side by side."""
     from repro_torch.configs import get_config
     from repro_torch.models import blocks as Bk
     from repro_torch.models import transformer as T
@@ -872,7 +899,7 @@ def profile_units() -> None:
         def fwd():
             y = x
             for i, kind in enumerate(cfg.layer_pattern):
-                y = Bk.apply_block(cfg, kind, unit[f"b{i}"], y)
+                y = Bk.apply_block(cfg, kind, unit[f"b{i}"], y)[0]
             return y
 
         def bwd(y):
@@ -891,13 +918,17 @@ def profile_units() -> None:
 @phase("timing")
 def time_kernels() -> dict:
     """Each kernel at its main path's shape (the kernels line); the flash
-    kernels also at recurrentgemma-2b's local-attention shape and at
-    gemma3-1b's L and G shapes (printed rows of their own)."""
+    kernels also at recurrentgemma-2b's local-attention shape, at
+    gemma3-1b's L and G shapes and at the G shapes of internlm2-20b,
+    qwen1.5-32b and qwen2-moe-a2.7b (printed rows of their own)."""
     timing = {**time_flash(SLICE, "slice"), **time_rglru(RGLRU_SLICE, "slice"),
               **time_wkv6(WKV6_SLICE, "slice")}
     time_flash(L_BLOCK, "l_block")
     time_flash(GEMMA3_L, "gemma3_l")
     time_flash(GEMMA3_G, "gemma3_g")
+    time_flash(INTERNLM2_G, "internlm2_g")
+    time_flash(QWEN32_G, "qwen32_g")
+    time_flash(QWEN2MOE_G, "qwen2moe_g")
     return timing
 
 

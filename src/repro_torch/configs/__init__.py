@@ -14,6 +14,10 @@ _MODULES = {
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_16b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a27b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
 }
 
 ARCH_IDS = tuple(_MODULES)

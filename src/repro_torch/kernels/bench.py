@@ -14,12 +14,18 @@ import subprocess
 import torch
 
 # The main paths' attention shapes at batch_per_gpu 2, seq 1024: qwen1.5-4b's
-# G blocks, recurrentgemma-2b's L blocks (window 2048 >= S: causal only), and
+# G blocks, recurrentgemma-2b's L blocks (window 2048 >= S: causal only),
 # gemma3-1b's L blocks (window 512 < S: the window masks) and G blocks.
 SLICE = dict(B=2, S=1024, H=20, K=20, hd=128, window=None, dtype=torch.bfloat16)
 L_BLOCK = dict(B=2, S=1024, H=10, K=1, hd=256, window=2048, dtype=torch.bfloat16)
 GEMMA3_L = dict(B=2, S=1024, H=4, K=1, hd=256, window=512, dtype=torch.bfloat16)
 GEMMA3_G = dict(GEMMA3_L, window=None)
+# The G blocks of internlm2-20b (and grok-1-314b: 48 query heads on 8 kv
+# heads, a group of 6), qwen1.5-32b (40 heads) and qwen2-moe-a2.7b (16
+# heads), all at hd 128.
+INTERNLM2_G = dict(B=2, S=1024, H=48, K=8, hd=128, window=None, dtype=torch.bfloat16)
+QWEN32_G = dict(INTERNLM2_G, H=40, K=40)
+QWEN2MOE_G = dict(INTERNLM2_G, H=16, K=16)
 # rwkv6-1.6b's wkv shape at batch_per_gpu 2, seq 1024 (32 heads of 64).
 WKV6_SLICE = dict(B=2, S=1024, H=32, hd=64, dtype=torch.bfloat16)
 # recurrentgemma-2b's RG-LRU shape at batch_per_gpu 2, seq 1024 (W = rnn_width).

@@ -14,8 +14,10 @@ artifacts into the output directory:
 
 By default the model is the arch at its published widths with the depth
 cut to ``--num-layers`` (default: one whole layer pattern and at least two
-layers; qwen1.5-4b, recurrentgemma-2b, rwkv6-1.6b and gemma3-1b are
-measured so);
+layers; qwen1.5-4b, recurrentgemma-2b, rwkv6-1.6b, gemma3-1b,
+internlm2-20b, qwen1.5-32b and qwen2-moe-a2.7b are measured so, qwen1.5-32b
+also at ``--num-layers 1``; grok-1-314b, whose one layer holds 4.9 G
+parameters, only ``reduced()``);
 giving any of ``--d-model``, ``--num-heads``, ``--d-ff`` or
 ``--vocab-size`` measures a ``reduced()`` variant instead, and ``--smoke``
 picks the reference's tiny CI preset.  The ranks share one device: the
@@ -36,7 +38,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-MEASURABLE_ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b")
+MEASURABLE_ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b",
+                    "internlm2-20b", "qwen1.5-32b", "qwen2-moe-a2.7b", "grok-1-314b")
 BACKEND = "gloo"
 
 _WIDTHS = ("d_model", "num_heads", "d_ff", "vocab_size")

@@ -1,11 +1,12 @@
 """Block registry for the ported kinds: ``G`` (global attention + MLP),
 ``L`` (sliding-window attention + MLP), ``R`` (RG-LRU recurrent block +
-MLP), pre-norm residual, with the dense (gated SiLU or GELU) MLP; and ``W``
-(RWKV6 time mix + channel mix, pre-norm residual, no MLP).
+MLP), pre-norm residual, with the MLP a mixture of experts when the config
+has experts, else dense (gated SiLU or GELU); and ``W`` (RWKV6 time mix +
+channel mix, pre-norm residual, no MLP).
 
-Counterpart of :mod:`repro.models.blocks` lines 28-122.  The ``C`` kind and
-MoE raise ``NotImplementedError`` until their slices land (``ROADMAP.md``
-queue 1, items 10 and 13).
+Counterpart of :mod:`repro.models.blocks` lines 28-122.  The ``C`` kind
+raises ``NotImplementedError`` until its slice lands (``ROADMAP.md`` queue
+1, item 8).
 """
 from __future__ import annotations
 
@@ -13,12 +14,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 from repro_torch.models.common import (ModelConfig, Params, apply_norm, dense_init,
                                        init_norm)
 
 _NOT_PORTED = {
-    "C": "the cross-attention block waits for ROADMAP.md queue 1 item 13 (encoder-decoder)",
+    "C": "the cross-attention block waits for ROADMAP.md queue 1 item 8 (encoder-decoder)",
 }
 
 
@@ -27,8 +29,6 @@ def _check_kind(cfg: ModelConfig, kind: str) -> None:
         raise NotImplementedError(f"block kind {kind!r}: {_NOT_PORTED[kind]}")
     if kind not in ("G", "L", "R", "W"):
         raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.num_experts:
-        raise NotImplementedError("MoE waits for ROADMAP.md queue 1 item 10")
 
 
 # ----------------------------------------------------------------------
@@ -54,6 +54,20 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ p["wo"]
 
 
+def _ffn_init(cfg: ModelConfig, gen: torch.Generator, device,
+              lead: tuple[int, ...]) -> Params:
+    if cfg.num_experts:
+        return {"moe": moe_mod.init_moe(cfg, gen, device, lead)}
+    return {"mlp": init_mlp(cfg, gen, device, lead)}
+
+
+def _ffn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    if "moe" in p:
+        return moe_mod.moe_mlp(cfg, p["moe"], x)
+    return mlp_apply(cfg, p["mlp"], x), None
+
+
 # ----------------------------------------------------------------------
 # Block init / apply
 # ----------------------------------------------------------------------
@@ -71,22 +85,24 @@ def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
         mixer = {"attn": attn.init_attention(cfg, gen, device, lead)}
     return {"norm1": init_norm(cfg, device, lead), **mixer,
             "norm2": init_norm(cfg, device, lead),
-            "mlp": init_mlp(cfg, gen, device, lead)}
+            **_ffn_init(cfg, gen, device, lead)}
 
 
-def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """The block's output.  The reference's MoE aux loss is 0 for the dense
-    MLP, the only one ported, so it is not returned."""
+def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(the block's output, its MoE aux loss in float32; None without
+    experts, where the reference's is 0)."""
     _check_kind(cfg, kind)
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "W":
         x = x + rec.rwkv_time_mix(cfg, p["time_mix"], h)
         h = apply_norm(cfg, p["norm2"], x)
-        return x + rec.rwkv_channel_mix(cfg, p["channel_mix"], h)
+        return x + rec.rwkv_channel_mix(cfg, p["channel_mix"], h), None
     if kind == "R":
         x = x + rec.rglru_block(cfg, p["rglru"], h)
     else:
         window = cfg.sliding_window if kind == "L" else None
         x = x + attn.attention_fwd(cfg, p["attn"], h, causal=True, window=window)
     h = apply_norm(cfg, p["norm2"], x)
-    return x + mlp_apply(cfg, p["mlp"], h)
+    y, aux = _ffn_apply(cfg, p, h)
+    return x + y, aux

@@ -1,0 +1,120 @@
+"""Mixture-of-Experts MLP with grouped einsum dispatch.
+
+Counterpart of :mod:`repro.models.moe` lines 20-106.  Tokens are processed
+in groups of ``moe_group_size`` (the last padded with zero tokens); each
+group computes an f32 top-k router, builds a (group, expert, capacity)
+dispatch / combine pair, and the expert FFNs run as one batched einsum
+over the expert axis.  Tokens over an expert's capacity are dropped and
+fall through the residual connection.  Shared experts (qwen2-moe) are a
+plain gated MLP of width ``shared_expert_d_ff``.  The reference computes
+all of it outside any Pallas kernel, so the port's are torch einsums too.
+
+Two choices keep the routing the reference's exactly: the top-k is a
+stable descending sort (``jax.lax.top_k`` puts the lower expert first on
+a tie, as on the zero padding tokens, whose probabilities are uniform),
+and the one-hot tensors are comparisons with an ``arange``, so that the
+capacity index ``C`` of a dropped choice gives an all-zero row as
+``jax.nn.one_hot`` does (``torch.nn.functional.one_hot`` raises on it).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig, Params, dense_init
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator | None, device,
+             lead: tuple[int, ...] = ()) -> Params:
+    """``router`` (d, E) in float32, the experts' ``wi``, ``wg`` (E, d, ff)
+    and ``wo`` (E, ff, d) in ``cfg.dtype``, and the ``shared`` MLP when
+    ``shared_expert_d_ff`` is set; every leaf with the leading axes
+    ``lead``."""
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    p: Params = {
+        "router": dense_init(gen, (*lead, d, E), torch.float32, device, in_axis_size=d),
+        "wi": dense_init(gen, (*lead, E, d, ff), cfg.dtype, device, in_axis_size=d),
+        "wg": dense_init(gen, (*lead, E, d, ff), cfg.dtype, device, in_axis_size=d),
+        "wo": dense_init(gen, (*lead, E, ff, d), cfg.dtype, device, in_axis_size=ff),
+    }
+    if cfg.shared_expert_d_ff:
+        sf = cfg.shared_expert_d_ff
+        p["shared"] = {
+            "wi": dense_init(gen, (*lead, d, sf), cfg.dtype, device, in_axis_size=d),
+            "wg": dense_init(gen, (*lead, d, sf), cfg.dtype, device, in_axis_size=d),
+            "wo": dense_init(gen, (*lead, sf, d), cfg.dtype, device, in_axis_size=sf),
+        }
+    return p
+
+
+def _capacity(cfg: ModelConfig, group: int) -> int:
+    c = int(group * cfg.experts_per_token * cfg.capacity_factor
+            / max(cfg.num_experts, 1))
+    return max(c, 1)
+
+
+def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
+    """The router of the groups ``xg`` (G, g, d): ``(probs (G, g, E) f32,
+    gate values (G, g, k) f32 renormalised over the k choices, onehot (G,
+    g, k, E) int32 of the k chosen experts in order, pos (G, g, k) each
+    choice's slot in its expert, keep = pos < C)``."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    G, g, _ = xg.shape
+    logits = torch.einsum("Ggd,dE->GgE", xg.float(), router)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, top_e = vals[..., :k], idx[..., :k]
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    # each (token, choice)'s slot in its expert's capacity, counted
+    # token-major then choice, in int32 as the reference's
+    onehot = (top_e[..., None] == torch.arange(E, device=xg.device)).int()
+    flat = onehot.reshape(G, g * k, E)
+    pos = ((torch.cumsum(flat, dim=1, dtype=torch.int32) - flat) * flat).sum(
+        dim=-1, dtype=torch.int32).reshape(G, g, k)
+    return probs, gate_vals, onehot, pos, pos < _capacity(cfg, g)
+
+
+def moe_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss): the Switch load-balancing loss, E
+    times the sum over experts of the fraction of tokens routed to each
+    (not differentiated) by its mean router probability."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    tokens = x.reshape(-1, d)
+    T = tokens.shape[0]
+    g = min(cfg.moe_group_size, T)
+    pad = (-T) % g
+    if pad:
+        tokens = torch.cat([tokens, tokens.new_zeros(pad, d)])
+    G = tokens.shape[0] // g
+    xg = tokens.reshape(G, g, d)
+    C = _capacity(cfg, g)
+
+    probs, gate_vals, onehot, pos, keep = route(cfg, p["router"], xg)
+    dt = xg.dtype
+    slot = torch.where(keep, pos, C)          # C, a dropped choice: an all-zero row
+    pos_oh = (slot[..., None] == torch.arange(C, device=x.device)).to(dt)  # (G,g,k,C)
+    kept = onehot.to(dt) * keep[..., None]
+    disp = torch.einsum("GgkE,Ggkc->GgEc", kept, pos_oh)
+    comb = torch.einsum("GgkE,Ggkc->GgEc", gate_vals.to(dt)[..., None] * kept, pos_oh)
+
+    expert_in = torch.einsum("GgEc,Ggd->EGcd", disp, xg)                  # (E,G,C,d)
+    h = torch.einsum("EGcd,Edf->EGcf", expert_in, p["wi"])
+    gates = torch.einsum("EGcd,Edf->EGcf", expert_in, p["wg"])
+    h = h * F.silu(gates.float()).to(h.dtype)
+    expert_out = torch.einsum("EGcf,Efd->EGcd", h, p["wo"])
+    out = torch.einsum("GgEc,EGcd->Ggd", comb, expert_out)
+    out = out.reshape(-1, d)[:T].reshape(B, S, d)
+
+    chosen = onehot[..., 0, :] if k == 1 else onehot.amax(dim=2)      # (G,g,E)
+    frac = (chosen.sum(dim=1) / g).mean(dim=0)
+    mean_prob = probs.mean(dim=(0, 1))
+    aux = E * (frac * mean_prob).sum()
+
+    if "shared" in p:
+        sp = p["shared"]
+        hs = x @ sp["wi"]
+        gs = x @ sp["wg"]
+        hs = hs * F.silu(gs.float()).to(hs.dtype)
+        out = out + hs @ sp["wo"]
+    return out, aux

@@ -89,38 +89,51 @@ def unit_slice(units: Params, i: int) -> Params:
 # ----------------------------------------------------------------------
 def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                   param_hook: ParamHook | None = None):
+    """(final hidden states, head, the MoE aux loss summed over every
+    block; None without experts)."""
     ph = param_hook or (lambda p, path, unit=None: p)
     emb = ph(params["embedding"], ("embedding",), None)
     x = emb[tokens]
+    auxes = []
     for u in range(cfg.num_units):
         unit_params = ph(unit_slice(params["units"], u), ("units",), u)
         for i, kind in enumerate(cfg.layer_pattern):
-            x = B.apply_block(cfg, kind, unit_params[f"b{i}"], x)
+            x, a = B.apply_block(cfg, kind, unit_params[f"b{i}"], x)
+            auxes.append(a)
     for i, kind in enumerate(cfg.remainder_pattern):
-        x = B.apply_block(cfg, kind, ph(params[f"rem{i}"], (f"rem{i}",), None), x)
+        x, a = B.apply_block(cfg, kind, ph(params[f"rem{i}"], (f"rem{i}",), None), x)
+        auxes.append(a)
+    auxes = [a for a in auxes if a is not None]
+    aux = sum(auxes) if auxes else None
     x = apply_norm(cfg, ph(params["final_norm"], ("final_norm",), None), x)
     head = emb.T if cfg.tie_embeddings else ph(params["lm_head"], ("lm_head",), None)
-    return x, head
+    return x, head, aux
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             param_hook: ParamHook | None = None) -> torch.Tensor:
     """tokens: (B, S) int -> logits (B, S, V) in logit_dtype.  The
-    reference also returns the MoE aux loss, 0 without MoE."""
-    x, head = _final_hidden(cfg, params, tokens, param_hook=param_hook)
+    reference also returns the MoE aux loss; :func:`loss_fn` returns it
+    here."""
+    x, head, _ = _final_hidden(cfg, params, tokens, param_hook=param_hook)
     return (x @ head).to(cfg.logit_dtype)
 
 
 # Vocab sizes at or above this use the chunked cross-entropy.
 CHUNKED_XENT_MIN_VOCAB = 16_384
 
+# The MoE aux loss's weight in the total (reference transformer.py:123).
+MOE_AUX_WEIGHT = 0.01
+
 
 def loss_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             labels: torch.Tensor, *,
             param_hook: ParamHook | None = None) -> tuple[torch.Tensor, dict]:
-    """(total loss, {"loss": ...}).  Without MoE the reference's total is
-    the cross-entropy itself (its aux term is 0), so the two are one."""
-    x, head = _final_hidden(cfg, params, tokens, param_hook=param_hook)
+    """(cross-entropy + ``MOE_AUX_WEIGHT`` x the MoE aux loss, {"loss": the
+    cross-entropy, "moe_aux": the aux loss}).  Without experts the
+    reference's aux is 0: the total is the cross-entropy itself and
+    ``moe_aux`` is left out, so dense blocks launch nothing for it."""
+    x, head, aux = _final_hidden(cfg, params, tokens, param_hook=param_hook)
     if cfg.vocab_size >= CHUNKED_XENT_MIN_VOCAB:
         from repro_torch.models.loss import chunked_cross_entropy
         loss = chunked_cross_entropy(x, head, labels)
@@ -128,7 +141,9 @@ def loss_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         logits = (x @ head).to(cfg.logit_dtype)
         logp = torch.log_softmax(logits, dim=-1)
         loss = -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
-    return loss, {"loss": loss}
+    if aux is None:
+        return loss, {"loss": loss}
+    return loss + MOE_AUX_WEIGHT * aux, {"loss": loss, "moe_aux": aux}
 
 
 # ----------------------------------------------------------------------

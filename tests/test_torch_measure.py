@@ -4,8 +4,10 @@ functions, on the CPU.
 * The copies (``segment_from_depths``, ``fit_alpha_beta``,
   ``comm_scale_from_fit``, the trace writer) equal the originals on
   random inputs, exactly: they are the same float64 arithmetic.
-* A smoke measurement of each measured arch (``python -m
-  repro_torch.measure --smoke --device cpu``, the reference's
+* A smoke measurement of the first four measured archs and of
+  qwen2-moe-a2.7b and grok-1-314b (the MoE MLP, its float32 router among
+  the bytes; grok-1-314b is measured only reduced)
+  (``python -m repro_torch.measure --smoke --device cpu``, the reference's
   ``SMOKE_GEOMETRY``, 2 gloo ranks) writes a trace
   that ``repro.traces.format.read_trace`` reads and that the unchanged
   sweep evaluates as ``trace:<path>`` through the closed form
@@ -43,7 +45,11 @@ from repro_torch.traces import format as tformat
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 ARCH = "qwen1.5-4b"
-ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b")
+ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b",
+         "internlm2-20b", "qwen1.5-32b", "qwen2-moe-a2.7b", "grok-1-314b")
+#: the archs of the CPU smoke measurement
+SMOKE_ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b",
+               "qwen2-moe-a2.7b", "grok-1-314b")
 
 
 class TestCopies:
@@ -124,6 +130,10 @@ class TestCalibrate:
         ("recurrentgemma-2b", 3, 256.9e6, 655.4e6),
         ("rwkv6-1.6b", 2, 58.76e6, 268.44e6),
         ("gemma3-1b", 6, 161.05e6, 301.99e6),
+        ("internlm2-20b", 2, 390.09e6, 1137.19e6),
+        ("qwen1.5-32b", 1, 525.63e6, 1557.15e6),
+        ("qwen2-moe-a2.7b", 2, 570.69e6, 622.33e6),
+        ("grok-1-314b", 1, 4920.04e6, 1610.63e6),
     ])
     def test_full_width_payloads(self, arch, depth, unit_params, rest_params):
         """At the published widths: a qwen1.5-4b unit is 79.3 M parameters
@@ -135,11 +145,31 @@ class TestCalibrate:
         here in bf16 equivalents; embedding + untied head 268.4 M; a
         gemma3-1b LLLLLG unit is 161.05 M (six blocks of 26.84 M: 2.95 M of
         attention with one kv head, 23.89 M of MLP), the tied embedding of
-        262 144 x 1152 302.0 M."""
+        262 144 x 1152 302.0 M; an internlm2-20b unit 390.1 M (88.1 M of
+        attention with 8 kv heads, 302.0 M of MLP), embedding + untied head
+        of 92 544 x 6144 1137.2 M; a qwen1.5-32b unit 525.6 M, embedding +
+        head 1557.1 M; a qwen2-moe-a2.7b unit 570.7 M bf16 equivalents (60
+        experts of 8.65 M, 519.0 M; the shared experts 34.6 M; the float32
+        router of 2048 x 60), embedding + head 622.3 M; a grok-1-314b unit
+        4920.0 M (8 experts of 603.98 M), embedding + head 1610.6 M."""
         cfg = dataclasses.replace(torch_get_config(arch), num_layers=depth)
         unit, rest = tcal.grad_payload_bytes(cfg)
         assert unit / 2 == pytest.approx(unit_params, rel=1e-3)
         assert rest / 2 == pytest.approx(rest_params, rel=1e-3)
+
+    @pytest.mark.parametrize("arch", ARCHS)
+    def test_payloads_and_expected_bytes_equal_reference_at_full_width(self, arch):
+        """At the published widths and the measured depth (qwen1.5-32b at
+        1 layer): the payloads and each policy's expected all-reduce bytes
+        equal the reference's, each leaf priced in its own dtype (the MoE
+        router in float32) or, under ``bucketed``, in float32."""
+        depth = 1 if arch == "qwen1.5-32b" else trun.default_num_layers(torch_get_config(arch))
+        tcfg = dataclasses.replace(torch_get_config(arch), num_layers=depth)
+        jcfg = dataclasses.replace(jax_get_config(arch), num_layers=depth)
+        assert tcal.grad_payload_bytes(tcfg) == jcal.grad_payload_bytes(jcfg)
+        for pol in ("at_end", "wfbp", "bucketed"):
+            assert tcal.expected_collective_bytes(tcfg, pol) == \
+                jcal.expected_collective_bytes(jcfg, pol)
 
 
 class TestRunner:
@@ -151,6 +181,10 @@ class TestRunner:
         ("recurrentgemma-2b", (2560, 10, 7680, 256_000)),
         ("rwkv6-1.6b", (2048, 32, 7168, 65_536)),
         ("gemma3-1b", (1152, 4, 6912, 262_144)),
+        ("internlm2-20b", (6144, 48, 16384, 92_544)),
+        ("qwen1.5-32b", (5120, 40, 27392, 152_064)),
+        ("qwen2-moe-a2.7b", (2048, 16, 1408, 151_936)),
+        ("grok-1-314b", (6144, 48, 32768, 131_072)),
     ])
     def test_config_for_published_width_and_reduced(self, arch, widths):
         full = trun.config_for(arch, trun.Geometry(num_layers=2))
@@ -165,6 +199,8 @@ class TestRunner:
         ("recurrentgemma-2b", 3, 1, (1, 2)),
         ("rwkv6-1.6b", 2, 2, (2, 4)),
         ("gemma3-1b", 6, 1, (1, 2)),
+        ("internlm2-20b", 2, 2, (2, 4)),
+        ("qwen2-moe-a2.7b", 2, 2, (2, 4)),
     ])
     def test_default_num_layers_is_one_pattern_and_at_least_two(self, arch, layers, units,
                                                                 depths):
@@ -184,11 +220,22 @@ class TestRunner:
             ["--arch", ARCH, "--seq-len", "64", "--devices", "3", "--device", "cpu"])
         assert (args.seq_len, args.n_devices, args.device, args.num_layers) == \
             (64, 3, "cpu", None)
-        with pytest.raises(SystemExit):
-            trun.build_parser().parse_args(["--arch", "internlm2-20b"])
-        for arch in ("recurrentgemma-2b", "gemma3-1b"):
+        with pytest.raises(SystemExit):   # not a decoder-only LM
+            trun.build_parser().parse_args(["--arch", "whisper-tiny"])
+        for arch in ("recurrentgemma-2b", "gemma3-1b", "internlm2-20b", "qwen2-moe-a2.7b"):
             args = trun.build_parser().parse_args(["--arch", arch])
             assert args.arch == arch and args.num_layers is None
+        args = trun.build_parser().parse_args(["--arch", "qwen1.5-32b", "--num-layers", "1"])
+        assert args.num_layers == 1
+        assert set(trun.MEASURABLE_ARCHS) == set(jrun.MEASURABLE_ARCHS)
+
+    def test_qwen32_at_one_layer_segments_at_one_and_two(self):
+        """qwen1.5-32b's measured cut: ``--num-layers 1``, one unit, the
+        segments at 1 and 2 layers."""
+        cfg = trun.config_for("qwen1.5-32b", trun.Geometry(num_layers=1))
+        assert (cfg.num_layers, cfg.num_units, cfg.remainder_pattern) == (1, 1, "")
+        assert tharness._default_depths(cfg) == (1, 2)
+        assert [tharness._depth_variant(cfg, u).num_layers for u in (1, 2)] == [1, 2]
 
     def test_cuda_is_the_default_and_never_falls_back(self):
         if torch.cuda.is_available():
@@ -200,7 +247,7 @@ class TestRunner:
         assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=SMOKE_ARCHS)
 def smoke_run(request, tmp_path_factory):
     """(output directory, JSON document, arch) of one smoke measurement."""
     arch = request.param
@@ -217,7 +264,9 @@ class TestSmokeMeasurement:
     def test_trace_reads_back_with_the_layers_and_payloads(self, smoke_run):
         """qwen1.5-4b's and rwkv6-1.6b's 4 smoke layers are 4 units;
         recurrentgemma-2b's are one RRL unit and a remaining R block, counted
-        with the rest; gemma3-1b's reduced pattern is ``LG``, 2 units.  The per-layer times are what the run determines, not
+        with the rest; gemma3-1b's reduced pattern is ``LG``, 2 units;
+        qwen2-moe-a2.7b's and grok-1-314b's are 4 ``G`` units with the MoE
+        MLP.  The per-layer times are what the run determines, not
         CPU timings judged by size: each unit row holds the JSON's unit
         segment, the first row the rest's, times 1e6 (a segment is a clamped
         slope of two noisy timings and may be 0 on a shared CPU)."""
@@ -225,7 +274,8 @@ class TestSmokeMeasurement:
         trace = jformat.read_trace(out / f"{arch}.trace")
         cfg = trun.config_for(arch, trun.SMOKE_GEOMETRY)
         unit, rest = tcal.grad_payload_bytes(cfg)
-        n = {"qwen1.5-4b": 4, "recurrentgemma-2b": 1, "rwkv6-1.6b": 4, "gemma3-1b": 2}[arch]
+        n = {"qwen1.5-4b": 4, "recurrentgemma-2b": 1, "rwkv6-1.6b": 4, "gemma3-1b": 2,
+             "qwen2-moe-a2.7b": 4, "grok-1-314b": 4}[arch]
         assert cfg.num_units == n == doc["num_units"]
         assert trace.cluster == "torch-cpu-gloo-x2"
         assert trace.batch_per_gpu == 2 and trace.bytes_per_sample == 8.0 * 32
@@ -271,7 +321,9 @@ class TestSmokeMeasurement:
         assert set(norms) == {"at_end", "wfbp", "bucketed"}
         leaves = list(norms["at_end"])
         mixer = {"qwen1.5-4b": "units/b0/attn/wq", "recurrentgemma-2b": "units/b0/rglru/lam",
-                 "rwkv6-1.6b": "units/b0/time_mix/u", "gemma3-1b": "units/b0/attn/wq"}
+                 "rwkv6-1.6b": "units/b0/time_mix/u", "gemma3-1b": "units/b0/attn/wq",
+                 "qwen2-moe-a2.7b": "units/b0/moe/router",
+                 "grok-1-314b": "units/b0/moe/router"}
         assert "embedding" in leaves and mixer[arch] in leaves
         for leaf in leaves:
             vals = [norms[pol][leaf] for pol in norms]

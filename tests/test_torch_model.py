@@ -3,7 +3,13 @@ for each measured arch: qwen1.5-4b (``G`` blocks, untied head),
 recurrentgemma-2b (``RRL``: RG-LRU and local-attention blocks, tied
 embedding), rwkv6-1.6b (``W`` blocks: time mix and channel mix, layer
 norm, untied head) and gemma3-1b (``LLLLLG``, reduced to ``LG``: windowed
-and global attention with one kv head, tied embedding).
+and global attention with one kv head, tied embedding), and since the MoE
+slice internlm2-20b (``G``, GQA 48/8, reduced to 4/4), qwen1.5-32b (``G``,
+MHA with QKV bias), qwen2-moe-a2.7b (``G`` with the MoE MLP: shared
+experts, top-4) and grok-1-314b (``G`` with the MoE MLP: top-2, no shared).
+The reduced MoE configs take 8 experts (``MOE_OVER``), so that top-k
+selects, and their loss tests also hold the aux loss (``moe_aux``); their
+sequence of 40 tokens (80 a batch) pads the second group of 64.
 
 Parameters are initialised by the reference (``jax.random``) and carried
 over by the port's bridge (``repro_torch.models.transformer.
@@ -45,14 +51,20 @@ from repro_torch.models import transformer as TT
 from repro_torch.optim import sgd as tsgd
 
 ARCH = "qwen1.5-4b"
-ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b")
+ARCHS = ("qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b", "gemma3-1b",
+         "internlm2-20b", "qwen1.5-32b", "qwen2-moe-a2.7b", "grok-1-314b")
 #: Reduced depth per arch: one whole layer pattern or more (recurrentgemma's
 #: RRL needs 3 layers for one unit; gemma3-1b's LLLLLG reduces to LG at 2)
 #: and the sequence length of the model tests (above recurrentgemma's and
 #: gemma3-1b's reduced window of 64, so the window bites; above the wkv6
 #: checkpoint interval of 64, so rwkv6's backward rebuilds two chunks).
-DEPTH = {"qwen1.5-4b": 2, "recurrentgemma-2b": 3, "rwkv6-1.6b": 2, "gemma3-1b": 2}
-SEQ = {"qwen1.5-4b": 24, "recurrentgemma-2b": 80, "rwkv6-1.6b": 80, "gemma3-1b": 80}
+DEPTH = {"qwen1.5-4b": 2, "recurrentgemma-2b": 3, "rwkv6-1.6b": 2, "gemma3-1b": 2,
+         "internlm2-20b": 2, "qwen1.5-32b": 2, "qwen2-moe-a2.7b": 2, "grok-1-314b": 2}
+SEQ = {"qwen1.5-4b": 24, "recurrentgemma-2b": 80, "rwkv6-1.6b": 80, "gemma3-1b": 80,
+       "internlm2-20b": 24, "qwen1.5-32b": 24, "qwen2-moe-a2.7b": 40, "grok-1-314b": 40}
+#: the reduced MoE configs' overrides: 8 experts (the default ``reduced()``
+#: keeps 4, at which qwen2-moe's top-4 sends every token to every expert)
+MOE_OVER = {"qwen2-moe-a2.7b": {"num_experts": 8}, "grok-1-314b": {"num_experts": 8}}
 #: per-leaf gradient tolerance of the whole model, of the leaf's scale
 GRAD_TOL = 2e-5
 #: the leaves (by the end of their path) held to 1e-4 of their scale instead
@@ -95,6 +107,7 @@ def _perturbed(tree, seed=0):
 
 
 def _configs(arch=ARCH, **over):
+    over = {**MOE_OVER.get(arch, {}), **over}
     return (jax_get_config(arch).reduced(**over), torch_get_config(arch).reduced(**over))
 
 
@@ -102,9 +115,8 @@ class TestConfig:
     @pytest.mark.parametrize("arch", ARCHS)
     @pytest.mark.parametrize("reduced", [False, True])
     def test_fields_equal_field_by_field(self, arch, reduced):
-        j, t = jax_get_config(arch), torch_get_config(arch)
-        if reduced:
-            j, t = j.reduced(num_layers=DEPTH[arch]), t.reduced(num_layers=DEPTH[arch])
+        j, t = _configs(arch, num_layers=DEPTH[arch]) if reduced else \
+            (jax_get_config(arch), torch_get_config(arch))
         assert [f.name for f in dataclasses.fields(j)] == \
             [f.name for f in dataclasses.fields(t)]
         for f in dataclasses.fields(j):
@@ -130,15 +142,17 @@ class TestConfig:
                 mk(tcommon).validate()
 
     def test_unported_block_kinds_raise(self):
-        """``C`` still raises; ``W`` is ported (rwkv6-1.6b) and initialises."""
+        """``C`` still raises; ``W`` (rwkv6-1.6b) and a block with experts
+        (the MoE slice) are ported and initialise."""
         cfg = torch_get_config(ARCH).reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
             tblocks.init_block(cfg, "C", None, "meta")
         assert set(tblocks.init_block(cfg, "W", None, "meta")) == \
             {"norm1", "time_mix", "norm2", "channel_mix"}
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tblocks.init_block(dataclasses.replace(cfg, num_experts=4, experts_per_token=2),
-                               "G", None, "meta")
+        moe = tblocks.init_block(dataclasses.replace(cfg, num_experts=4, experts_per_token=2),
+                                 "G", None, "meta")
+        assert set(moe) == {"norm1", "attn", "norm2", "moe"}
+        assert set(moe["moe"]) == {"router", "wi", "wg", "wo"}
 
 
 class TestNumerics:
@@ -231,6 +245,14 @@ class TestModel:
                 dict.fromkeys(("w_bias", "u", "ln_scale"), torch.float32)
             assert tuple(mix["u"].shape) == (2, 32, 64) and mix["wr"].dtype == torch.bfloat16
             assert not any("mlp" in p for p, _ in tleaves)
+        if tcfg.num_experts:
+            leaves = dict(tleaves)
+            assert leaves[("units", "b0", "moe", "router")].dtype == torch.float32
+            assert tuple(leaves[("units", "b0", "moe", "wi")].shape) == \
+                (2, tcfg.num_experts, tcfg.d_model, tcfg.moe_d_ff)
+            assert (("units", "b0", "moe", "shared", "wo") in leaves) == \
+                bool(tcfg.shared_expert_d_ff)
+            assert not any("mlp" in p for p, _ in tleaves)
 
     @pytest.mark.parametrize("arch", ARCHS)
     def test_bridge_carries_every_leaf_in_flatten_order(self, arch):
@@ -255,7 +277,8 @@ class TestModel:
         """Reduced model (f32; qwen1.5-4b 2 layers, recurrentgemma-2b 3:
         RRL, gemma3-1b 2: LG, window 64 under 80 tokens); vocab 16 384 takes
         the chunked cross-entropy on both sides, through recurrentgemma's and
-        gemma3-1b's tied heads."""
+        gemma3-1b's tied heads.  The MoE archs' aux loss is held too, and
+        every gradient leaf carries its share through the router."""
         jcfg, tcfg = _configs(arch, num_layers=DEPTH[arch], vocab_size=vocab)
         tree = _perturbed(jax.tree_util.tree_map(
             np.asarray, JT.init_lm(jcfg, jax.random.PRNGKey(0))))
@@ -264,9 +287,10 @@ class TestModel:
         labels = rng.integers(0, vocab, (2, SEQ[arch])).astype(np.int32)
 
         def jloss_fn(p):
-            return JT.loss_fn(jcfg, p, jnp.asarray(tokens), jnp.asarray(labels))[0]
+            return JT.loss_fn(jcfg, p, jnp.asarray(tokens), jnp.asarray(labels))
 
-        jl, jgrads = jax.value_and_grad(jloss_fn)(jax.tree_util.tree_map(jnp.asarray, tree))
+        (jl, jmetrics), jgrads = jax.value_and_grad(jloss_fn, has_aux=True)(
+            jax.tree_util.tree_map(jnp.asarray, tree))
         params = TT.from_reference(tree)
         paths, leaves = zip(*TT.leaf_order(params))
         for leaf in leaves:
@@ -275,7 +299,18 @@ class TestModel:
                                  torch.from_numpy(labels).long())
         tgrads = torch.autograd.grad(tl, leaves)
         assert float(tl.detach()) == pytest.approx(float(jl), rel=1e-5)
-        assert float(metrics["loss"].detach()) == pytest.approx(float(jl), rel=1e-5)
+        assert float(metrics["loss"].detach()) == pytest.approx(float(jmetrics["loss"]),
+                                                                rel=1e-5)
+        if tcfg.num_experts:
+            assert float(metrics["moe_aux"].detach()) == pytest.approx(
+                float(jmetrics["moe_aux"]), rel=1e-5)
+            assert float(metrics["moe_aux"].detach()) > 0
+            assert float(tl.detach()) == pytest.approx(
+                float(metrics["loss"].detach()) + 0.01 * float(metrics["moe_aux"].detach()),
+                rel=1e-6)
+        else:
+            # the reference's aux is 0 without experts; the port leaves it out
+            assert float(jmetrics["moe_aux"]) == 0 and set(metrics) == {"loss"}
         jg = _jax_leaves(jgrads)
         assert [p for p, _ in jg] == list(paths)
         for (path, w), g in zip(jg, tgrads):

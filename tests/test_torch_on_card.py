@@ -54,7 +54,12 @@ class TestOnCard:
         (torch.bfloat16, 1000, 8, 2, 256, None),
         # gemma3-1b's main-path shapes: L blocks (window 512 < S) and G blocks
         pytest.param(torch.bfloat16, 1024, 4, 1, 256, 512, id="gemma3_l"),
-        pytest.param(torch.bfloat16, 1024, 4, 1, 256, None, id="gemma3_g")])
+        pytest.param(torch.bfloat16, 1024, 4, 1, 256, None, id="gemma3_g"),
+        # the G blocks of internlm2-20b and grok-1-314b (a group of 6 query
+        # heads per kv head), qwen1.5-32b and qwen2-moe-a2.7b
+        pytest.param(torch.bfloat16, 1024, 48, 8, 128, None, id="internlm2_g"),
+        pytest.param(torch.bfloat16, 1024, 40, 40, 128, None, id="qwen32_g"),
+        pytest.param(torch.bfloat16, 1024, 16, 16, 128, None, id="qwen2moe_g")])
     def test_kernels_vs_plain(self, dtype, S, H, K, hd, window):
         q, k, v, do = _inputs(S, H, K, hd, dtype)
         o, lse = fa.fwd(q, k, v, True, window)
@@ -72,7 +77,9 @@ class TestOnCard:
                                                  (1000, 8, 2, 256, None),
                                                  (512, 10, 1, 256, 2048),
                                                  pytest.param(1024, 4, 1, 256, 512,
-                                                              id="gemma3_l")])
+                                                              id="gemma3_l"),
+                                                 pytest.param(1024, 48, 8, 128, None,
+                                                              id="internlm2_g")])
     def test_backward_is_bitwise_deterministic(self, S, H, K, hd, window):
         """bf16 ``bwd_dq`` and ``bwd_dkdv`` twice: equal bits (no atomics;
         the group partials are summed in a fixed order)."""
@@ -89,7 +96,9 @@ class TestOnCard:
                                                  (512, 10, 1, 256, 2048),
                                                  (300, 2, 1, 32, 32),
                                                  pytest.param(1024, 4, 1, 256, 512,
-                                                              id="gemma3_l")])
+                                                              id="gemma3_l"),
+                                                 pytest.param(1024, 48, 8, 128, None,
+                                                              id="internlm2_g")])
     def test_forward_is_bitwise_deterministic(self, S, H, K, hd, window):
         """bf16 ``fwd`` twice: equal o and lse (each written by one thread)."""
         q, k, v, _ = _inputs(S, H, K, hd, torch.bfloat16)
