@@ -55,10 +55,10 @@ Phases, in order; any failure ends the script with a non-zero code:
    published widths (``torch.profiler``, device time per kernel name);
 6. run ``repro_torch.measure`` for qwen1.5-4b (2 units), recurrentgemma-2b
    (one RRL unit), rwkv6-1.6b (2 units), gemma3-1b (one LLLLLG unit),
-   internlm2-20b (2 units) and qwen2-moe-a2.7b (2 units, the MoE MLP) at
-   their published widths with 2 gloo ranks on the card and all three sync
-   policies; check each written trace, the counted all-reduce bytes and
-   that the three policies leave the same momentum;
+   internlm2-20b (1 unit) and qwen2-moe-a2.7b (1 unit, the MoE MLP) at
+   their published widths with 2 gloo ranks on the card, all three sync
+   policies and 3 timed steps each; check each written trace, the counted
+   all-reduce bytes and that the three policies leave the same momentum;
 7. check that every kernel of each path launched during its run (the
    counters are set to 0 before each);
 8. model vs measured (the paper's Fig. 4): predict each path's step time
@@ -67,7 +67,21 @@ Phases, in order; any failure ends the script with a non-zero code:
    (``repro_torch.measure.model_vs_measured``) and print the error against
    the measured step time (no ceiling: gloo on shared host cores moves the
    steps between runs);
-9. print the ``kernels`` line, then the ``ok`` line last.
+9. sweep on the card: the DAG model's batched sweep backend
+   (``repro_torch.core.batched_torch``, float64 torch on CUDA) over the
+   frontier grid (51 840 scenarios), over the same axes on the paper CNNs
+   plus the six traces this run measured (``torch:`` workloads, 155 520
+   scenarios) — each checked against the port's NumPy engine on every
+   numeric column (1e-6 relative, 1e-12 absolute), with the result tensors
+   checked to be on the card before they are copied back; the two tiers
+   (``columns()``) and ``sweep()`` end to end timed against the NumPy path
+   (median of 20 after a warm-up, synchronised), scenarios/s printed, the
+   CUDA kernels of one evaluation counted (``torch.profiler``); the
+   measured-workloads grid of ``benchmarks/bench_model_vs_measured.py``
+   over those traces with its row accounting (0 simulated); and
+   ``grad_iteration_time`` on CUDA at two family grids against the CPU
+   (1e-9) and against central differences on the NumPy twin (1e-3);
+10. print the ``kernels`` line, then the ``ok`` line last.
 
 It imports nothing of JAX and nothing of the reference package ``repro``.
 """
@@ -86,6 +100,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # the port first: without it (the script alone) the import fails, nothing is printed
@@ -182,7 +197,11 @@ WKV6_SHAPES = [
 _COMMON = ["--seq-len", "1024", "--batch-per-gpu", "2", "--devices", "2", "--repeats", "3",
            "--step-iters", "3"]
 #: The main paths, each run with the kernel counters set to 0 just before:
-#: arch -> (CLI arguments, the kernels its run must launch).
+#: arch -> (CLI arguments, the kernels its run must launch).  internlm2-20b
+#: and qwen2-moe-a2.7b, the two slowest, run at one layer (segments at 1 and
+#: 2) so that the whole script stays within 600 s: gloo's step times move by
+#: up to 2.2x between runs, and at two layers one run on an NVIDIA H100 80GB
+#: HBM3 took 636.5 s.
 MAIN_PATHS = {
     "qwen1.5-4b": (["--arch", "qwen1.5-4b", "--num-layers", "2", *_COMMON],
                    ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
@@ -193,9 +212,9 @@ MAIN_PATHS = {
                    ("wkv6_fwd", "wkv6_bwd")),
     "gemma3-1b": (["--arch", "gemma3-1b", "--num-layers", "6", *_COMMON],
                   ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
-    "internlm2-20b": (["--arch", "internlm2-20b", "--num-layers", "2", *_COMMON],
+    "internlm2-20b": (["--arch", "internlm2-20b", "--num-layers", "1", *_COMMON],
                       ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
-    "qwen2-moe-a2.7b": (["--arch", "qwen2-moe-a2.7b", "--num-layers", "2", *_COMMON],
+    "qwen2-moe-a2.7b": (["--arch", "qwen2-moe-a2.7b", "--num-layers", "1", *_COMMON],
                         ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
 }
 #: kernel module -> the TPU kernel its kernels replace (file:line)
@@ -935,10 +954,11 @@ def time_kernels() -> dict:
 # ----------------------------------------------------------------------
 # 5-6. the main path: the measurement loop through the kernels
 # ----------------------------------------------------------------------
-def run_measure(arch: str, args: list[str]) -> tuple[dict, dict]:
+def run_measure(arch: str, args: list[str], trace_dir: Path) -> tuple[dict, dict]:
     """(the measured JSON, the DAG model's error per policy on it): the
     written trace goes through ``repro_torch.measure.model_vs_measured``
-    before its temporary directory goes."""
+    and is copied into ``trace_dir`` (for the sweep phase) before its
+    temporary directory goes."""
     from repro_torch import kernels
     from repro_torch.measure.model_vs_measured import model_error
     from repro_torch.measure.run import main as measure_main
@@ -953,6 +973,7 @@ def run_measure(arch: str, args: list[str]) -> tuple[dict, dict]:
             doc = json.loads((Path(tmp) / f"{arch}.json").read_text())
             trace_text = (Path(tmp) / f"{arch}.trace").read_text()
             errors = model_error(doc, Path(tmp) / f"{arch}.trace")
+            shutil.copy(Path(tmp) / f"{arch}.trace", trace_dir / f"{arch}.trace")
         check_measurement(doc, trace_text)
         return doc, errors
 
@@ -982,6 +1003,195 @@ def report_model_vs_measured(results: dict) -> None:
                           f"{sorted(doc['policy_times_s'])}")
     if failed:
         raise SystemExit(f"model vs measured: {failed}")
+
+
+# ----------------------------------------------------------------------
+# 9. the DAG model's sweep on the card
+# ----------------------------------------------------------------------
+#: The sweep backend against the port's NumPy engine: the reference suite's
+#: tolerance for its accelerator backend (tests/test_batched_jax.py).
+SWEEP_RTOL, SWEEP_ATOL = 1e-6, 1e-12
+#: Gradients on the card against the CPU, and against central differences.
+GRAD_CPU_RTOL, GRAD_FD_RTOL = 1e-9, 1e-3
+
+
+def _median_s(fn, reps: int = 20) -> float:
+    """Median host seconds of ``fn`` (which must end synchronised) over
+    ``reps`` calls after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def _cuda_kernels(fn) -> tuple[int, float]:
+    """(CUDA kernels launched, their device ms) over one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(dev), sum(e.device_time_total for e in dev) / 1e3
+
+
+def sweep_grid_on_card(label: str, grid, device: str = "cuda") -> dict:
+    """One grid through the sweep backend on the card: checked against the
+    port's NumPy engine column by column, then timed.  Returns the
+    numbers printed."""
+    from repro_torch.core import batched_torch as BT
+    from repro_torch.core.batched import grid_evaluator
+    from repro_torch.core.sweep import sweep
+
+    n = len(grid)
+    t0 = time.perf_counter()
+    tev = BT.torch_grid_evaluator(grid, device=device)
+    build_s = time.perf_counter() - t0
+    on_card = tev.device_columns()
+    off = {k: str(v.device) for k, v in on_card.items()
+           if v.device.type != device or v.dtype != torch.float64}
+    if off:
+        raise SystemExit(f"sweep {label}: result columns not float64 on {device}: {off}")
+    got = {k: v.cpu().numpy() for k, v in on_card.items()}
+    ev = grid_evaluator(grid)
+
+    def numpy_tiers() -> dict:
+        # the NumPy engine's two tiers over the whole grid (and its tail
+        # columns and method labels, which on these deterministic grids
+        # are a copy of iteration_time_s and one gather)
+        return ev.run().columns_slice(0, n)
+
+    want = numpy_tiers()
+    worst = 0.0
+    for k, g in got.items():
+        w = want[k]
+        excess = np.abs(g - w) - (SWEEP_RTOL * np.abs(w) + SWEEP_ATOL)
+        rel = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-300)))
+        worst = max(worst, rel)
+        if g.shape != (n,) or not np.isfinite(g).all() or (excess > 0).any():
+            raise SystemExit(f"sweep {label}: column {k} off the NumPy engine "
+                             f"(worst relative {rel:.3e})")
+    ours = sweep(grid, device=device)
+    theirs = sweep(grid, backend="numpy")
+    for k in ours.columns:
+        a, b = ours.columns[k], theirs.columns[k]
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=SWEEP_RTOL, atol=SWEEP_ATOL, err_msg=k)
+        elif a.tolist() != b.tolist():
+            raise SystemExit(f"sweep {label}: labels of {k} differ from the NumPy engine")
+    if ours.n_simulated or (ours.n_analytical, ours.n_timeline) != \
+            (theirs.n_analytical, theirs.n_timeline):
+        raise SystemExit(f"sweep {label}: row accounting {ours.meta()}")
+
+    def tiers_on_card():
+        tev.device_columns()
+        torch.cuda.synchronize()
+
+    out = {
+        "scenarios": n, "kernel_points": len(ev._kwidx), "layers": ev._wax.flops.shape[1],
+        "timeline_specs": len(ev._pax.tl_specs), "worst_rel": worst,
+        "build_s": build_s,
+        "tiers_device_s": _median_s(tiers_on_card),
+        "columns_s": _median_s(tev.columns),
+        "numpy_tiers_s": _median_s(numpy_tiers),
+        "sweep_s": _median_s(lambda: sweep(grid, device=device)),
+        "numpy_sweep_s": _median_s(lambda: sweep(grid, backend="numpy")),
+    }
+    out["cuda_kernels"], out["device_ms"] = _cuda_kernels(tev.device_columns)
+    print(f"  {label}: {n} scenarios, {out['kernel_points']} kernel points x "
+          f"{out['layers']} layers, {out['timeline_specs']} timeline specs; worst "
+          f"relative {worst:.3e} against NumPy (limit {SWEEP_RTOL:g}); "
+          f"{ours.n_analytical} analytical, {ours.n_timeline} timeline, "
+          f"{ours.n_simulated} simulated", flush=True)
+    print(f"  {label}: evaluator built (structure + copy to the card) in "
+          f"{build_s * 1e3:.3f} ms; one evaluation launches {out['cuda_kernels']} CUDA "
+          f"kernels, {out['device_ms']:.4f} ms of device time", flush=True)
+    for what, s_card, s_np in (("two tiers", out["columns_s"], out["numpy_tiers_s"]),
+                               ("sweep()", out["sweep_s"], out["numpy_sweep_s"])):
+        print(f"  {label}: {what}: {device} {s_card * 1e3:.4f} ms ({n / s_card:,.0f} "
+              f"scenarios/s), numpy {s_np * 1e3:.4f} ms ({n / s_np:,.0f} scenarios/s)",
+              flush=True)
+    print(f"  {label}: two tiers on the card, synchronised, no copy back: "
+          f"{out['tiers_device_s'] * 1e3:.4f} ms", flush=True)
+    return out
+
+
+def check_sweep_gradients(device: str = "cuda") -> None:
+    """``grad_iteration_time`` on the card at the two family grids of the
+    reference's gradient tests: equal to the CPU's, equal to central
+    differences on the NumPy twin, finite, and exactly 0 in bucket_bytes."""
+    from repro_torch.core import batched_torch as BT
+    from repro_torch.core.scenarios import ScenarioGrid
+
+    for policies in (("caffe-mpi", "mxnet", "naive"),
+                     ("bucketed-4mb", "bucketed-25mb", "priority")):
+        grid = ScenarioGrid(workloads=("resnet50",), clusters=("v100-nvlink-ib",),
+                            worker_counts=(16,), policies=policies,
+                            collectives=("ring", "hierarchical"))
+        p0 = BT.default_params(grid, device="cpu")
+        on_card = BT.grad_iteration_time(grid, device=device)
+        on_cpu = BT.grad_iteration_time(grid, device="cpu")
+        worst_fd = 0.0
+        for key in BT.PARAM_KEYS:
+            g = on_card[key]
+            if not np.isfinite(g).all():
+                raise SystemExit(f"gradient {key} not finite: {g}")
+            np.testing.assert_allclose(g, on_cpu[key], rtol=GRAD_CPU_RTOL, atol=0,
+                                       err_msg=key)
+            fd = np.zeros_like(p0[key])
+            for i in range(fd.size):
+                eps = abs(float(p0[key].ravel()[i])) * 1e-5 or 1e-9
+                hi = {k: v.copy() for k, v in p0.items()}
+                lo = {k: v.copy() for k, v in p0.items()}
+                hi[key].ravel()[i] += eps
+                lo[key].ravel()[i] -= eps
+                fd.ravel()[i] = (BT.numpy_iteration_times(grid, hi).sum()
+                                 - BT.numpy_iteration_times(grid, lo).sum()) / (2 * eps)
+            np.testing.assert_allclose(g, fd, rtol=GRAD_FD_RTOL, atol=1e-12, err_msg=key)
+            nz = np.abs(fd) > 0
+            if nz.any():
+                worst_fd = max(worst_fd, float(np.max(np.abs(g[nz] - fd[nz]) / np.abs(fd[nz]))))
+        if np.any(on_card["bucket_bytes"] != 0.0):
+            raise SystemExit(f"bucket_bytes gradient {on_card['bucket_bytes']}")
+        print(f"  gradients {'/'.join(policies)}: "
+              + ", ".join(f"{k} {on_card[k].tolist()}" for k in BT.PARAM_KEYS)
+              + f"; worst relative to central differences {worst_fd:.3e}", flush=True)
+
+
+@phase("sweep on the card")
+def check_sweep(trace_dir: Path, device: str = "cuda") -> None:
+    """Phase 9: the sweep backend on CUDA over the frontier grid, over the
+    same axes on the paper CNNs plus this run's traces, the
+    measured-workloads grid, and the gradients."""
+    import dataclasses
+
+    from repro_torch.core.scenarios import ScenarioGrid, frontier_grid
+    from repro_torch.core.sweep import sweep
+
+    traces = tuple(f"torch:{trace_dir / f'{arch}.trace'}" for arch in MAIN_PATHS)
+    frontier = frontier_grid()
+    sweep_grid_on_card("frontier", frontier, device)
+    sweep_grid_on_card("frontier + traces", dataclasses.replace(
+        frontier, workloads=frontier.workloads + traces), device)
+    # benchmarks/bench_model_vs_measured.py:74-80, over this run's traces
+    measured = ScenarioGrid(workloads=traces, clusters=("k80-pcie-10gbe", "v100-nvlink-ib"),
+                            worker_counts=(2, 8, 32),
+                            policies=("cntk", "caffe-mpi", "bucketed-25mb", "priority"),
+                            collectives=("ring",))
+    res = sweep(measured, device=device)
+    ref = sweep(measured, backend="numpy")
+    print(f"  measured workloads: {res.meta()}", flush=True)
+    if res.n_simulated or not res.n_timeline or \
+            res.n_analytical + res.n_timeline != len(measured) or \
+            (res.n_analytical, res.n_timeline) != (ref.n_analytical, ref.n_timeline):
+        raise SystemExit(f"measured workloads: row accounting {res.meta()}")
+    for k in ("iteration_time_s", "samples_per_sec", "speedup", "t_comm_s", "t_comp_s"):
+        np.testing.assert_allclose(res.columns[k], ref.columns[k], rtol=SWEEP_RTOL,
+                                   atol=SWEEP_ATOL, err_msg=k)
+    check_sweep_gradients(device)
 
 
 def check_measurement(doc: dict, trace_text: str) -> None:
@@ -1053,16 +1263,18 @@ def main() -> int:
 
     launches: dict[str, int] = {}
     measured: dict[str, tuple[dict, dict]] = {}
-    for arch, (args, must) in MAIN_PATHS.items():
-        measured[arch] = run_measure(arch, args)
-        counts = measured[arch][0]["kernel_launches"]
-        print(f"  {arch}: launches {counts}", flush=True)
-        missing = [name for name in must if counts.get(name, 0) <= 0]
-        if missing:
-            raise SystemExit(f"kernels not launched on the {arch} path: {missing}")
-        for name, n in counts.items():
-            launches[name] = launches.get(name, 0) + n
-    report_model_vs_measured(measured)
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for arch, (args, must) in MAIN_PATHS.items():
+            measured[arch] = run_measure(arch, args, Path(trace_dir))
+            counts = measured[arch][0]["kernel_launches"]
+            print(f"  {arch}: launches {counts}", flush=True)
+            missing = [name for name in must if counts.get(name, 0) <= 0]
+            if missing:
+                raise SystemExit(f"kernels not launched on the {arch} path: {missing}")
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+        report_model_vs_measured(measured)
+        check_sweep(Path(trace_dir))
     line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),
              "replaces": REPLACES[mod.__name__.rsplit(".", 1)[1]], "launches": launches[name],
              "max_abs_err": worst[name], **timing[name]}

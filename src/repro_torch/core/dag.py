@@ -13,8 +13,7 @@ Left out, since no port path uses them yet: the reference builder's
 heterogeneous and failure axes (``shared_compute``, ``worker_scale``,
 ``sync_k``, ``crashed``, ``restart_s``), the graph queries the simulator
 does not call (``topo_order``, ``critical_path``, ``sources``,
-``sinks``, ``total_work``, ``len``) and
-``IterationCosts.with_comm``.  Without those axes the builder adds the
+``sinks``, ``total_work``, ``len``).  Without those axes the builder adds the
 same tasks and edges in the same order as the reference's, so the
 schedule is the same.
 """
@@ -24,6 +23,7 @@ import enum
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Sequence
 
+from repro_torch.core.bucketsim import bucket_partition
 from repro_torch.core.policies import Policy
 
 
@@ -122,34 +122,6 @@ class IterationCosts:
             raise ValueError("t_f, t_b, t_c must have equal length")
         if self.grad_bytes is not None and len(self.grad_bytes) != len(self.t_f):
             raise ValueError("grad_bytes length mismatch")
-
-
-def bucket_partition(comm_mask, payload,
-                     bucket_bytes: float | None) -> list[list[int]]:
-    """The bucket-boundary rule (a copy of
-    ``repro.core.bucketsim.bucket_partition``): member-layer lists, each in
-    backward order, in issue order.  Layers are visited backward (layer L
-    first), layers with a falsy ``comm_mask`` entry are skipped, and a
-    bucket flushes once its accumulated ``payload`` reaches
-    ``bucket_bytes``; the trailing partial bucket flushes at the end.
-    ``bucket_bytes=None`` gives one bucket per comm layer; ``payload=None``
-    never flushes early."""
-    buckets: list[list[int]] = []
-    cur: list[int] = []
-    cur_bytes = 0.0
-    for layer in range(len(comm_mask) - 1, -1, -1):
-        if not comm_mask[layer]:
-            continue
-        cur.append(layer)
-        if payload is not None:
-            cur_bytes += payload[layer]
-        if bucket_bytes is None or \
-                (payload is not None and cur_bytes >= bucket_bytes):
-            buckets.append(cur)
-            cur, cur_bytes = [], 0.0
-    if cur:
-        buckets.append(cur)
-    return buckets
 
 
 def _bucketize(costs: IterationCosts, policy: Policy,

@@ -2,7 +2,7 @@
 
 A copy of ``repro.traces.format``'s :class:`LayerRecord`, :class:`Trace`
 (with ``to_iteration_costs``, into the port's copy of the DAG model),
-:func:`write_trace` and :func:`read_trace`; files it writes are
+:func:`write_trace`, :func:`read_trace` and :func:`make_trace`; files it writes are
 byte-identical to the reference's.  Each file holds iterations of records
 with six columns::
 
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Iterable, Sequence
 
 from repro_torch.core.dag import IterationCosts
 
@@ -181,3 +182,14 @@ def read_trace(path: str | Path, network: str = "", cluster: str = "") -> Trace:
                      batch_per_gpu=batch, bytes_per_sample=bytes_per_sample)
     except ValueError as e:
         raise ValueError(f"malformed trace file {path}: {e}") from None
+
+
+def make_trace(network: str, cluster: str, rows: Iterable[Sequence],
+               n_copies: int = 1, batch_per_gpu: int = 0,
+               bytes_per_sample: float = 0.0) -> Trace:
+    """Build a Trace from ``(id, name, fwd_us, bwd_us, comm_us, size)`` rows."""
+    recs = tuple(LayerRecord(int(r[0]), str(r[1]), float(r[2]), float(r[3]),
+                             float(r[4]), float(r[5])) for r in rows)
+    return Trace(network, cluster, tuple(recs for _ in range(n_copies)),
+                 batch_per_gpu=batch_per_gpu,
+                 bytes_per_sample=bytes_per_sample)

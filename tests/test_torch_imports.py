@@ -34,7 +34,15 @@ def test_every_port_module_is_found():
                  "repro_torch.kernels.wkv6", "repro_torch.configs.rwkv6_16b",
                  "repro_torch.core.policies", "repro_torch.core.dag",
                  "repro_torch.core.simulator", "repro_torch.core.predictor",
-                 "repro_torch.measure.model_vs_measured", "repro_torch.configs.gemma3_1b"):
+                 "repro_torch.measure.model_vs_measured", "repro_torch.configs.gemma3_1b",
+                 "repro_torch.core.xputil", "repro_torch.core.hardware",
+                 "repro_torch.core.bucketsim", "repro_torch.core.analytical",
+                 "repro_torch.core.het", "repro_torch.core.costmodel",
+                 "repro_torch.core.archcost",
+                 "repro_torch.traces.bundled", "repro_torch.core.workloads",
+                 "repro_torch.core.scenarios", "repro_torch.core.resulttable",
+                 "repro_torch.core.batched", "repro_torch.core.batched_torch",
+                 "repro_torch.core.sweep", "repro_torch.sweep"):
         assert must in names
 
 

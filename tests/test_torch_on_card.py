@@ -328,3 +328,24 @@ class TestWKV6OnCard:
             ops.wkv6(r.half(), k.half(), v.half(), w.half(), u)
         with pytest.raises(ValueError, match="head dim"):
             ops.wkv6(*(t[..., :48].contiguous() for t in (r, k, v, w)), u[:, :48].contiguous())
+
+
+class TestSweepOnCard:
+    def test_frontier_grid_on_cuda_equals_the_cpu(self):
+        """The sweep backend's two tiers on the card against the same tiers
+        on the CPU, column for column (float64; the reductions may add in
+        another order: 1e-12 relative)."""
+        import numpy as np
+
+        from repro_torch.core import batched_torch as BT
+        from repro_torch.core.scenarios import frontier_grid
+
+        grid = frontier_grid()
+        cuda = BT.TorchGridEvaluator(grid, device="cuda")
+        on_card = cuda.device_columns()
+        assert all(v.device.type == "cuda" and v.dtype == torch.float64
+                   for v in on_card.values())
+        cpu = BT.TorchGridEvaluator(grid, device="cpu").columns()
+        for k, v in on_card.items():
+            np.testing.assert_allclose(v.cpu().numpy(), cpu[k], rtol=1e-12, atol=1e-15,
+                                       err_msg=k)

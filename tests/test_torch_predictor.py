@@ -25,6 +25,7 @@ from repro.measure import calibrate as jcal
 from repro.traces import format as jformat
 from repro.traces.bundled import ALEXNET_K80
 from repro_torch.comm.sync import DEFAULT_BUCKET_BYTES
+from repro_torch.core import bucketsim as tbucketsim
 from repro_torch.core import dag as tdag
 from repro_torch.core import policies as tpolicies
 from repro_torch.core import predictor as tpredictor
@@ -90,7 +91,7 @@ class TestDag:
         whole = rng.integers(0, 5, n).astype(float) * 1e6
         for bb in (None, 1e6, 2e6, 25e6, 1e8, float("inf")):
             for pl in (payload, whole.tolist(), None):
-                assert tdag.bucket_partition(mask, pl, bb) == \
+                assert tbucketsim.bucket_partition(mask, pl, bb) == \
                     jbucketsim.bucket_partition(mask, pl, bb)
 
     @pytest.mark.parametrize("policy", sorted(jpolicies.ALL_POLICIES))
