@@ -81,7 +81,31 @@ Phases, in order; any failure ends the script with a non-zero code:
    over those traces with its row accounting (0 simulated); and
    ``grad_iteration_time`` on CUDA at two family grids against the CPU
    (1e-9) and against central differences on the NumPy twin (1e-3);
-10. print the ``kernels`` line, then the ``ok`` line last.
+10. CNN traces (Table VI): the paper's per-layer method on its CNNs.
+   AlexNet at 99 x 99 and ResNet at 64 x 64 (one block a stage) on the card
+   against the CPU, every layer's forward and gradients in float32 with
+   TF32 off, within ``generate.F32_LIMIT`` (2e-5) of each tensor's scale,
+   and in TF32, the control, beyond it; then
+   ``repro_torch.examples.table6_trace``: Table VI's totals and round trip,
+   and fresh traces of AlexNet (224 x 224, batch 1024, 11 layers) and
+   ResNet-50 (224 x 224, batch 32, 19 layers) printed per layer after the
+   card's name and power limit, written, read back and resolved through
+   ``trace:<file>``; at those shapes every layer's forward against float64
+   on the card (the same limit and TF32 control), beside its float32 bound
+   (a direct convolution's FLOPs from ``torch.utils.flop_counter``, bytes)
+   and its kernels
+   (``torch.profiler``); each trace predicted on 8 V100s under Caffe-MPI
+   beside ``trace:alexnet-k80``;
+11. DAG validation (§V-D): ``repro_torch.examples.dag_validation`` with 2
+   timed steps a policy (qwen1.5-4b, 2 units, 2 gloo ranks on the card):
+   per-layer costs, the DAG's prediction with and without
+   ``shared_compute``, the measured ``wfbp`` and ``at_end`` steps, its
+   ``RESULT``; the flash kernels must launch (counted from 0 in each rank);
+12. print the ``kernels`` line (launches: the six measurements' and the
+   validation's), then the ``ok`` line last.
+
+A failing phase prints ``== <phase>: FAILED`` and its traceback on stdout
+before the script exits non-zero.
 
 It imports nothing of JAX and nothing of the reference package ``repro``.
 """
@@ -95,6 +119,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -224,11 +249,20 @@ REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:35",
 
 
 def phase(name):
+    """Prints the phase's name and seconds; on a failure, ``FAILED`` and the
+    traceback on stdout (kept with the rest of the run's output), then
+    re-raises, so the exit code stays non-zero."""
     def wrap(fn):
         def run(*a, **kw):
             t0 = time.perf_counter()
             print(f"== {name}", flush=True)
-            out = fn(*a, **kw)
+            try:
+                out = fn(*a, **kw)
+            except BaseException:
+                print(f"== {name}: FAILED after {time.perf_counter() - t0:.1f} s", flush=True)
+                traceback.print_exc(file=sys.stdout)
+                sys.stdout.flush()
+                raise
             print(f"== {name}: {time.perf_counter() - t0:.1f} s", flush=True)
             return out
         return run
@@ -1194,6 +1228,212 @@ def check_sweep(trace_dir: Path, device: str = "cuda") -> None:
     check_sweep_gradients(device)
 
 
+# ----------------------------------------------------------------------
+# 10. the paper's per-layer trace method on its CNNs (Table VI)
+# ----------------------------------------------------------------------
+#: Timed layers of the full-width traces.
+CNN_LAYERS = {"alexnet": 11, "resnet50": 19}
+
+
+def check_limit(what: str, sound: float, control: float, limit: float) -> None:
+    """float32 within ``limit`` of scale, and the same layers in TF32 (the
+    control) beyond it: otherwise the limit could not tell TF32 from
+    float32."""
+    print(f"  {what}: worst {sound:.3e} of its scale in float32, {control:.3e} in TF32 "
+          f"(limit {limit:g})", flush=True)
+    if not sound <= limit:
+        raise SystemExit(f"{what}: float32 off by {sound:.3e} of scale (limit {limit:g})")
+    if not control > limit:
+        raise SystemExit(f"{what}: TF32 reads {control:.3e} of scale, within the limit "
+                         f"{limit:g}: the check cannot see TF32")
+
+
+def check_cnns_on_card() -> None:
+    """The reduced CNNs (``table6_trace.reduced_networks``), batch 2: each
+    layer's forward and the gradient of its sum in the parameters and the
+    input on the card against the CPU (``generate.layer_errors``), from the
+    same weights (drawn on the CPU from one seed) and inputs, in float32
+    and, as the control, in TF32."""
+    from repro_torch.examples.table6_trace import reduced_networks
+    from repro_torch.traces.generate import F32_LIMIT, layer_errors
+
+    cpu_nets = reduced_networks(torch.device("cpu"))
+    for net, (build, batch) in reduced_networks(torch.device("cuda")).items():
+        (cpu_layers, x0), (card_layers, _) = cpu_nets[net][0](), build()
+        x = torch.randn((batch,) + tuple(x0.shape[1:]), generator=torch.Generator().manual_seed(1))
+        x = x.contiguous(memory_format=torch.channels_last)
+        sound, where = layer_errors(cpu_layers, card_layers, x)
+        control, where_tf32 = layer_errors(cpu_layers, card_layers, x, tf32_on=True)
+        check_limit(f"{net} reduced, {len(cpu_layers)} layers, card vs CPU (float32 worst at "
+                    f"{where}, TF32 at {where_tf32})", sound, control, F32_LIMIT)
+
+
+def share(bound_ms: float, ms: float) -> str:
+    """The share of the bound a measured time reaches; a time below the
+    bound says the layer did fewer operations than it counts."""
+    if ms < bound_ms:
+        return "< bound: fewer operations than a direct convolution"
+    return f"= {bound_ms / ms:6.1%} of bound"
+
+
+def cnn_layers_at_width(name: str, build, batch: int, records: list) -> None:
+    """Each layer of a full-width trace, at the trace's shapes on N(0, 1)
+    inputs (the trace times zeros, as the reference does): its forward
+    against float64 on the card, in float32 and, as the control, in TF32
+    (``check_limit``, of the output's scale); beside its float32 bound from
+    the FLOPs of the forward and of the gradient call the backward column
+    times (``torch.utils.flop_counter``: a direct convolution's, so a
+    layer cuDNN runs by FFT or Winograd can beat it) and the bytes (each
+    input read once, each output written once), bound = max(FLOPs / 67
+    TFLOP/s, bytes / 3.35 TB/s); and the forward's kernels on the device
+    (``torch.profiler``: the algorithm cuDNN chose, device ms against the
+    trace's wall ms)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.bench import device_times
+    from repro_torch.models.transformer import map_leaves
+    from repro_torch.traces.generate import F32_LIMIT, _leaves, tf32
+
+    layers, x0 = build()
+    x = torch.randn((batch,) + tuple(x0.shape[1:]), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    x = x.contiguous(memory_format=torch.channels_last)
+    peak = PEAK_FLOPS[torch.float32]
+    worst = control = 0.0
+    with tf32(False):
+        for layer, rec in zip(layers, records):
+            with FlopCounterMode(display=False) as fwd_count, torch.no_grad():
+                y = layer.apply(layer.params, x)
+            with torch.no_grad():
+                y64 = layer.apply(map_leaves(lambda _, t: t.double(), layer.params), x.double())
+            with tf32(True), torch.no_grad():
+                y_tf32 = layer.apply(layer.params, x)
+            scale = max(float(y64.abs().max()), 1e-30)
+            err = float((y.double() - y64).abs().max()) / scale
+            err_tf32 = float((y_tf32.double() - y64).abs().max()) / scale
+            worst, control = max(worst, err), max(control, err_tf32)
+            del y64, y_tf32
+            p_bytes = sum(t.numel() * t.element_size() for t in _leaves(layer.params))
+            f_bytes = (x.numel() + y.numel()) * 4 + p_bytes
+            # the gradient call reads x, the parameters and dy, writes dx and
+            # the parameters' gradients
+            b_bytes = (2 * x.numel() + y.numel()) * 4 + 2 * p_bytes
+            b_flops = 0
+            if rec["size_bytes"]:
+                params = map_leaves(lambda _, t: t.detach().requires_grad_(True), layer.params)
+                xi = x.detach().requires_grad_(True)
+                with FlopCounterMode(display=False) as bwd_count:
+                    torch.autograd.grad(layer.apply(params, xi).sum(), _leaves(params) + [xi])
+                b_flops = bwd_count.get_total_flops()
+                del params, xi
+            f_flops = fwd_count.get_total_flops()
+            f_bound = max(f_flops / peak, f_bytes / PEAK_BYTES_PER_S) * 1e3
+            by = "operations" if f_flops / peak > f_bytes / PEAK_BYTES_PER_S else "bytes"
+            b_bound = max(b_flops / peak, b_bytes / PEAK_BYTES_PER_S) * 1e3 if b_flops else 0.0
+            f_ms, b_ms = rec["forward_us"] / 1e3, rec["backward_us"] / 1e3
+
+            def forward(layer=layer, x=x):
+                with torch.no_grad():
+                    layer.apply(layer.params, x)
+                torch.cuda.synchronize()
+
+            # the profiler can drop every record of a call late in a long
+            # process; then no device time is claimed
+            times = device_times(forward)
+            top = sorted(times.items(), key=lambda kv: -kv[1])[:2]
+            device = (f"device {sum(times.values()):7.4f} ms in {len(times)} kernels" if times
+                      else "the profiler recorded no kernel")
+            print(f"  {name:8s} {rec['name']:6s} vs f64 {err:.2e} (TF32 {err_tf32:.2e}); fwd "
+                  f"{f_flops / 1e9:8.2f} GFLOP {f_bytes / 1e6:7.1f} MB bound {f_bound:7.4f} ms "
+                  f"({by}) measured {f_ms:7.4f} ms {share(f_bound, f_ms)}, {device}; bwd "
+                  f"{b_flops / 1e9:8.2f} GFLOP bound {b_bound:7.4f} ms measured {b_ms:7.4f} ms"
+                  + (f" {share(b_bound, b_ms)}" if b_ms else ""), flush=True)
+            for kname, ms in top:
+                print(f"      {ms:8.4f} ms  {kname[:100]}", flush=True)
+            x = y
+    del layers, x0, x, y
+    torch.cuda.empty_cache()
+    check_limit(f"{name} at full width, layer outputs vs float64", worst, control, F32_LIMIT)
+
+
+@phase("CNN traces (Table VI)")
+def cnn_traces(trace_dir: Path) -> None:
+    """The reduced CNNs against the CPU, then Table VI's totals and fresh
+    full-width traces (AlexNet at 224, batch 1024; ResNet-50 at 224, batch
+    32; ``python -m repro_torch.examples.table6_trace``), each read back,
+    its layers checked against float64 and set beside their bounds
+    (:func:`cnn_layers_at_width`), resolved through
+    ``trace:<file>`` and predicted on 8 V100s under Caffe-MPI beside Table
+    VI's own trace."""
+    from repro_torch.core.hardware import CLUSTERS
+    from repro_torch.core.policies import CAFFE_MPI
+    from repro_torch.core.predictor import predict_workload
+    from repro_torch.examples.table6_trace import networks, run
+
+    check_cnns_on_card()
+    print(card_line(), flush=True)
+    out = run(trace_dir / "table6", device="cuda")
+    if not out["roundtrip_ok"]:
+        raise SystemExit("Table VI does not round-trip through the trace format")
+    workloads = []
+    for name, n_layers in CNN_LAYERS.items():
+        doc = out["generated"][name]
+        recs = doc["records"]
+        bad = [r["name"] for r in recs
+               if not (math.isfinite(r["forward_us"]) and r["forward_us"] > 0)
+               or (r["size_bytes"] > 0) != (r["backward_us"] > 0)]
+        if len(recs) != n_layers or bad:
+            raise SystemExit(f"{name}: {len(recs)} layers (want {n_layers}); bad rows {bad}")
+        workloads.append(f"trace:{doc['path']}")
+        build, batch = networks(torch.device("cuda"))[name]
+        cnn_layers_at_width(name, build, batch, recs)
+    cluster = CLUSTERS["v100-nvlink-ib"]
+    for wl in workloads + ["trace:alexnet-k80"]:
+        p = predict_workload(wl, cluster, 8, CAFFE_MPI)
+        print(f"  {wl.rsplit('/', 1)[-1]:20s} 8 x V100 caffe-mpi: {p.iteration_time:.6g} s/it, "
+              f"speedup {p.speedup:.4g}, {p.samples_per_sec:.6g} samples/s", flush=True)
+        if not (math.isfinite(p.iteration_time) and p.iteration_time > 0):
+            raise SystemExit(f"{wl}: predicted {p.iteration_time}")
+
+
+# ----------------------------------------------------------------------
+# 11. the §V-D validation: per-layer costs -> DAG -> measured steps
+# ----------------------------------------------------------------------
+#: Timed steps a policy (the reference times 10; 3 took the script past
+#: its 600 s aim on a call with slow gloo).
+DAG_VALIDATION_STEPS = 2
+#: The kernels its units must launch.
+DAG_VALIDATION_KERNELS = ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")
+
+
+@phase("DAG validation (§V-D)")
+def dag_validation() -> dict:
+    """``python -m repro_torch.examples.dag_validation`` with
+    ``DAG_VALIDATION_STEPS`` steps: qwen1.5-4b at its published widths, 2
+    units, 2 gloo ranks on the card; prints the per-layer costs and
+    ``RESULT``; returns the kernel launches (both ranks, counted from 0)."""
+    from repro_torch.examples.dag_validation import GEOMETRY, run_validation
+
+    doc = run_validation(GEOMETRY, steps=DAG_VALIDATION_STEPS, device="cuda")
+    for r in doc["layers"]:
+        print(f"  {r['name']:8s} fwd {r['forward_us'] / 1e3:9.4f} ms  bwd "
+              f"{r['backward_us'] / 1e3:9.4f} ms  all-reduce {r['comm_s'] * 1e3:9.3f} ms  "
+              f"{r['size_bytes'] / 1e6:9.3f} MB", flush=True)
+    res = doc["result"]
+    ideal = abs(res["predicted_wfbp_ideal_parallel_s"] - res["measured_wfbp_s"]) \
+        / res["measured_wfbp_s"] * 100
+    print(f"  t_update {doc['t_update_s'] * 1e3:.4f} ms; wfbp error with shared_compute "
+          f"{res['prediction_error_pct']:.2f} %, without {ideal:.2f} %; launches "
+          f"{doc['kernel_launches']}", flush=True)
+    print("RESULT " + json.dumps(res, indent=2), flush=True)
+    bad = [k for k, v in res.items()
+           if not isinstance(v, str) and not (math.isfinite(v) and v > 0)]
+    missing = [k for k in DAG_VALIDATION_KERNELS if doc["kernel_launches"].get(k, 0) <= 0]
+    if bad or missing:
+        raise SystemExit(f"DAG validation: bad {bad}; kernels not launched {missing}")
+    return doc["kernel_launches"]
+
+
 def check_measurement(doc: dict, trace_text: str) -> None:
     """The repository's own checks on a measured run: finite positive
     times, the trace's layer rows, the counted all-reduce bytes equal to
@@ -1275,6 +1515,9 @@ def main() -> int:
                 launches[name] = launches.get(name, 0) + n
         report_model_vs_measured(measured)
         check_sweep(Path(trace_dir))
+        cnn_traces(Path(trace_dir))
+        for name, n in dag_validation().items():
+            launches[name] = launches.get(name, 0) + n
     line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),
              "replaces": REPLACES[mod.__name__.rsplit(".", 1)[1]], "launches": launches[name],
              "max_abs_err": worst[name], **timing[name]}

@@ -10,8 +10,8 @@ the paper for any number of layers, workers and iterations under an
 overlap :class:`~repro_torch.core.policies.Policy`.
 
 Left out, since no port path uses them yet: the reference builder's
-heterogeneous and failure axes (``shared_compute``, ``worker_scale``,
-``sync_k``, ``crashed``, ``restart_s``), the graph queries the simulator
+heterogeneous and failure axes (``worker_scale``, ``sync_k``, ``crashed``,
+``restart_s``), the graph queries the simulator
 does not call (``topo_order``, ``critical_path``, ``sources``,
 ``sinks``, ``total_work``, ``len``).  Without those axes the builder adds the
 same tasks and edges in the same order as the reference's, so the
@@ -161,7 +161,8 @@ class SSGDDagBuilder:
     """
 
     def __init__(self, costs: IterationCosts, n_workers: int, policy: Policy,
-                 comm_scale: Callable[[float, float], float] | None = None):
+                 comm_scale: Callable[[float, float], float] | None = None,
+                 shared_compute: bool = False):
         if n_workers < 1:
             raise ValueError("n_workers >= 1")
         self.dag = DAG()
@@ -169,6 +170,11 @@ class SSGDDagBuilder:
         self.n_workers = n_workers
         self.policy = policy
         self.n_iterations = 0
+        # ``shared_compute`` serializes all workers on one compute channel:
+        # several ranks sharing one device (the §V-D validation's two gloo
+        # ranks on one card, the reference's forced host devices).
+        self._gpu_of = (lambda w: "gpu:shared") if shared_compute \
+            else gpu_channel
         # bucket boundaries depend only on (costs, policy, comm_scale)
         self._buckets = _bucketize(costs, policy, comm_scale) \
             if n_workers > 1 else []
@@ -213,7 +219,7 @@ class SSGDDagBuilder:
             prev = h2d_tasks[w]
             for l in range(L):
                 t = g.add_task(f"fwd_l{l + 1}_w{w}", TaskKind.COMPUTE,
-                               costs.t_f[l], gpu_channel(w),
+                               costs.t_f[l], self._gpu_of(w),
                                iteration=it,
                                layer=l + 1, worker=w, priority=float(l))
                 g.add_edge(prev, t)
@@ -228,7 +234,7 @@ class SSGDDagBuilder:
             prev = fwd[L - 1][w]
             for l in range(L - 1, -1, -1):
                 t = g.add_task(f"bwd_l{l + 1}_w{w}", TaskKind.COMPUTE,
-                               costs.t_b[l], gpu_channel(w),
+                               costs.t_b[l], self._gpu_of(w),
                                iteration=it,
                                layer=l + 1, worker=w,
                                priority=float(2 * L - l))
@@ -263,7 +269,7 @@ class SSGDDagBuilder:
 
         # --- model update (T35) ----------------------------------------
         upd = g.add_task("update", TaskKind.COMPUTE, costs.t_u,
-                         gpu_channel(0), iteration=it,
+                         self._gpu_of(0), iteration=it,
                          priority=float(3 * L + 1))
         g.add_edges(last_bwd, upd)
         g.add_edges(comm_tasks, upd)
@@ -275,14 +281,17 @@ class SSGDDagBuilder:
 
 def build_ssgd_dag(costs: IterationCosts, n_workers: int, policy: Policy,
                    n_iterations: int = 1,
-                   comm_scale: Callable[[float, float], float] | None = None) -> DAG:
+                   comm_scale: Callable[[float, float], float] | None = None,
+                   shared_compute: bool = False) -> DAG:
     """Build the S-SGD DAG of Fig. 1 for ``n_iterations`` iterations.
 
     Single-GPU training (``n_workers == 1``) degenerates to Eq. (1): the
     graph has no comm task and is a chain.  ``comm_scale(total_bytes,
     naive_total_time)`` maps a fused bucket to its collective duration.
+    ``shared_compute`` puts every worker's compute on one channel.
     """
-    b = SSGDDagBuilder(costs, n_workers, policy, comm_scale=comm_scale)
+    b = SSGDDagBuilder(costs, n_workers, policy, comm_scale=comm_scale,
+                       shared_compute=shared_compute)
     for _ in range(n_iterations):
         b.add_iteration()
     return b.dag

@@ -89,12 +89,8 @@ def config_for(arch: str, g: Geometry):
     return dataclasses.replace(cfg, num_layers=num_layers).validate()
 
 
-def _rank_main(rank: int, world: int, init_file: str, arch: str, out_dir: str,
-               geometry: Geometry, policies: tuple[str, ...] | None,
-               device: str) -> None:
+def _rank_entry(rank: int, world: int, init_file: str, device: str, fn, args: tuple) -> None:
     import torch.distributed as dist
-
-    from repro_torch.measure.harness import MEASURED_SYNC_POLICIES, measure_model
 
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -107,16 +103,40 @@ def _rank_main(rank: int, world: int, init_file: str, arch: str, out_dir: str,
     dist.init_process_group(BACKEND, init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
-        g = geometry
-        cfg = config_for(arch, g)
-        run = measure_model(cfg, device=dev, arch=arch, batch_per_gpu=g.batch_per_gpu,
-                            seq_len=g.seq_len,
-                            policies=policies or MEASURED_SYNC_POLICIES,
-                            repeats=g.repeats, step_iters=g.step_iters)
-        if rank == 0:
-            _write(run, cfg, Path(out_dir))
+        fn(rank, dev, *args)
     finally:
         dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, device: str | None, *args) -> None:
+    """Run ``fn(rank, device, *args)`` in ``world`` spawned processes that
+    form the default process group (gloo, a ``file://`` rendezvous in a
+    temporary directory), all on one ``device`` (default CUDA, which raises
+    without a GPU).  ``fn`` must be a module-level function."""
+    import torch.multiprocessing as mp
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        # build once here, so the ranks never race on the build directory
+        from repro_torch.kernels import load_libraries
+        load_libraries()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_entry, nprocs=world, join=True,
+                 args=(world, os.path.join(tmp, "rendezvous"), str(dev), fn, args))
+
+
+def _measure_rank(rank: int, dev: torch.device, arch: str, out_dir: str, geometry: Geometry,
+                  policies: tuple[str, ...] | None) -> None:
+    from repro_torch.measure.harness import MEASURED_SYNC_POLICIES, measure_model
+
+    g = geometry
+    cfg = config_for(arch, g)
+    run = measure_model(cfg, device=dev, arch=arch, batch_per_gpu=g.batch_per_gpu,
+                        seq_len=g.seq_len,
+                        policies=policies or MEASURED_SYNC_POLICIES,
+                        repeats=g.repeats, step_iters=g.step_iters)
+    if rank == 0:
+        _write(run, cfg, Path(out_dir))
 
 
 def _write(run, cfg, out_dir: Path) -> dict:
@@ -148,19 +168,10 @@ def run_measurement(arch: str, out_dir: str | Path, geometry: Geometry,
     """Spawn ``geometry.n_devices`` ranks, measure ``arch``, write
     ``<arch>.trace`` + ``<arch>.json`` into ``out_dir`` and return the JSON
     document.  ``device`` defaults to CUDA (raises without a GPU)."""
-    import torch.multiprocessing as mp
-
     if arch not in MEASURABLE_ARCHS:
         raise ValueError(f"arch {arch!r} not measurable yet; one of {MEASURABLE_ARCHS}")
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        # build once here, so the ranks never race on the build directory
-        from repro_torch.kernels import load_libraries
-        load_libraries()
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank_main, nprocs=geometry.n_devices, join=True,
-                 args=(geometry.n_devices, os.path.join(tmp, "rendezvous"), arch,
-                       str(out_dir), geometry, policies, str(dev)))
+    spawn_ranks(_measure_rank, geometry.n_devices, device, arch, str(out_dir), geometry,
+                policies)
     return json.loads((Path(out_dir) / f"{arch}.json").read_text())
 
 

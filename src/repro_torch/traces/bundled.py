@@ -43,3 +43,5 @@ ALEXNET_K80: Trace = make_trace("alexnet", "k80-pcie-10gbe", _ALEXNET_K80_ROWS,
 
 #: Bundled traces the ``trace:`` workload provider resolves by name.
 BUNDLED_TRACES: dict[str, Trace] = {"alexnet-k80": ALEXNET_K80}
+
+TOTAL_GRAD_BYTES = sum(r[5] for r in _ALEXNET_K80_ROWS)   # ~244 MB = 61M f32

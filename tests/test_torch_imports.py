@@ -42,7 +42,10 @@ def test_every_port_module_is_found():
                  "repro_torch.traces.bundled", "repro_torch.core.workloads",
                  "repro_torch.core.scenarios", "repro_torch.core.resulttable",
                  "repro_torch.core.batched", "repro_torch.core.batched_torch",
-                 "repro_torch.core.sweep", "repro_torch.sweep"):
+                 "repro_torch.core.sweep", "repro_torch.sweep",
+                 "repro_torch.traces.generate", "repro_torch.models.cnn",
+                 "repro_torch.examples.table6_trace", "repro_torch.examples.trace_analysis",
+                 "repro_torch.examples.dag_validation"):
         assert must in names
 
 

@@ -1,5 +1,5 @@
 """The flash-attention, RG-LRU and wkv6 kernels against their plain
-versions on the card.
+versions on the card, and the paper's CNNs on the card against the CPU.
 
 Imports no JAX, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_on_card.py``.
@@ -349,3 +349,54 @@ class TestSweepOnCard:
         for k, v in on_card.items():
             np.testing.assert_allclose(v.cpu().numpy(), cpu[k], rtol=1e-12, atol=1e-15,
                                        err_msg=k)
+
+
+class TestCNNOnCard:
+    @staticmethod
+    def _errors(net: str, tf32_on: bool) -> tuple[float, str]:
+        """The reduced CNN on the card against the CPU
+        (``generate.layer_errors``): the same weights, drawn on the CPU from
+        one seed, and inputs."""
+        from repro_torch.examples.table6_trace import reduced_networks
+        from repro_torch.traces.generate import layer_errors
+
+        (build_cpu, batch), (build_card, _) = (reduced_networks(torch.device(d))[net]
+                                               for d in ("cpu", "cuda"))
+        (cpu_layers, x0), (card_layers, _) = build_cpu(), build_card()
+        x = torch.randn((batch,) + tuple(x0.shape[1:]), generator=torch.Generator().manual_seed(1))
+        return layer_errors(cpu_layers, card_layers, x.contiguous(memory_format=torch.channels_last),
+                            tf32_on=tf32_on)
+
+    @pytest.mark.parametrize("net", ["alexnet", pytest.param("resnet50", id="resnet")])
+    def test_layers_on_the_card_equal_the_cpu(self, net):
+        """Every layer's forward and the gradient of its sum in the
+        parameters and the input, in float32 with TF32 off (the trace
+        generator's setting), within ``F32_LIMIT`` of each tensor's scale
+        (cuDNN and the CPU sum in different orders)."""
+        from repro_torch.traces.generate import F32_LIMIT
+
+        worst, where = self._errors(net, tf32_on=False)
+        assert worst <= F32_LIMIT, f"{net} {where}: {worst:.3e}"
+
+    @pytest.mark.parametrize("net", ["alexnet", pytest.param("resnet50", id="resnet")])
+    def test_tf32_fails_the_limit(self, net):
+        """The control: the same layers in TF32 read beyond ``F32_LIMIT``,
+        so the test above would catch a layer that ran in TF32."""
+        from repro_torch.traces.generate import F32_LIMIT
+
+        worst, where = self._errors(net, tf32_on=True)
+        assert worst > F32_LIMIT, f"{net} {where}: {worst:.3e}"
+
+    def test_generated_trace_on_the_card(self):
+        from repro_torch.models import cnn
+        from repro_torch.traces.generate import generate_trace
+
+        layers, x0 = cnn.resnet_timed_layers(0, input_hw=64, depth_per_stage=(1, 1, 1, 1),
+                                             width=8, device="cuda")
+        x = x0.expand(4, -1, -1, -1).contiguous(memory_format=torch.channels_last)
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        trace = generate_trace(layers, x, "resnet-mini", n_iterations=1, repeats=2)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+        recs = trace.mean_iteration()
+        assert len(recs) == 7 and all(r.forward_us > 0 for r in recs)
+        assert [r.backward_us > 0 for r in recs] == [r.size_bytes > 0 for r in recs]

@@ -1,14 +1,17 @@
 """The port's copy of the DAG model against the reference's, on the CPU.
 
 ``repro_torch.core`` (``policies``, ``dag``, ``simulator``,
-``predictor.predict_sync_policy``) and the trace reader
+``predictor``: ``predict_sync_policy``, ``predict``, ``predict_workload``,
+``scaling_curve``) and the trace reader
 (``repro_torch.traces.format.read_trace``, ``Trace.to_iteration_costs``)
 are plain Python copies of ``repro.core`` and ``repro.traces.format``
 with the same arithmetic in the same order, so every result here is
 required equal with ``==``, not within a tolerance.  Inputs are seeded
 numpy draws: 1-40 layers, random forward, backward and all-reduce times
 and gradient payloads, non-zero ``t_io``, ``t_h2d`` and ``t_u``, on 1, 2
-and 8 workers.
+and 8 workers.  The workload predictions run on paper CNNs (``cnn:``),
+Table VI (``trace:alexnet-k80``) and a trace the port's generator wrote
+(``trace:<file>``).
 """
 import dataclasses
 
@@ -23,14 +26,18 @@ from repro.core import predictor as jpredictor
 from repro.core import simulator as jsim
 from repro.measure import calibrate as jcal
 from repro.traces import format as jformat
+from repro.core import hardware as jhardware
+from repro.traces import bundled as jbundled
 from repro.traces.bundled import ALEXNET_K80
 from repro_torch.comm.sync import DEFAULT_BUCKET_BYTES
 from repro_torch.core import bucketsim as tbucketsim
 from repro_torch.core import dag as tdag
+from repro_torch.core import hardware as thardware
 from repro_torch.core import policies as tpolicies
 from repro_torch.core import predictor as tpredictor
 from repro_torch.core import simulator as tsim
 from repro_torch.measure import calibrate as tcal
+from repro_torch.traces import bundled as tbundled
 from repro_torch.traces import format as tformat
 
 WORKERS = (1, 2, 8)
@@ -265,3 +272,112 @@ class TestTraceReader:
         with pytest.raises(ValueError, match=match) as terr:
             tformat.read_trace(path)
         assert str(terr.value) == str(jerr.value)
+
+
+class TestSharedCompute:
+    @pytest.mark.parametrize("policy", sorted(jpolicies.ALL_POLICIES))
+    @pytest.mark.parametrize("n_workers", (2, 8))
+    def test_graph_and_time_equal_reference(self, policy, n_workers):
+        """``shared_compute=True`` (every worker's compute on one channel):
+        every task and edge over five iterations, and the simulated steady
+        iteration time, as the §V-D validation builds it."""
+        fields = _cost_fields(5)
+        j = jdag.build_ssgd_dag(jdag.IterationCosts(**fields), n_workers,
+                                jpolicies.ALL_POLICIES[policy], n_iterations=5,
+                                shared_compute=True)
+        t = tdag.build_ssgd_dag(tdag.IterationCosts(**fields), n_workers,
+                                tpolicies.ALL_POLICIES[policy], n_iterations=5,
+                                shared_compute=True)
+        assert len(t.tasks) == len(j.tasks)
+        for tid, jt in j.tasks.items():
+            tt = t.tasks[tid]
+            assert (tt.name, tt.duration, tt.channel, tt.priority) == \
+                (jt.name, jt.duration, jt.channel, jt.priority), tid
+            assert t.preds[tid] == j.preds[tid] and t.succs[tid] == j.succs[tid], tid
+        assert {tt.channel for tt in t.tasks.values() if tt.kind == tdag.TaskKind.COMPUTE} \
+            == {"gpu:shared"}
+        jt_s = jsim.simulate(j).steady_iteration_time()
+        assert tsim.simulate(t).steady_iteration_time() == jt_s
+        ideal = tdag.build_ssgd_dag(tdag.IterationCosts(**fields), n_workers,
+                                    tpolicies.ALL_POLICIES[policy], n_iterations=5)
+        assert tsim.simulate(ideal).steady_iteration_time() <= jt_s
+
+
+def test_total_grad_bytes_equals_reference():
+    assert tbundled.TOTAL_GRAD_BYTES == jbundled.TOTAL_GRAD_BYTES == 243_860_896
+
+
+@pytest.fixture(scope="module")
+def generated_trace(tmp_path_factory):
+    """A trace the port's generator wrote: a small ResNet on the CPU, its
+    batch recorded, comm priced by the K80 cluster."""
+    from repro_torch.models import cnn
+    from repro_torch.traces.generate import generate_trace
+
+    layers, x0 = cnn.resnet_timed_layers(0, input_hw=32, depth_per_stage=(1, 1), width=4,
+                                         device="cpu")
+    trace = generate_trace(layers, x0.expand(2, -1, -1, -1).contiguous(), "resnet-mini",
+                           n_iterations=2, repeats=1,
+                           comm_time_fn=lambda b: thardware.K80_CLUSTER.allreduce_time(b, 16))
+    path = tmp_path_factory.mktemp("gen") / "resnet-mini.trace"
+    tformat.write_trace(dataclasses.replace(trace, batch_per_gpu=2), path)
+    return f"trace:{path}"
+
+
+WORKLOADS = ("alexnet", "cnn:resnet50", "googlenet", "trace:alexnet-k80", "generated")
+PREDICT_POLICIES = ("caffe-mpi", "cntk", "naive", "bucketed-25mb", "priority")
+
+
+def _workload(name, generated_trace):
+    return generated_trace if name == "generated" else name
+
+
+class TestPredictWorkload:
+    @pytest.mark.parametrize("workload", WORKLOADS)
+    @pytest.mark.parametrize("cluster", ("k80-pcie-10gbe", "v100-nvlink-ib"))
+    def test_equals_reference(self, workload, cluster, generated_trace):
+        """Every field of the :class:`Prediction`, on 1, 2 and 8 workers, ring
+        and hierarchical all-reduce."""
+        wl = _workload(workload, generated_trace)
+        for pol in PREDICT_POLICIES:
+            for n in WORKERS:
+                for coll in ("ring", "hierarchical"):
+                    j = jpredictor.predict_workload(wl, jhardware.CLUSTERS[cluster], n,
+                                                    jpolicies.ALL_POLICIES[pol],
+                                                    collective=coll)
+                    t = tpredictor.predict_workload(wl, thardware.CLUSTERS[cluster], n,
+                                                    tpolicies.ALL_POLICIES[pol],
+                                                    collective=coll)
+                    assert dataclasses.asdict(t) == dataclasses.asdict(j), (pol, n, coll)
+        assert tpredictor.predict_cnn is tpredictor.predict_workload
+
+    @pytest.mark.parametrize("workload", WORKLOADS)
+    def test_scaling_curve_equals_reference(self, workload, generated_trace):
+        wl = _workload(workload, generated_trace)
+        for pol in ("caffe-mpi", "bucketed-25mb"):
+            j = jpredictor.scaling_curve(wl, jhardware.CLUSTERS["v100-nvlink-ib"],
+                                         jpolicies.ALL_POLICIES[pol], batch_per_gpu=16)
+            t = tpredictor.scaling_curve(wl, thardware.CLUSTERS["v100-nvlink-ib"],
+                                         tpolicies.ALL_POLICIES[pol], batch_per_gpu=16)
+            assert [dataclasses.asdict(x) for x in t] == [dataclasses.asdict(x) for x in j]
+            assert [x.n_workers for x in t] == [1, 2, 4, 8, 16]
+
+    @pytest.mark.parametrize("seed", range(4))
+    def test_predict_equals_reference(self, seed):
+        """:func:`predict` on seeded costs, with and without a cluster's
+        comm pricing and single-GPU costs of their own."""
+        fields = _cost_fields(seed)
+        one = dict(fields, t_f=[2 * x for x in fields["t_f"]])
+        for pol in PREDICT_POLICIES:
+            for n in WORKERS:
+                for name in (None, "v100-nvlink-ib"):
+                    kw = dict(batch_per_gpu=4, warm_iterations=5)
+                    j = jpredictor.predict(
+                        jdag.IterationCosts(**fields), n, jpolicies.ALL_POLICIES[pol],
+                        costs_1gpu=jdag.IterationCosts(**one),
+                        cluster=jhardware.CLUSTERS[name] if name else None, **kw)
+                    t = tpredictor.predict(
+                        tdag.IterationCosts(**fields), n, tpolicies.ALL_POLICIES[pol],
+                        costs_1gpu=tdag.IterationCosts(**one),
+                        cluster=thardware.CLUSTERS[name] if name else None, **kw)
+                    assert dataclasses.asdict(t) == dataclasses.asdict(j), (pol, n, name)
