@@ -53,11 +53,12 @@ Phases, in order; any failure ends the script with a non-zero code:
    (``torch.profiler``);
 5. profile one unit's forward and backward on each main path at its
    published widths (``torch.profiler``, device time per kernel name);
-6. run ``repro_torch.measure`` for qwen1.5-4b (2 units), recurrentgemma-2b
-   (one RRL unit), rwkv6-1.6b (2 units), gemma3-1b (one LLLLLG unit),
+6. run ``repro_torch.measure`` for qwen1.5-4b (1 unit), recurrentgemma-2b
+   (one RRL unit), rwkv6-1.6b (1 unit), gemma3-1b (one LLLLLG unit),
    internlm2-20b (1 unit) and qwen2-moe-a2.7b (1 unit, the MoE MLP) at
    their published widths with 2 gloo ranks on the card, all three sync
-   policies and 3 timed steps each; check each written trace, the counted
+   policies and 3 timed steps each (2 for internlm2-20b and
+   qwen2-moe-a2.7b); check each written trace, the counted
    all-reduce bytes and that the three policies leave the same momentum;
 7. check that every kernel of each path launched during its run (the
    counters are set to 0 before each);
@@ -101,8 +102,29 @@ Phases, in order; any failure ends the script with a non-zero code:
    per-layer costs, the DAG's prediction with and without
    ``shared_compute``, the measured ``wfbp`` and ``at_end`` steps, its
    ``RESULT``; the flash kernels must launch (counted from 0 in each rank);
-12. print the ``kernels`` line (launches: the six measurements' and the
-   validation's), then the ``ok`` line last.
+12. decode on the card: qwen1.5-4b (2 ``G``), recurrentgemma-2b (one
+   ``RRL`` unit), rwkv6-1.6b (2 ``W``) and gemma3-1b (one ``LLLLLG`` unit)
+   at their published widths, batch 4: ``prefill_via_decode`` then greedy
+   ``make_serve_step`` steps in float32 (TF32 off), every position's
+   logits against one ``forward`` over the same tokens within 2e-4 of
+   their scale (gemma3-1b over 600 tokens, past its 512-token window, so
+   that the ring buffers wrap); the RG-LRU and wkv6 forward kernels must
+   launch at one token with their carried state; then decode timed in
+   bfloat16 (tokens/s, port kernel launches and CUDA kernels a step) and
+   ``rglru_fwd`` / ``wkv6_fwd`` at one token against their plain versions
+   and bounds (phase 3 also holds them at one token, bf16 and f32);
+13. the training launcher: ``python -m repro_torch.launch.train --arch
+   gemma3-1b --full --optimizer adamw`` (26 layers), 3 steps of 4 x 1024
+   tokens with ``--checkpoint``: finite loss, every parameter and optimizer
+   leaf restored bit for bit; then ``--data-parallel 2 --policy wfbp`` at
+   reduced widths (2 gloo ranks);
+14. remat and accumulation: ``make_train_step`` on one gemma3-1b unit at
+   the published widths: ``remat=True`` gives the gradient bits of
+   ``remat=False`` with the flash forward launched twice as often, and
+   ``accum_steps=2`` agrees with one batch within 3e-2 of each leaf's scale;
+15. print the ``kernels`` line (launches: the six measurements', the
+   validation's, the float32 decode's and the training launcher's), then
+   the ``ok`` line last.
 
 A failing phase prints ``== <phase>: FAILED`` and its traceback on stdout
 before the script exits non-zero.
@@ -194,6 +216,10 @@ CHECK_SHAPES = [
     ("qwen32_g", QWEN32_G),
     ("qwen2moe_g", QWEN2MOE_G),
 ]
+# The scans in decode: one token with a carried state, batch 4, at
+# recurrentgemma-2b's width and rwkv6-1.6b's heads.
+RGLRU_DECODE = dict(B=4, S=1, W=2560, dtype=torch.bfloat16, h0=True)
+WKV6_DECODE = dict(B=4, S=1, H=32, hd=64, dtype=torch.bfloat16, state=True)
 # recurrentgemma-2b's RG-LRU shape (``RGLRU_SLICE``) and others; ``lam``
 # and ``r_shift`` as in ``bench.rglru_inputs``.
 RGLRU_SHAPES = [
@@ -207,6 +233,9 @@ RGLRU_SHAPES = [
     ("ragged", dict(B=2, S=1000, W=2560, dtype=torch.bfloat16, h0=True)),
     ("f32_short_odd_w", dict(B=2, S=20, W=201, dtype=torch.float32, h0=True)),
     ("f32_strong_decay", dict(B=2, S=1000, W=256, dtype=torch.float32, h0=True, lam=20.0)),
+    # decode: one token with a carried state, at recurrentgemma-2b's width
+    ("decode", RGLRU_DECODE),
+    ("f32_decode", dict(RGLRU_DECODE, dtype=torch.float32)),
 ]
 # rwkv6-1.6b's wkv shape (``WKV6_SLICE``) and others; ``decay`` as in
 # ``bench.wkv6_inputs``.
@@ -218,28 +247,36 @@ WKV6_SHAPES = [
     ("w_one", dict(B=2, S=512, H=4, hd=64, dtype=torch.bfloat16, decay="one")),
     ("w_zero_ragged", dict(B=2, S=1000, H=4, hd=32, dtype=torch.bfloat16, state=True,
                            decay="zero")),
+    # decode: one token with a carried state, at rwkv6-1.6b's heads
+    ("decode", WKV6_DECODE),
+    ("f32_decode", dict(WKV6_DECODE, dtype=torch.float32)),
 ]
 _COMMON = ["--seq-len", "1024", "--batch-per-gpu", "2", "--devices", "2", "--repeats", "3",
            "--step-iters", "3"]
+#: the two slowest measurements take 2 timed steps a policy
+_SLOWEST = [*_COMMON[:-1], "2"]
 #: The main paths, each run with the kernel counters set to 0 just before:
-#: arch -> (CLI arguments, the kernels its run must launch).  internlm2-20b
-#: and qwen2-moe-a2.7b, the two slowest, run at one layer (segments at 1 and
-#: 2) so that the whole script stays within 600 s: gloo's step times move by
-#: up to 2.2x between runs, and at two layers one run on an NVIDIA H100 80GB
-#: HBM3 took 636.5 s.
+#: arch -> (CLI arguments, the kernels its run must launch).  Every path
+#: but recurrentgemma-2b's and gemma3-1b's (one whole unit each) runs at one
+#: layer (segments at 1 and 2), and the two slowest at 2 timed steps, so
+#: that the whole script stays near 600 s: gloo's step times move by up to
+#: 2.2x between runs; on an NVIDIA H100 80GB HBM3 one run took 636.5 s with
+#: internlm2-20b and qwen2-moe-a2.7b at two layers, one 708.2 s with
+#: qwen1.5-4b and rwkv6-1.6b at two, and one 605.1 s with every path at one
+#: unit and 3 timed steps.
 MAIN_PATHS = {
-    "qwen1.5-4b": (["--arch", "qwen1.5-4b", "--num-layers", "2", *_COMMON],
+    "qwen1.5-4b": (["--arch", "qwen1.5-4b", "--num-layers", "1", *_COMMON],
                    ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
     "recurrentgemma-2b": (["--arch", "recurrentgemma-2b", "--num-layers", "3", *_COMMON],
                           ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv",
                            "rglru_fwd", "rglru_bwd")),
-    "rwkv6-1.6b": (["--arch", "rwkv6-1.6b", "--num-layers", "2", *_COMMON],
+    "rwkv6-1.6b": (["--arch", "rwkv6-1.6b", "--num-layers", "1", *_COMMON],
                    ("wkv6_fwd", "wkv6_bwd")),
     "gemma3-1b": (["--arch", "gemma3-1b", "--num-layers", "6", *_COMMON],
                   ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
-    "internlm2-20b": (["--arch", "internlm2-20b", "--num-layers", "1", *_COMMON],
+    "internlm2-20b": (["--arch", "internlm2-20b", "--num-layers", "1", *_SLOWEST],
                       ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
-    "qwen2-moe-a2.7b": (["--arch", "qwen2-moe-a2.7b", "--num-layers", "1", *_COMMON],
+    "qwen2-moe-a2.7b": (["--arch", "qwen2-moe-a2.7b", "--num-layers", "1", *_SLOWEST],
                         ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
 }
 #: kernel module -> the TPU kernel its kernels replace (file:line)
@@ -719,16 +756,18 @@ def bounds(B, S, H, K, hd, window, dtype, **_) -> dict:
     return out
 
 
-def rglru_bounds(B, S, W, dtype, **_) -> dict:
-    """Least time per RG-LRU kernel at this shape, as on the main path (no
-    h0; the forward saves the f32 states; autograd hands the backward a
-    zero dh_last): bytes count each input read once and each output
+def rglru_bounds(B, S, W, dtype, h0=False, save=True, **_) -> dict:
+    """Least time per RG-LRU kernel at this shape, as on the training path
+    (no h0; the forward saves the f32 states; autograd hands the backward
+    a zero dh_last) or, with ``h0`` and not ``save``, as in decode (reads
+    h0, saves nothing): bytes count each input read once and each output
     written once; operations are the scan's float32 arithmetic per element
     and step (21 forward, 38 backward, counted from the kernels) at the
     CUDA cores' float32 rate."""
     n, es = B * S * W, torch.finfo(dtype).bits // 8
     work = {  # name: (float32 operations, bytes)
-        "rglru_fwd": (21 * n, 3 * n * es + W * 4 + n * es + B * W * 4 + n * 4),
+        "rglru_fwd": (21 * n, 3 * n * es + W * 4 + n * es + B * W * 4 + n * 4 * save
+                      + B * W * 4 * h0),
         "rglru_bwd": (38 * n, 4 * n * es + W * 4 + n * 4 + B * W * 4 + 3 * n * es + W * 4
                       + B * W * 4),
     }
@@ -739,10 +778,12 @@ def rglru_bounds(B, S, W, dtype, **_) -> dict:
     return out
 
 
-def wkv6_bounds(B, S, H, hd, dtype, **_) -> dict:
-    """Least time per wkv6 kernel at this shape, as on the main path (no
+def wkv6_bounds(B, S, H, hd, dtype, state=False, save=True, **_) -> dict:
+    """Least time per wkv6 kernel at this shape, as on the training path (no
     initial state; the forward saves the checkpoints; autograd hands the
-    backward a zero final-state cotangent): bytes count each input read
+    backward a zero final-state cotangent) or, with ``state`` and not
+    ``save``, as in decode (reads the state, keeps no checkpoint): bytes
+    count each input read
     once and each output written once; operations are the float32
     arithmetic the function needs, at the CUDA cores' float32 rate.
     Forward: 5 per state entry and step (the r^T S FMA, the decay multiply,
@@ -753,11 +794,12 @@ def wkv6_bounds(B, S, H, hd, dtype, **_) -> dict:
     from repro_torch.kernels.wkv6 import num_checkpoints
 
     n, es = B * S * H * hd, torch.finfo(dtype).bits // 8
-    state, u = B * H * hd * hd * 4, H * hd * 4
-    ckpt, entries = num_checkpoints(S) * state, B * H * S * hd * hd
+    state_b, u = B * H * hd * hd * 4, H * hd * 4
+    ckpt, entries = num_checkpoints(S) * state_b, B * H * S * hd * hd
     work = {  # name: (float32 operations, bytes)
-        "wkv6_fwd": (5 * entries + 5 * n, 4 * n * es + u + n * es + state + ckpt),
-        "wkv6_bwd": (14 * entries, 5 * n * es + u + ckpt + state + 4 * n * es + u + state),
+        "wkv6_fwd": (5 * entries + 5 * n,
+                     4 * n * es + u + n * es + state_b + ckpt * save + state_b * state),
+        "wkv6_bwd": (14 * entries, 5 * n * es + u + ckpt + state_b + 4 * n * es + u + state_b),
     }
     out = {}
     for name, (ops, nbytes) in work.items():
@@ -1434,6 +1476,288 @@ def dag_validation() -> dict:
     return doc["kernel_launches"]
 
 
+# ----------------------------------------------------------------------
+# 12. decode on the card: KV and ring-buffer caches, the scans at one token
+# ----------------------------------------------------------------------
+#: arch -> (layers at the published widths, tokens of the float32 check:
+#: prompt + generation).  gemma3-1b's 600 tokens pass its 512-token window,
+#: so that its L blocks' ring buffers wrap.
+DECODE_PATHS = {"qwen1.5-4b": (2, 96), "recurrentgemma-2b": (3, 96), "rwkv6-1.6b": (2, 96),
+                "gemma3-1b": (6, 600)}
+DECODE_BATCH = 4
+#: tokens generated greedily after the prompt (the rest are prefilled)
+DECODE_GEN = 32
+#: the bfloat16 timing: the prompt, then the timed decode steps
+DECODE_PROMPT, DECODE_TIMED = 64, 32
+#: decode against ``forward`` in float32: the f32 ``_tol`` of
+#: tests/test_kernels.py, of the logits' scale
+DECODE_F32_LIMIT = 2e-4
+#: the port kernels each decode path must launch
+DECODE_KERNELS = {"recurrentgemma-2b": ("rglru_fwd",), "rwkv6-1.6b": ("wkv6_fwd",)}
+
+
+def _decode_config(arch: str, depth: int, dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=depth, dtype=dtype).validate()
+
+
+def decode_vs_forward(arch: str, depth: int, total: int) -> dict:
+    """Float32 (TF32 off) at the published widths: ``prefill_via_decode`` of
+    ``total - DECODE_GEN`` random tokens into a cache of ``total``, then
+    ``DECODE_GEN`` greedy ``make_serve_step`` steps; the logits at every
+    position against one ``forward`` over the same tokens (flash and
+    full-sequence scans).  Returns the port kernels the decode launched
+    (counted from 0; ``forward`` is not counted)."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import init_params, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.traces.generate import tf32
+
+    cfg = _decode_config(arch, depth, torch.float32)
+    with tf32(False):
+        params = init_params(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        prompt_len = total - DECODE_GEN
+        prompt = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, prompt_len), generator=g,
+                               device="cuda")
+        serve = make_serve_step(cfg)
+        kernels.reset_launches()
+        logits, cache = T.prefill_via_decode(cfg, params, prompt, total)
+        outs, fed = [logits], [prompt]
+        for pos in range(prompt_len, total):
+            token = outs[-1][:, -1].argmax(dim=-1)
+            lg, cache = serve(params, {"cache": cache, "token": token, "pos": pos})
+            outs.append(lg[:, None])
+            fed.append(token[:, None])
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in kernels.all_launches().items() if n}
+        decoded = torch.cat(outs, dim=1)
+        with torch.no_grad():
+            full = T.forward(cfg, params, torch.cat(fed, dim=1))
+        scale = float(full.abs().max())
+        err = float((decoded - full).abs().max()) / scale
+    ring = "" if not cfg.sliding_window else \
+        f", ring buffers of {min(total, cfg.sliding_window)} slots" + \
+        (", wrapped" if total > cfg.sliding_window else "")
+    print(f"  {arch:18s} f32 decode of {total} tokens (batch {DECODE_BATCH}, {prompt_len} "
+          f"prefilled, {DECODE_GEN} generated{ring}) vs forward: worst {err:.3e} of the "
+          f"logits' scale {scale:.3e} (limit {DECODE_F32_LIMIT:g}); launches {launched}",
+          flush=True)
+    missing = [k for k in DECODE_KERNELS.get(arch, ()) if not launched.get(k)]
+    if not (math.isfinite(err) and err <= DECODE_F32_LIMIT) or missing:
+        raise SystemExit(f"{arch}: decode off forward by {err:.3e} of scale; "
+                         f"kernels not launched {missing}")
+    del params, cache, decoded, full, outs
+    torch.cuda.empty_cache()
+    return launched
+
+
+def decode_timing(arch: str, depth: int) -> dict:
+    """bfloat16 at the published widths, batch ``DECODE_BATCH``: after a
+    ``DECODE_PROMPT``-token prefill and one warm-up step, ``DECODE_TIMED``
+    greedy ``make_serve_step`` steps timed on the host clock
+    (synchronised); the port kernel launches per decoded token (the
+    wrappers' counters), and one step's CUDA kernels and device time
+    (``torch.profiler``)."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import init_params, make_serve_step
+    from repro_torch.models import transformer as T
+
+    cfg = _decode_config(arch, depth, torch.bfloat16)
+    params = init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT), generator=g,
+                           device="cuda")
+    logits, cache = T.prefill_via_decode(cfg, params, prompt, DECODE_PROMPT + DECODE_TIMED + 2)
+    serve = make_serve_step(cfg)
+    state = {"token": logits[:, -1].argmax(dim=-1), "pos": DECODE_PROMPT}
+
+    def step():
+        lg, _ = serve(params, {"cache": cache, **state})
+        state["token"], state["pos"] = lg.argmax(dim=-1), state["pos"] + 1
+
+    step()
+    torch.cuda.synchronize()
+    before = kernels.all_launches()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_TIMED):
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    per_token = {k: (n - before[k]) / DECODE_TIMED for k, n in kernels.all_launches().items()
+                 if n != before[k]}
+    n_kernels, device_ms = _cuda_kernels(step)
+    out = {"tokens_per_s": DECODE_BATCH * DECODE_TIMED / dt, "step_ms": dt / DECODE_TIMED * 1e3,
+           "launches_per_token": per_token, "cuda_kernels_per_step": n_kernels,
+           "device_ms_per_step": device_ms}
+    print(f"  {arch:18s} bf16 decode: {out['tokens_per_s']:.1f} tokens/s (batch "
+          f"{DECODE_BATCH}, {DECODE_TIMED} steps after {DECODE_PROMPT} prefilled), "
+          f"{out['step_ms']:.3f} ms a step; port kernel launches a step {per_token}; one step "
+          f"{n_kernels} CUDA kernels, {device_ms:.3f} ms of device time", flush=True)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_decode_scans() -> None:
+    """``rglru_fwd`` and ``wkv6_fwd`` at one token with a carried state
+    (``RGLRU_DECODE``, ``WKV6_DECODE``), each against its plain version
+    and its bound as in decode (the state read and written, no states or
+    checkpoints kept)."""
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import wkv6 as wk
+
+    x, r, i, lam, h0, _, _ = rglru_inputs(**RGLRU_DECODE, seed=1)
+    bnd = rglru_bounds(**RGLRU_DECODE, save=False)["rglru_fwd"]
+    print_row("decode", "rglru_fwd", {
+        "ms": time_ms(lambda: rg.fwd(x, r, i, lam, h0)),
+        "plain_ms": time_ms(lambda: rg.plain_fwd(x, r, i, lam, h0), iters=5),
+        "bound_ms": bnd[0], "bound_by": bnd[1]})
+    print_profile("decode rglru_fwd's CUDA kernels (L2 warm)",
+                  device_times(lambda: rg.fwd(x, r, i, lam, h0)))
+    rr, k, v, w, u, st, _, _ = wkv6_inputs(**WKV6_DECODE, seed=1)
+    bnd = wkv6_bounds(**WKV6_DECODE, save=False)["wkv6_fwd"]
+    print_row("decode", "wkv6_fwd", {
+        "ms": time_ms(lambda: wk.fwd(rr, k, v, w, u, st)),
+        "plain_ms": time_ms(lambda: wk.plain_fwd(rr, k, v, w, u, st), iters=5),
+        "bound_ms": bnd[0], "bound_by": bnd[1]})
+    print_profile("decode wkv6_fwd's CUDA kernels (L2 warm)",
+                  device_times(lambda: wk.fwd(rr, k, v, w, u, st)))
+
+
+@phase("decode on the card")
+def decode_on_card(card: str) -> dict:
+    """Serving at the published widths with the depth cut
+    (``DECODE_PATHS``): decode against ``forward`` in float32, then decode
+    timed in bfloat16, then the two scans at one token.  Returns the port
+    kernels the float32 decode runs launched."""
+    launches: dict[str, int] = {}
+    for arch, (depth, total) in DECODE_PATHS.items():
+        for name, n in decode_vs_forward(arch, depth, total).items():
+            launches[name] = launches.get(name, 0) + n
+    print(card, flush=True)
+    for arch, (depth, _) in DECODE_PATHS.items():
+        decode_timing(arch, depth)
+    time_decode_scans()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# 13. the training launcher
+# ----------------------------------------------------------------------
+#: ``python -m repro_torch.launch.train`` at gemma3-1b's full 26 layers and
+#: published widths, AdamW
+TRAIN_ARGS = ["--arch", "gemma3-1b", "--full", "--optimizer", "adamw", "--steps", "3",
+              "--seq", "1024", "--batch", "4", "--log-every", "1", "--device", "cuda"]
+#: the data-parallel run: 2 gloo ranks on the card, reduced widths
+TRAIN_DP_ARGS = ["--arch", "gemma3-1b", "--steps", "4", "--data-parallel", "2", "--policy",
+                 "wfbp", "--device", "cuda"]
+
+
+@phase("train launcher")
+def train_launcher() -> dict:
+    """``TRAIN_ARGS`` with ``--checkpoint``: the loss finite, and
+    ``restore_checkpoint`` gives back every parameter and optimizer leaf
+    bit for bit; then ``TRAIN_DP_ARGS``.  Returns the kernels the first
+    run launched (counted from 0)."""
+    from repro_torch import kernels
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.launch import train as TR
+    from repro_torch.models.transformer import leaf_order
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ck = Path(tmp) / "ck.npz"
+        kernels.reset_launches()
+        summary, params, opt_state = TR.train_loop(
+            TR.build_argparser().parse_args(TRAIN_ARGS + ["--checkpoint", str(ck)]),
+            torch.device("cuda"))
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in kernels.all_launches().items() if n}
+        print(f"  {json.dumps(summary)}; checkpoint {ck.stat().st_size / 1e9:.3f} GB; "
+              f"launches {launches}", flush=True)
+        t0 = time.perf_counter()
+        r_params, r_opt, meta = restore_checkpoint(ck, params, opt_state)
+        t_restore = time.perf_counter() - t0
+    differ = [("/".join(path), str(a.dtype)) for tree, back in ((params, r_params),
+                                                                (opt_state, r_opt))
+              for (path, a), (_, b) in zip(leaf_order(tree), leaf_order(back))
+              if a.dtype != b.dtype or not torch.equal(a, b)]
+    n_leaves = len(list(leaf_order(params))) + len(list(leaf_order(opt_state)))
+    print(f"  restored {n_leaves} leaves in {t_restore:.1f} s (step {meta['step']}): "
+          f"{n_leaves - len(differ)} bit for bit", flush=True)
+    if not all(math.isfinite(summary[k]) for k in ("loss_first", "loss_last")) or differ \
+            or meta["step"] != summary["steps"]:
+        raise SystemExit(f"train launcher: {summary}; leaves not restored {differ}")
+    if not launches.get("flash_fwd") or not launches.get("flash_bwd_dkdv"):
+        raise SystemExit(f"train launcher: flash kernels not launched {launches}")
+    del params, opt_state, r_params, r_opt
+    torch.cuda.empty_cache()
+    dp = TR.run(TR.build_argparser().parse_args(TRAIN_DP_ARGS))
+    if dp["world"] != 2 or not math.isfinite(dp["loss_last"]):
+        raise SystemExit(f"data-parallel launcher: {dp}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# 14. remat and gradient accumulation
+# ----------------------------------------------------------------------
+#: accumulation against one batch in bfloat16: the bf16 limit of
+#: tests/test_kernels.py, of each leaf's scale
+ACCUM_BF16_LIMIT = 3e-2
+
+
+@phase("remat and accumulation")
+def remat_and_accumulation() -> None:
+    """``make_train_step`` on one gemma3-1b unit (``LLLLLG``) at the
+    published widths, bfloat16, batch 4 x 1024, SGD with momentum from
+    zero (so the momentum after one step is the gradient, exactly):
+    ``remat=True`` against ``remat=False`` bit for bit, with the flash
+    forward launched twice as often; ``accum_steps=2`` against one batch
+    within ``ACCUM_BF16_LIMIT`` of each leaf's scale."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import init_params, make_train_step
+    from repro_torch.models.transformer import leaf_order
+    from repro_torch.optim.sgd import sgd
+
+    cfg = _decode_config("gemma3-1b", 6, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 1024), generator=g, device="cuda")
+             for k in ("tokens", "labels")}
+    runs = {}
+    for remat, accum in ((False, 1), (True, 1), (True, 2)):
+        params = init_params(cfg, seed=0, device="cuda")
+        opt = sgd(1e-2, momentum=0.9)
+        state = opt.init(params)
+        kernels.reset_launches()
+        _, state, metrics = make_train_step(cfg, opt, remat=remat, accum_steps=accum)(
+            params, state, batch)
+        torch.cuda.synchronize()
+        runs[remat, accum] = (state["mom"], metrics, kernels.all_launches())
+        del params
+    (m0, met0, l0), (m1, met1, l1), (m2, met2, _) = runs.values()
+    differ = ["/".join(p) for (p, a), (_, b) in zip(leaf_order(m0), leaf_order(m1))
+              if not torch.equal(a, b)]
+    worst, leaf = max((float((b - a).abs().max()) / max(float(a.abs().max()), 1e-30),
+                       "/".join(p)) for (p, a), (_, b) in zip(leaf_order(m0), leaf_order(m2)))
+    print(f"  remat: {len(differ)} of {len(list(leaf_order(m0)))} gradient leaves differ from "
+          f"no remat, loss {float(met1['loss']):.6f} vs {float(met0['loss']):.6f}; flash_fwd "
+          f"launches {l1['flash_fwd']} with remat, {l0['flash_fwd']} without", flush=True)
+    print(f"  accum_steps 2 vs 1: worst leaf {leaf} {worst:.3e} of its scale (limit "
+          f"{ACCUM_BF16_LIMIT:g}); loss {float(met2['loss']):.6f} vs {float(met0['loss']):.6f}",
+          flush=True)
+    if differ or not torch.equal(met0["loss"], met1["loss"]) or \
+            l1["flash_fwd"] != 2 * l0["flash_fwd"] or \
+            any(l1[k] != l0[k] for k in ("flash_bwd_dq", "flash_bwd_dkdv")):
+        raise SystemExit(f"remat changes the gradient ({differ}) or the launches {l0} {l1}")
+    if not worst <= ACCUM_BF16_LIMIT:
+        raise SystemExit(f"accumulation off one batch by {worst:.3e} at {leaf}")
+
+
 def check_measurement(doc: dict, trace_text: str) -> None:
     """The repository's own checks on a measured run: finite positive
     times, the trace's layer rows, the counted all-reduce bytes equal to
@@ -1518,6 +1842,10 @@ def main() -> int:
         cnn_traces(Path(trace_dir))
         for name, n in dag_validation().items():
             launches[name] = launches.get(name, 0) + n
+    for path_launches in (decode_on_card(card), train_launcher()):
+        for name, n in path_launches.items():
+            launches[name] = launches.get(name, 0) + n
+    remat_and_accumulation()
     line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),
              "replaces": REPLACES[mod.__name__.rsplit(".", 1)[1]], "launches": launches[name],
              "max_abs_err": worst[name], **timing[name]}

@@ -7,10 +7,8 @@ schedule of :mod:`repro_torch.comm.sync`.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.comm import sync as S
-from repro_torch.models import transformer as T
+from repro_torch.launch.steps import loss_and_grads
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.sgd import Optimizer, global_norm
 
@@ -31,20 +29,8 @@ def make_ddp_train_step(cfg: ModelConfig, optimizer: Optimizer, comm: S.Comm | N
 
     def step(params, opt_state, batch):
         hook = S.WfbpHook(comm) if sync_policy == "wfbp" else None
-        paths, leaves = zip(*T.leaf_order(params))
-        for leaf in leaves:
-            leaf.requires_grad_(True)
-        total, metrics = T.loss_fn(cfg, params, batch["tokens"], batch["labels"],
-                                   param_hook=hook)
-        grad_list = torch.autograd.grad(total, leaves)
-        for leaf in leaves:
-            leaf.requires_grad_(False)
-        grads: dict = {}
-        for path, g in zip(paths, grad_list):
-            node = grads
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = g
+        total, metrics, grads = loss_and_grads(cfg, params, batch["tokens"], batch["labels"],
+                                               param_hook=hook)
         if hook is not None:
             hook.finish(grads)
         grads = S.sync_gradients(grads, sync_policy, comm, bucket_bytes)

@@ -7,6 +7,12 @@ Counterpart of :mod:`repro.kernels.ops`.  ``impl``:
     :mod:`repro_torch.kernels.wkv6`); on CPU tensors their plain versions
   * ``"auto"``   — ``kernel`` for CUDA tensors, ``ref`` for CPU tensors
 
+``decode_attention`` and ``decode_attention_partials`` are plain torch
+(:mod:`repro_torch.kernels.ref`) on every device and for every ``impl``:
+the reference routes both to its ``ref`` on every backend too, since no
+Pallas kernel computes them.  This is the reference's routing, not a
+fallback.
+
 The reference's TPU gates (``S % 128``, ``hd % 128``, ``W % 128``,
 ``S % 64``) are not carried over: the kernels mask ragged edges, and on
 CUDA a case a kernel does not take raises, it never quietly takes
@@ -40,6 +46,18 @@ def attention(q, k, v, *, q_positions=None, kv_positions=None, causal=True,
         raise ValueError("the attention kernel takes aligned self-attention "
                          "positions only (pass none)")
     return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, valid, impl: str = "auto"):
+    """(B, 1, H, hd) in q's dtype: one query token against a cache."""
+    _resolve(impl, q)
+    return ref.decode_attention(q, k, v, valid)
+
+
+def decode_attention_partials(q, k, v, valid, impl: str = "auto"):
+    """Unnormalised partials (o, m, l), f32."""
+    _resolve(impl, q)
+    return ref.decode_attention_partials(q, k, v, valid)
 
 
 def rglru(x, r_gate, i_gate, lam, h0=None, impl: str = "auto"):

@@ -5,7 +5,10 @@ Counterpart of :func:`repro.kernels.ref.repeat_kv`,
 :func:`repro.kernels.ref.wkv6`: the default implementation on the CPU, and
 the plain versions the kernels in :mod:`repro_torch.kernels.flash_attention`,
 :mod:`repro_torch.kernels.rglru` and :mod:`repro_torch.kernels.wkv6` are
-held against on the card.  Their backward is autograd's.
+held against on the card.  Their backward is autograd's.  The two decode
+functions (:func:`decode_attention`, :func:`decode_attention_partials`)
+have no kernel in either package: they are the implementation on every
+device.
 """
 from __future__ import annotations
 
@@ -47,6 +50,35 @@ def attention(q, k, v, *, q_positions=None, kv_positions=None,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", probs, v.float())
     return out.to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# Decode attention: one query token against a cache, with a validity mask.
+# ----------------------------------------------------------------------
+def decode_attention(q, k, v, valid):
+    """q: (B, 1, H, hd); k, v: (B, S, K, hd); valid: (S,) bool.  Returns
+    (B, 1, H, hd) in q's dtype."""
+    o, m, l = decode_attention_partials(q, k, v, valid)
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def decode_attention_partials(q, k, v, valid):
+    """Unnormalised flash partials (o (B, 1, H, hd), m (B, 1, H), l (B, 1,
+    H)), all f32, for combining across cache shards.  Grouped: query head h
+    reads kv head h // (H // K), and the cache is never broadcast to H
+    heads."""
+    B, _, H, hd = q.shape
+    K = k.shape[2]
+    qh = q.reshape(B, K, H // K, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qh.float(), k.float()) / math.sqrt(hd)
+    mask = valid[None, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1)                                   # (B, K, G)
+    p = torch.exp(scores - m[..., None])
+    p = torch.where(mask, p, torch.zeros_like(p))
+    l = p.sum(dim=-1)                                         # (B, K, G)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    return o.reshape(B, 1, H, hd), m.reshape(B, 1, H), l.reshape(B, 1, H)
 
 
 # ----------------------------------------------------------------------

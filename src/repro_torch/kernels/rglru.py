@@ -374,5 +374,10 @@ class RGLRU(torch.autograd.Function):
 def rglru(x, r_gate, i_gate, lam, h0=None):
     """x, r_gate, i_gate: (B, S, W) float32 or bfloat16; lam (W,) f32; h0
     (B, W) f32 or None.  Returns (out (B, S, W) in x's dtype, h_final (B, W)
-    f32); differentiable in every input."""
+    f32); differentiable in every input.  Under ``torch.no_grad`` (decode)
+    the forward saves no states."""
+    if not torch.is_grad_enabled():
+        out, h_last, _ = fwd(x.contiguous(), r_gate.contiguous(), i_gate.contiguous(), lam,
+                             h0)
+        return out, h_last
     return RGLRU.apply(x, r_gate, i_gate, lam, h0)

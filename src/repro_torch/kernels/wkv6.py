@@ -363,5 +363,9 @@ class WKV6(torch.autograd.Function):
 def wkv6(r, k, v, w, u, state=None):
     """r, k, v, w: (B, S, H, hd) float32 or bfloat16 (hd 32 or 64); u (H, hd)
     f32; state (B, H, hd, hd) f32 or None.  Returns (out (B, S, H, hd) in r's
-    dtype, final state (B, H, hd, hd) f32); differentiable in every input."""
+    dtype, final state (B, H, hd, hd) f32); differentiable in every input.
+    Under ``torch.no_grad`` (decode) the checkpoints are not kept."""
+    if not torch.is_grad_enabled():
+        out, s_last, _ = fwd(*(t.contiguous() for t in (r, k, v, w)), u, state)
+        return out, s_last
     return WKV6.apply(r, k, v, w, u, state)

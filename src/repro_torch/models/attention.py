@@ -1,10 +1,13 @@
-"""GQA self-attention: parameters, projections with QKV bias, RoPE, and the
-full-sequence forward.
+"""GQA self-attention: parameters, projections with QKV bias, RoPE, the
+full-sequence forward, and the KV-cache decode.
 
-Counterpart of :mod:`repro.models.attention` lines 24-80.  The decode half
-(KV caches, distributed flash-decode) waits for the serving slice.  The
-inner attention math is :func:`repro_torch.kernels.ops.attention`: the
-Hopper kernels on CUDA, the plain oracle on the CPU.
+Counterpart of :mod:`repro.models.attention` lines 24-148.  The inner
+attention math is :func:`repro_torch.kernels.ops.attention` (the Hopper
+kernels on CUDA, the plain oracle on the CPU) and, in decode,
+:func:`repro_torch.kernels.ops.decode_attention` (plain torch everywhere,
+as in the reference).  The sequence-sharded decode
+(``_decode_attention_seq_sharded``) needs a mesh and is not ported:
+``seq_axis`` raises.
 """
 from __future__ import annotations
 
@@ -55,3 +58,52 @@ def attention_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor, *, causal: bool 
     out = kops.attention(q, k, v, causal=causal, window=window)
     H, hd, d = p["wo"].shape
     return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, d)
+
+
+# ----------------------------------------------------------------------
+# KV-cache decode (serve_step): one token against a seq_len cache
+# ----------------------------------------------------------------------
+def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, window: int | None = None,
+                  device="cpu", lead: tuple[int, ...] = ()) -> Params:
+    """Zero ``k`` and ``v`` (*lead, B, S, K, hd) in ``cfg.dtype``: S is
+    ``seq_len``, or ``min(seq_len, window)`` slots of a ring buffer for a
+    windowed block."""
+    S = min(seq_len, window) if window else seq_len
+    shape = (*lead, batch, S, cfg.kv_heads, cfg.head_size)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Params, pos: int,
+                     *, window: int | None = None,
+                     seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
+    """One decode step: x (B, 1, d) at position ``pos`` (a Python int, so
+    that the slot and the mask are computed on the host) -> ((B, 1, d),
+    cache).  The new token's k and v, rotated first, are written into the
+    cache in place, at ``pos`` or, in a ring buffer (``window``), at ``pos
+    % cache_len``; the returned cache is the one passed in.  Its contents
+    equal the reference's one-hot write slot for slot."""
+    if seq_axis is not None:
+        raise NotImplementedError("the sequence-sharded decode needs a mesh "
+                                  "(ROADMAP.md queue 1, item 1.4)")
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(cfg, p, x)
+    posb = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    cache_len = cache["k"].shape[-3]
+    if window:
+        # the ring buffer holds the last cache_len tokens; once it has
+        # wrapped, every slot is valid
+        slot = pos % cache_len
+        last = cache_len - 1 if pos >= cache_len else slot
+    else:
+        if not 0 <= pos < cache_len:
+            raise ValueError(f"position {pos} outside the cache of {cache_len}")
+        slot = last = pos
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    valid = torch.arange(cache_len, device=x.device) <= last
+    out = kops.decode_attention(q, cache["k"], cache["v"], valid)
+    H, hd, d = p["wo"].shape
+    return out.reshape(B, 1, H * hd) @ p["wo"].reshape(H * hd, d), cache

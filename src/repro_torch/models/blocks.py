@@ -4,9 +4,10 @@ MLP), pre-norm residual, with the MLP a mixture of experts when the config
 has experts, else dense (gated SiLU or GELU); and ``W`` (RWKV6 time mix +
 channel mix, pre-norm residual, no MLP).
 
-Counterpart of :mod:`repro.models.blocks` lines 28-122.  The ``C`` kind
-raises ``NotImplementedError`` until its slice lands (``ROADMAP.md`` queue
-1, item 8).
+Counterpart of :mod:`repro.models.blocks` lines 28-190: init, the train /
+prefill apply, and the decode pair (:func:`init_block_cache`,
+:func:`decode_block`).  The ``C`` kind raises ``NotImplementedError`` until
+its slice lands (``ROADMAP.md`` queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -95,14 +96,65 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     _check_kind(cfg, kind)
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "W":
-        x = x + rec.rwkv_time_mix(cfg, p["time_mix"], h)
+        x = x + rec.rwkv_time_mix(cfg, p["time_mix"], h)[0]
         h = apply_norm(cfg, p["norm2"], x)
-        return x + rec.rwkv_channel_mix(cfg, p["channel_mix"], h), None
+        return x + rec.rwkv_channel_mix(cfg, p["channel_mix"], h)[0], None
     if kind == "R":
-        x = x + rec.rglru_block(cfg, p["rglru"], h)
+        x = x + rec.rglru_block(cfg, p["rglru"], h)[0]
     else:
         window = cfg.sliding_window if kind == "L" else None
         x = x + attn.attention_fwd(cfg, p["attn"], h, causal=True, window=window)
     h = apply_norm(cfg, p["norm2"], x)
     y, aux = _ffn_apply(cfg, p, h)
     return x + y, aux
+
+
+# ----------------------------------------------------------------------
+# Decode (serve_step): one token + cache
+# ----------------------------------------------------------------------
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int, device="cpu",
+                     lead: tuple[int, ...] = ()) -> Params:
+    """The zero decode state of one block, with the leading axes ``lead``:
+    ``G`` a full kv cache, ``L`` a ring buffer of ``min(seq_len,
+    sliding_window)`` slots, ``R`` the scan state ``h`` (f32) and the conv
+    state, ``W`` the wkv state ``S`` (f32) and the two mixers' last
+    tokens."""
+    _check_kind(cfg, kind)
+    if kind in ("G", "L"):
+        return attn.init_kv_cache(cfg, batch, seq_len,
+                                  window=cfg.sliding_window if kind == "L" else None,
+                                  device=device, lead=lead)
+    if kind == "R":
+        W, kw = cfg.rnn_size, cfg.conv1d_width
+        return {"h": torch.zeros((*lead, batch, W), dtype=torch.float32, device=device),
+                "conv": torch.zeros((*lead, batch, kw - 1, W), dtype=cfg.dtype, device=device)}
+    H, hd, d = rec.rwkv_heads(cfg), rec.RWKV_HEAD_DIM, cfg.d_model
+    return {"S": torch.zeros((*lead, batch, H, hd, hd), dtype=torch.float32, device=device),
+            "x_prev_tm": torch.zeros((*lead, batch, d), dtype=cfg.dtype, device=device),
+            "x_prev_cm": torch.zeros((*lead, batch, d), dtype=cfg.dtype, device=device)}
+
+
+def decode_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, cache: Params,
+                 pos: int, seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
+    """x: (B, 1, d) at position ``pos`` -> (x, new cache).  An attention
+    block's new cache is ``cache`` itself, written in place; a recurrent
+    block's holds new tensors."""
+    _check_kind(cfg, kind)
+    h = apply_norm(cfg, p["norm1"], x)
+    if kind == "W":
+        y, tm = rec.rwkv_time_mix(cfg, p["time_mix"], h,
+                                  state={"S": cache["S"], "x_prev": cache["x_prev_tm"]})
+        x = x + y
+        h = apply_norm(cfg, p["norm2"], x)
+        y, x_prev_cm = rec.rwkv_channel_mix(cfg, p["channel_mix"], h,
+                                            x_prev=cache["x_prev_cm"])
+        return x + y, {"S": tm["S"], "x_prev_tm": tm["x_prev"], "x_prev_cm": x_prev_cm}
+    if kind == "R":
+        y, new_cache = rec.rglru_block(cfg, p["rglru"], h, state=cache)
+    else:
+        y, new_cache = attn.decode_attention(
+            cfg, p["attn"], h, cache, pos, window=cfg.sliding_window if kind == "L" else None,
+            seq_axis=seq_axis if kind == "G" else None)
+    x = x + y
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + _ffn_apply(cfg, p, h)[0], new_cache

@@ -1,9 +1,12 @@
 """Recurrent blocks: the RWKV6 (Finch) time mix and channel mix, and the
 Griffin recurrent block (RecurrentGemma).
 
-Counterpart of :mod:`repro.models.recurrent`, train path only: the carried
-decode state (``state``, ``x_prev``, the conv state) waits for the serving
-slice.  The scans are :func:`repro_torch.kernels.ops.wkv6` and
+Counterpart of :mod:`repro.models.recurrent`.  Each block takes the state
+carried from the tokens before (None: a fresh sequence) and returns
+``(out, new_state)`` as the reference does: the time mix's wkv state and
+last token, the channel mix's last token, the Griffin block's scan state
+and the conv's last ``kw - 1`` inputs.  The scans are
+:func:`repro_torch.kernels.ops.wkv6` and
 :func:`repro_torch.kernels.ops.rglru`: the Hopper kernels on CUDA, the
 plain oracles on the CPU.  The numerics follow the reference step for step.
 RWKV6: the decay ``exp(-exp(w_raw + w_bias))`` is computed in f32 and cast
@@ -60,17 +63,21 @@ def init_rwkv_time_mix(cfg: ModelConfig, gen: torch.Generator, device,
     }
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """x_{t-1} at each t, zeros before the first token (a fresh sequence)."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+def _token_shift(x: torch.Tensor, x_prev: torch.Tensor | None) -> torch.Tensor:
+    """x_{t-1} at each t: ``x_prev`` (B, d) before the first token, zeros
+    when None (a fresh sequence)."""
+    first = torch.zeros_like(x[:, :1]) if x_prev is None else x_prev[:, None, :]
+    return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  The reference also returns the final wkv
-    state and the last token, which the train path drops."""
+def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  state: Params | None = None) -> tuple[torch.Tensor, Params]:
+    """x: (B, S, d) -> ((B, S, d), {"S": the wkv state (B, H, hd, hd) f32,
+    "x_prev": the last token (B, d)}); ``state`` is the same dict carried
+    from the tokens before, None for a fresh sequence."""
     B, S, d = x.shape
     H, hd = rwkv_heads(cfg), RWKV_HEAD_DIM
-    x_shift = _token_shift(x)
+    x_shift = _token_shift(x, None if state is None else state["x_prev"])
 
     def lerp(i):
         return x + (x_shift - x) * p["mu"][i]
@@ -82,13 +89,14 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     g = lerp(4) @ p["wg"]
     # decay in (0, 1), data-dependent (the Finch contribution)
     w = torch.exp(-torch.exp(w_raw + p["w_bias"])).reshape(B, S, H, hd)
-    out, _ = kops.wkv6(r, k, v, w.to(r.dtype), p["u"])
+    out, s_new = kops.wkv6(r, k, v, w.to(r.dtype), p["u"],
+                           state=None if state is None else state["S"])
     # per-head group norm: an RMS norm over each head's channels
     of = out.float()
     of = of * torch.rsqrt(of.square().mean(dim=-1, keepdim=True) + 1e-6)
     out = (of.reshape(B, S, d) * p["ln_scale"]).to(x.dtype)
     out = out * F.silu(g.float()).to(x.dtype)
-    return out @ p["wo"]
+    return out @ p["wo"], {"S": s_new, "x_prev": x[:, -1, :]}
 
 
 def init_rwkv_channel_mix(cfg: ModelConfig, gen: torch.Generator, device,
@@ -102,15 +110,16 @@ def init_rwkv_channel_mix(cfg: ModelConfig, gen: torch.Generator, device,
     }
 
 
-def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d): squared-ReLU key, sigmoid receptance gate.
-    The reference also returns the last token, which the train path drops."""
-    x_shift = _token_shift(x)
+def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     x_prev: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> ((B, S, d), the last token (B, d)): squared-ReLU key,
+    sigmoid receptance gate; ``x_prev`` is the token before x[:, 0]."""
+    x_shift = _token_shift(x, x_prev)
     xk = x + (x_shift - x) * p["mu"][0]
     xr = x + (x_shift - x) * p["mu"][1]
     kk = torch.relu((xk @ p["wk"]).float()).square().to(x.dtype)
     r = torch.sigmoid((xr @ p["wr"]).float())
-    return r.to(x.dtype) * (kk @ p["wv"])
+    return r.to(x.dtype) * (kk @ p["wv"]), x[:, -1, :]
 
 
 # ----------------------------------------------------------------------
@@ -136,24 +145,33 @@ def init_rglru_block(cfg: ModelConfig, gen: torch.Generator, device,
     }
 
 
-def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv; x: (B, S, W); w: (kw, W); b: (W,).  The taps
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   x_prev: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv; x: (B, S, W); w: (kw, W); b: (W,); ``x_prev``
+    (B, kw - 1, W) the inputs before x[:, 0] (zeros when None).  Returns
+    (out, the last kw - 1 inputs: the state for the next call).  The taps
     are shifted multiply-adds summed in f32 in the reference's order."""
     kw = w.shape[0]
     B, S, W = x.shape
-    xp = torch.cat([x.new_zeros(B, kw - 1, W), x], dim=1)
+    pad = x.new_zeros(B, kw - 1, W) if x_prev is None else x_prev
+    xp = torch.cat([pad, x], dim=1)
     out = torch.zeros(B, S, W, dtype=torch.float32, device=x.device)
     for i in range(kw):
         out = out + xp[:, i:i + S].float() * w[i].float()
-    return (out + b.float()).to(x.dtype)
+    new_prev = xp[:, xp.shape[1] - (kw - 1):]
+    return (out + b.float()).to(x.dtype), new_prev
 
 
-def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  The reference also returns the final
-    scan and conv state, which the train path drops."""
+def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                state: Params | None = None) -> tuple[torch.Tensor, Params]:
+    """x: (B, S, d) -> ((B, S, d), {"h": the scan state (B, W) f32, "conv":
+    the conv state (B, kw - 1, W)}); ``state`` is the same dict carried from
+    the tokens before, None for a fresh sequence."""
     gate = F.gelu((x @ p["w_in_gate"]).float(), approximate="tanh").to(x.dtype)
-    u = _causal_conv1d(x @ p["w_in_x"], p["conv_w"], p["conv_b"])
+    u, conv_state = _causal_conv1d(x @ p["w_in_x"], p["conv_w"], p["conv_b"],
+                                   None if state is None else state["conv"])
     r_gate = (u @ p["w_rgate"]).float()
     i_gate = (u @ p["w_igate"]).float()
-    y, _ = kops.rglru(u, r_gate.to(u.dtype), i_gate.to(u.dtype), p["lam"])
-    return (y * gate) @ p["w_out"]
+    y, h = kops.rglru(u, r_gate.to(u.dtype), i_gate.to(u.dtype), p["lam"],
+                      h0=None if state is None else state["h"])
+    return (y * gate) @ p["w_out"], {"h": h, "conv": conv_state}

@@ -1,13 +1,20 @@
 """Decoder-only LM over ``layer_pattern`` block sequences.
 
-Counterpart of :mod:`repro.models.transformer` lines 25-137.  The
-parameters are nested dicts keyed exactly like the JAX pytree, with the
-stacked ``units`` leaves keeping their leading unit axis, so payload
-bytes and bucket partitions match the reference by construction.  The
-reference's ``lax.scan`` over units is a Python loop over unit slices;
-``param_hook`` is applied to each unit's slice inside the loop and to the
-unscanned leaves at their use sites, as in the reference.  ``constrain``
-(sharding annotations) has no counterpart here.
+Counterpart of :mod:`repro.models.transformer`.  The parameters are
+nested dicts keyed exactly like the JAX pytree, with the stacked ``units``
+leaves keeping their leading unit axis, so payload bytes and bucket
+partitions match the reference by construction; the decode cache
+(:func:`init_cache`) is keyed and stacked the same way.  The reference's
+``lax.scan`` over units is a Python loop over unit slices; ``param_hook``
+is applied to each unit's slice inside the loop and to the unscanned
+leaves at their use sites, as in the reference.  ``remat`` recomputes each
+unit in the backward pass (``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint(unit_body)``), so the kernels' forward launches double.
+``constrain`` (sharding annotations) has no counterpart here.
+
+Decode (:func:`decode_step`) runs under ``torch.no_grad`` and writes the
+cache in place (the reference returns a new one); ``pos`` is a Python int,
+so that no cache slot or mask waits on the device.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import blocks as B
 from repro_torch.models.common import ModelConfig, Params, apply_norm, dense_init, init_norm
@@ -87,35 +95,49 @@ def unit_slice(units: Params, i: int) -> Params:
 # ----------------------------------------------------------------------
 # Forward (train)
 # ----------------------------------------------------------------------
+def _sum_aux(auxes: list) -> torch.Tensor | None:
+    auxes = [a for a in auxes if a is not None]
+    return sum(auxes) if auxes else None
+
+
 def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-                  param_hook: ParamHook | None = None):
+                  remat: bool = False, param_hook: ParamHook | None = None):
     """(final hidden states, head, the MoE aux loss summed over every
     block; None without experts)."""
     ph = param_hook or (lambda p, path, unit=None: p)
     emb = ph(params["embedding"], ("embedding",), None)
     x = emb[tokens]
-    auxes = []
-    for u in range(cfg.num_units):
+
+    def unit_body(x, u):
         unit_params = ph(unit_slice(params["units"], u), ("units",), u)
+        auxes = []
         for i, kind in enumerate(cfg.layer_pattern):
             x, a = B.apply_block(cfg, kind, unit_params[f"b{i}"], x)
             auxes.append(a)
+        return x, _sum_aux(auxes)
+
+    auxes = []
+    for u in range(cfg.num_units):
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(unit_body, x, u, use_reentrant=False)
+        else:
+            x, a = unit_body(x, u)
+        auxes.append(a)
     for i, kind in enumerate(cfg.remainder_pattern):
         x, a = B.apply_block(cfg, kind, ph(params[f"rem{i}"], (f"rem{i}",), None), x)
         auxes.append(a)
-    auxes = [a for a in auxes if a is not None]
-    aux = sum(auxes) if auxes else None
+    aux = _sum_aux(auxes)
     x = apply_norm(cfg, ph(params["final_norm"], ("final_norm",), None), x)
     head = emb.T if cfg.tie_embeddings else ph(params["lm_head"], ("lm_head",), None)
     return x, head, aux
 
 
-def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, remat: bool = False,
             param_hook: ParamHook | None = None) -> torch.Tensor:
     """tokens: (B, S) int -> logits (B, S, V) in logit_dtype.  The
     reference also returns the MoE aux loss; :func:`loss_fn` returns it
     here."""
-    x, head, _ = _final_hidden(cfg, params, tokens, param_hook=param_hook)
+    x, head, _ = _final_hidden(cfg, params, tokens, remat=remat, param_hook=param_hook)
     return (x @ head).to(cfg.logit_dtype)
 
 
@@ -127,13 +149,13 @@ MOE_AUX_WEIGHT = 0.01
 
 
 def loss_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            labels: torch.Tensor, *,
+            labels: torch.Tensor, *, remat: bool = False,
             param_hook: ParamHook | None = None) -> tuple[torch.Tensor, dict]:
     """(cross-entropy + ``MOE_AUX_WEIGHT`` x the MoE aux loss, {"loss": the
     cross-entropy, "moe_aux": the aux loss}).  Without experts the
     reference's aux is 0: the total is the cross-entropy itself and
     ``moe_aux`` is left out, so dense blocks launch nothing for it."""
-    x, head, aux = _final_hidden(cfg, params, tokens, param_hook=param_hook)
+    x, head, aux = _final_hidden(cfg, params, tokens, remat=remat, param_hook=param_hook)
     if cfg.vocab_size >= CHUNKED_XENT_MIN_VOCAB:
         from repro_torch.models.loss import chunked_cross_entropy
         loss = chunked_cross_entropy(x, head, labels)
@@ -144,6 +166,64 @@ def loss_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if aux is None:
         return loss, {"loss": loss}
     return loss + MOE_AUX_WEIGHT * aux, {"loss": loss, "moe_aux": aux}
+
+
+# ----------------------------------------------------------------------
+# Decode (serve_step)
+# ----------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cpu") -> Params:
+    """The zero decode cache: ``units`` (each leaf with the leading
+    ``num_units`` axis) and ``rem{i}``, keyed like the reference's."""
+    cache: Params = {}
+    if cfg.num_units > 0:
+        cache["units"] = {f"b{i}": B.init_block_cache(cfg, kind, batch, seq_len, device,
+                                                      lead=(cfg.num_units,))
+                          for i, kind in enumerate(cfg.layer_pattern)}
+    for i, kind in enumerate(cfg.remainder_pattern):
+        cache[f"rem{i}"] = B.init_block_cache(cfg, kind, batch, seq_len, device)
+    return cache
+
+
+def _write_back(cache: Params, new: Params) -> None:
+    """Copy a block's new state into its cache slice, leaf by leaf (a leaf
+    the block wrote in place is the same tensor, and is left alone)."""
+    for key, t in new.items():
+        if t is not cache[key]:
+            cache[key].copy_(t)
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Tensor,
+                pos: int, *, seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
+    """One-token decode: token (B,) int at position ``pos`` (a Python int).
+    Returns (logits (B, V) in logit_dtype, cache), the cache updated in
+    place."""
+    x = params["embedding"][token][:, None, :]                  # (B, 1, d)
+    blocks = []
+    for u in range(cfg.num_units):
+        unit_params, unit_cache = unit_slice(params["units"], u), unit_slice(cache["units"], u)
+        blocks += [(unit_params[f"b{i}"], unit_cache[f"b{i}"], kind)
+                   for i, kind in enumerate(cfg.layer_pattern)]
+    blocks += [(params[f"rem{i}"], cache[f"rem{i}"], kind)
+               for i, kind in enumerate(cfg.remainder_pattern)]
+    for p, c, kind in blocks:
+        x, new = B.decode_block(cfg, kind, p, x, c, pos, seq_axis=seq_axis)
+        _write_back(c, new)
+    x = apply_norm(cfg, params["final_norm"], x)
+    head = params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ head).to(cfg.logit_dtype)[:, 0, :], cache
+
+
+@torch.no_grad()
+def prefill_via_decode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                       seq_len: int) -> tuple[torch.Tensor, Params]:
+    """Sequential prefill (the serving example's, for small models): the
+    tokens (B, S) fed one at a time through :func:`decode_step` into a
+    fresh cache of ``seq_len``.  Returns (logits (B, S, V), cache)."""
+    cache = init_cache(cfg, tokens.shape[0], seq_len, device=tokens.device)
+    logits = [decode_step(cfg, params, cache, tokens[:, t], t)[0]
+              for t in range(tokens.shape[1])]
+    return torch.stack(logits, dim=1), cache
 
 
 # ----------------------------------------------------------------------

@@ -1,13 +1,13 @@
-"""SGD with momentum — the paper's algorithm — and ``global_norm``.
+"""Optimizers: SGD with momentum — the paper's algorithm — and AdamW, and
+``global_norm``.
 
-Counterpart of :mod:`repro.optim.sgd` lines 17-52 and 87-89, with the same
-optax-style interface: ``opt.init(params) -> state`` and
-``opt.update(grads, state, params) -> (params, state)``.  Momentum and the
-update math are float32 and the result is cast back to the parameter
-dtype, as in the reference.  Unlike the reference, ``update`` writes the
-new parameters and momentum in place (at full width a functional copy
-would double the memory of both) and returns the same dicts.  ``adamw``
-waits for the training-launcher slice.
+Counterpart of :mod:`repro.optim.sgd`, with the same optax-style
+interface: ``opt.init(params) -> state`` and ``opt.update(grads, state,
+params) -> (params, state)``.  The state (momentum; AdamW's ``m``, ``v``)
+and the update math are float32 and the result is cast back to the
+parameter dtype, as in the reference.  Unlike the reference, ``update``
+writes the new parameters and state in place (at full width a functional
+copy would double the memory of both) and returns the same dicts.
 """
 from __future__ import annotations
 
@@ -44,6 +44,39 @@ def sgd(lr: float, momentum: float = 0.9, weight_decay: float = 0.0) -> Optimize
                 m.mul_(momentum).add_(g)
                 g = m
             p.copy_((p.float() - lr * g).to(p.dtype))
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1) -> Optimizer:
+    """Decoupled weight decay Adam; state {"m", "v": f32 like the
+    parameters, "step": int32 ()}.  The bias corrections 1 - b^step are
+    float32 tensor powers on the step's device, as the reference's ``b1 **
+    step.astype(f32)``, so no step waits on the host."""
+    def init(params):
+        def zeros(_, p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+        first = next(leaf_order(params))[1]
+        return {"m": map_leaves(zeros, params), "v": map_leaves(zeros, params),
+                "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        state["step"].add_(1)
+        step = state["step"].float()
+        bc1 = 1.0 - torch.pow(b1, step)
+        bc2 = 1.0 - torch.pow(b2, step)
+        for path, p in leaf_order(params):
+            g = get_path(grads, path).float()
+            m, v = get_path(state["m"], path), get_path(state["v"], path)
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            pf = p.float()
+            p.copy_((pf - lr * (upd + weight_decay * pf)).to(p.dtype))
         return params, state
 
     return Optimizer(init, update)

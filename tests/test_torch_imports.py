@@ -45,7 +45,10 @@ def test_every_port_module_is_found():
                  "repro_torch.core.sweep", "repro_torch.sweep",
                  "repro_torch.traces.generate", "repro_torch.models.cnn",
                  "repro_torch.examples.table6_trace", "repro_torch.examples.trace_analysis",
-                 "repro_torch.examples.dag_validation"):
+                 "repro_torch.examples.dag_validation",
+                 "repro_torch.launch.steps", "repro_torch.launch.serve",
+                 "repro_torch.launch.train", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint.ckpt", "repro_torch.examples.quickstart"):
         assert must in names
 
 

@@ -353,7 +353,7 @@ class TestRecurrentgemma:
         tx = torch.from_numpy(x).requires_grad_()
         for leaf in leaves:
             leaf.requires_grad_(True)
-        tout = trec.rglru_block(tcfg, params, tx)
+        tout = trec.rglru_block(tcfg, params, tx)[0]
         tgrads = torch.autograd.grad(tout, (*leaves, tx), torch.from_numpy(ct))
         jout = np.asarray(jout)
         assert np.abs(_np(tout) - jout).max() <= 1e-5 * np.abs(jout).max()
@@ -429,7 +429,7 @@ class TestRwkv6:
         tx = torch.from_numpy(x).requires_grad_()
         for leaf in leaves:
             leaf.requires_grad_(True)
-        tout = tfn(tcfg, params, tx)
+        tout = tfn(tcfg, params, tx)[0]
         tgrads = torch.autograd.grad(tout, (*leaves, tx), torch.from_numpy(ct))
         jout = np.asarray(jout)
         assert np.abs(_np(tout) - jout).max() <= 1e-5 * np.abs(jout).max()

@@ -1,5 +1,7 @@
 """The flash-attention, RG-LRU and wkv6 kernels against their plain
-versions on the card, and the paper's CNNs on the card against the CPU.
+versions on the card (the scans also at one token with a carried state, as
+in decode), the decode path against the forward pass, and the paper's CNNs
+on the card against the CPU.
 
 Imports no JAX, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_on_card.py``.
@@ -217,6 +219,28 @@ class TestRGLRUOnCard:
         for what, got, want in zip(("out", "dx", "dr", "di", "dlam", "dh0"), *outs):
             _assert_close(got, want, what)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_one_token_with_a_carried_state(self, dtype):
+        """Decode: S = 1 with h0 at batch 4 and recurrentgemma-2b's width,
+        through ``ops`` under ``no_grad``, against the plain version; then 8
+        tokens one at a time, carrying h, against one call over the 8."""
+        x, r, i, lam, h0, _ = _rglru_inputs(4, 8, 2560, dtype)
+        rg.reset_launches()
+        with torch.no_grad():
+            out, h = ops.rglru(x[:, :1], r[:, :1], i[:, :1], lam, h0=h0)
+            p_out, p_h, _ = rg.plain_fwd(x[:, :1], r[:, :1], i[:, :1], lam, h0)
+            steps, carried = [], h0
+            for t in range(8):
+                o, carried = ops.rglru(x[:, t:t + 1], r[:, t:t + 1], i[:, t:t + 1], lam,
+                                       h0=carried)
+                steps.append(o)
+            whole, h_whole = ops.rglru(x, r, i, lam, h0=h0)
+        assert rg.LAUNCHES == {"rglru_fwd": 10, "rglru_bwd": 0}, rg.LAUNCHES
+        _assert_close(out, p_out, "out")
+        _assert_close(h, p_h, "h")
+        _assert_close(torch.cat(steps, 1), whole, "one token at a time")
+        _assert_close(carried, h_whole, "carried h")
+
     def test_unsupported_case_raises_on_the_card(self):
         x, r, i, lam, _, _ = _rglru_inputs(1, 16, 32, torch.float32)
         with pytest.raises(ValueError, match="dtype"):
@@ -322,12 +346,93 @@ class TestWKV6OnCard:
         for what, got, want in zip(("out", "dr", "dk", "dv", "dw", "du", "ds0"), *outs):
             _assert_close(got, want, what)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_one_token_with_a_carried_state(self, dtype):
+        """Decode: S = 1 with a state at batch 4 and rwkv6-1.6b's 32 heads of
+        64, through ``ops`` under ``no_grad``, against the plain version;
+        then 8 tokens one at a time, carrying the state, against one call
+        over the 8."""
+        r, k, v, w, u, s0, _, _ = _wkv6_inputs(4, 8, 32, 64, dtype)
+        wk.reset_launches()
+        with torch.no_grad():
+            first = [t[:, :1] for t in (r, k, v, w)]
+            out, s1 = ops.wkv6(*first, u, state=s0)
+            p_out, p_s, _ = wk.plain_fwd(*first, u, s0)
+            steps, carried = [], s0
+            for t in range(8):
+                o, carried = ops.wkv6(*(x[:, t:t + 1] for x in (r, k, v, w)), u,
+                                      state=carried)
+                steps.append(o)
+            whole, s_whole = ops.wkv6(r, k, v, w, u, state=s0)
+        assert wk.LAUNCHES == {"wkv6_fwd": 10, "wkv6_bwd": 0}, wk.LAUNCHES
+        _assert_close(out, p_out, "out")
+        _assert_close(s1, p_s, "state")
+        _assert_close(torch.cat(steps, 1), whole, "one token at a time")
+        _assert_close(carried, s_whole, "carried state")
+
     def test_unsupported_case_raises_on_the_card(self):
         r, k, v, w, u, _, _, _ = _wkv6_inputs(1, 16, 2, 64, torch.float32)
         with pytest.raises(ValueError, match="dtype"):
             ops.wkv6(r.half(), k.half(), v.half(), w.half(), u)
         with pytest.raises(ValueError, match="head dim"):
             ops.wkv6(*(t[..., :48].contiguous() for t in (r, k, v, w)), u[:, :48].contiguous())
+
+
+class TestDecodeOnCard:
+    @pytest.mark.parametrize("arch", ["qwen1.5-4b", "recurrentgemma-2b", "rwkv6-1.6b",
+                                      "gemma3-1b"])
+    def test_decode_equals_forward(self, arch):
+        """A reduced model (float32, TF32 off) decoded token by token through
+        the caches, the scans at one token and a 16-slot ring buffer that 40
+        tokens wrap, against ``forward`` over the same tokens (flash and
+        full-sequence scans) within 2e-4 of the logits' scale; the scans'
+        forward kernels launch once a token and layer."""
+        import dataclasses
+
+        from repro_torch import kernels
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.traces.generate import tf32
+
+        cfg = get_config(arch).reduced(num_layers=3 if arch == "recurrentgemma-2b" else 2)
+        if cfg.sliding_window:
+            cfg = dataclasses.replace(cfg, sliding_window=16)
+        params = T.init_lm(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=g, device="cuda")
+        kernels.reset_launches()
+        with tf32(False):
+            decoded, _ = T.prefill_via_decode(cfg, params, tokens, 40)
+            launched = kernels.all_launches()
+            with torch.no_grad():
+                full = T.forward(cfg, params, tokens)
+        scale = float(full.abs().max())
+        assert float((decoded - full).abs().max()) <= 2e-4 * scale
+        for kind, name in (("R", "rglru_fwd"), ("W", "wkv6_fwd")):
+            assert launched[name] == 40 * cfg.layer_pattern.count(kind) * cfg.num_units, \
+                launched
+
+
+class TestLaunchersOnCard:
+    def test_serve_launcher(self):
+        """``python -m repro_torch.launch.serve`` on the card (its default
+        device): prefill, greedy decode and the summary."""
+        from repro_torch.launch import serve
+
+        out = serve.main(["--arch", "recurrentgemma-2b", "--batch", "4", "--prompt-len", "16",
+                          "--gen", "8"])
+        assert out["generated"] == 8 and out["decode_tok_per_s"] > 0
+
+    def test_quickstart_twin(self):
+        """``python -m repro_torch.examples.quickstart`` on the card: the
+        prefetching loader stages batches through its own stream."""
+        import math
+
+        from repro_torch.examples import quickstart
+
+        out = quickstart.run(steps=3)
+        assert out["device"] == "cuda" and all(math.isfinite(x) for x in out["losses"])
+        assert [r.name for r in out["trace"]] == ["fc1", "fc2"]
 
 
 class TestSweepOnCard:
