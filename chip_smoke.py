@@ -7,8 +7,9 @@ Phases, in order; any failure ends the script with a non-zero code:
    attention, RG-LRU and wkv6, one ``nvcc`` each, at once); print the flash
    forward and backward kernels' ``-Xptxas -v`` lines, each bfloat16
    tensor-core instantiation's registers, shared memory and CTAs per SM,
-   and their HMMA count in the SASS (fails on a spill or a tensor-core
-   kernel without HMMA); print every RG-LRU and wkv6 kernel's ``-Xptxas
+   and their HMMA count in the SASS, and one line summing the float32 FMA
+   kernels' spills (fails on a tensor-core kernel's spill or one without
+   HMMA); print every RG-LRU and wkv6 kernel's ``-Xptxas
    -v`` lines and the bfloat16 instantiations' registers, shared memory and
    CTAs per SM (fails on a spill);
 3. hold every flash kernel (forward, delta, dq, dk/dv) against its plain
@@ -21,8 +22,14 @@ Phases, in order; any failure ends the script with a non-zero code:
    shape in bfloat16 and in float32,
    and at a ragged and two more float32 shapes, and in bfloat16 at hd 64,
    hd 32 ragged and hd 256 ragged with two kv heads (the tensor-core
-   backward's other instantiations); hold the differentiable
-   attention against autograd through ``ref.attention``; hold the RG-LRU
+   backward's other instantiations), and at the encoder-decoder path's
+   shapes (whisper-tiny's bidirectional encoder over 1500 frames, its
+   448-token causal decoder and its cross-attention to the frames,
+   llama-3.2-vision-90b's G blocks at 4096 tokens and its cross-attention
+   to 1601 image tokens, that at one query token forward only, and in
+   float32 a cross shape ragged on both sides and a bidirectional one);
+   hold the differentiable attention against autograd through
+   ``ref.attention`` (causal, windowed, bidirectional and cross); hold the RG-LRU
    forward against its plain version and its backward against autograd
    through ``ref.rglru``, at recurrentgemma-2b's shape in bfloat16 and
    float32, at a ragged shape with a carried state, where sigmoid(r) ~ 0,
@@ -34,21 +41,24 @@ Phases, in order; any failure ends the script with a non-zero code:
    decays (w down to 1e-3), where bfloat16 rounds w to exactly 1 and with w
    exactly 0 in a quarter of the entries; hold a reduced qwen1.5-4b's,
    recurrentgemma-2b's, rwkv6-1.6b's, gemma3-1b's, qwen2-moe-a2.7b's (8
-   experts, top-4, shared experts), grok-1-314b's (8 experts, top-2) and
-   internlm2-20b's loss and gradients on the card
+   experts, top-4, shared experts), grok-1-314b's (8 experts, top-2),
+   internlm2-20b's, whisper-tiny's (C blocks and the encoder) and
+   llama-3.2-vision-90b's (GC) loss and gradients on the card
    (through the kernels, run twice and required bitwise equal) against the
    same model on the CPU (plain versions); run the bfloat16 flash forward
    and backward, the RG-LRU forward and backward and the wkv6 forward and
    backward twice at the main paths' shapes (flash also at gemma3-1b's
-   windowed one and at internlm2-20b's group of 6) and require
-   bitwise-equal outputs;
+   windowed one, at internlm2-20b's group of 6 and at whisper-tiny's
+   cross-attention) and require bitwise-equal outputs;
 4. time each kernel, its plain version and the PyTorch library call that
    computes the same function (``scaled_dot_product_attention`` and its
    backward, with a boolean band mask on the first backend that takes it
    where the window is shorter than the sequence; ``torch.linalg.vecdot``
-   for delta; timed here only and never called by the port; none for the
-   RG-LRU and wkv6 scans), each with L2 refilled before every call, at the
-   main paths' shapes, and compute each kernel's bound; print the CUDA
+   for delta; ``is_causal=False`` with ``enable_gqa`` for the bidirectional
+   and cross shapes; timed here only and never called by the port; none
+   for the RG-LRU and wkv6 scans), each with L2 refilled before every call,
+   at the main paths' shapes and the encoder-decoder path's, and compute
+   each kernel's bound; print the CUDA
    kernels of each RG-LRU and wkv6 wrapper call with their device times
    (``torch.profiler``);
 5. profile one unit's forward and backward on each main path at its
@@ -122,9 +132,21 @@ Phases, in order; any failure ends the script with a non-zero code:
    the published widths: ``remat=True`` gives the gradient bits of
    ``remat=False`` with the flash forward launched twice as often, and
    ``accum_steps=2`` agrees with one batch within 3e-2 of each leaf's scale;
-15. print the ``kernels`` line (launches: the six measurements', the
-   validation's, the float32 decode's and the training launcher's), then
-   the ``ok`` line last.
+15. the encoder-decoder on the card: whisper-tiny at its published widths
+   and depth (4 + 4 layers) in float32, batch 2 x 64 tokens over 1500
+   frames, logits, loss and every gradient leaf on the card against the
+   CPU within 2e-4 of scale; 3 bfloat16 ``make_train_step`` steps (AdamW)
+   at 8 x 448 tokens, ms a step and peak memory; decode (the encoder
+   states once, ``prefill_via_decode``, greedy ``make_serve_step``) in
+   float32 against ``forward`` within 2e-4 of the logits' scale, then
+   timed in bfloat16 at batch 4 (tokens/s, launches a token);
+   llama-3.2-vision-90b at its published widths cut to one GGGGC unit
+   (6.53 G parameters): one bfloat16 ``make_train_step`` step (SGD) at 1 x
+   4096 tokens and 1601 image tokens, ms and peak memory, and a float32
+   decode of 32 tokens against ``forward`` within 2e-4;
+16. print the ``kernels`` line (launches: the six measurements', the
+   validation's, the float32 decode's, the training launcher's and the
+   encoder-decoder phase's), then the ``ok`` line last.
 
 A failing phase prints ``== <phase>: FAILED`` and its traceback on stdout
 before the script exits non-zero.
@@ -152,8 +174,9 @@ import torch  # noqa: E402
 
 # the port first: without it (the script alone) the import fails, nothing is printed
 from repro_torch.kernels.bench import (  # noqa: E402
-    GEMMA3_G, GEMMA3_L, INTERNLM2_G, L_BLOCK, QWEN2MOE_G, QWEN32_G, RGLRU_SLICE, SLICE,
-    WKV6_SLICE, card_line, device_times, make_inputs, print_profile, rglru_inputs, time_ms,
+    CROSS_DECODE, FORWARD_ONLY, GEMMA3_G, GEMMA3_L, INTERNLM2_G, L_BLOCK, LLAMA_CROSS, LLAMA_G,
+    QWEN2MOE_G, QWEN32_G, RGLRU_SLICE, SLICE, WHISPER_CROSS, WHISPER_DEC, WHISPER_ENC,
+    WKV6_SLICE, attn_shape, card_line, device_times, make_inputs, print_profile, rglru_inputs, time_ms,
     wkv6_inputs)
 
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
@@ -170,10 +193,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: repository's f32 kernel tolerance (tests/test_kernels.py ``_tol``).
 LIMITS = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (2e-4, 2e-4)}
 #: Autograd through the kernels in bfloat16 against autograd through
-#: ``ref.attention`` in float32 on the same values: the kernels' delta =
-#: rowsum(dO * O) reads the output rounded to bfloat16, the float32 softmax
-#: backward the exact one, an error in dq and dk that is not proportional
-#: to each entry.
+#: ``ref.attention`` in float32 on the same values: the outputs are rounded
+#: to bfloat16 once, and the backward sums in its own order.  delta =
+#: rowsum(dO * O) reads the forward's float32 output: from the output
+#: rounded to bfloat16 it would put an error in dq and dk that is not
+#: proportional to each entry, which in the short causal rows of a
+#: 4096-token sequence read 1.41 of this limit.
 AUTOGRAD_BF16_LIMIT = (1e-2, 1e-1)
 #: Per-leaf norm of the f32 momentum after the timed steps: the three
 #: policies agree to bf16 reduction rounding (at_end and wfbp reduce bf16
@@ -191,23 +216,28 @@ LIBRARY_LIMIT = (1e-2, 1e-1)
 # ``L_BLOCK`` (recurrentgemma-2b's L blocks), ``GEMMA3_L`` and ``GEMMA3_G``
 # (gemma3-1b's L and G blocks), ``INTERNLM2_G``, ``QWEN32_G`` and
 # ``QWEN2MOE_G`` (the G blocks of internlm2-20b and grok-1-314b, of
-# qwen1.5-32b and of qwen2-moe-a2.7b), from ``repro_torch.kernels.bench``.
+# qwen1.5-32b and of qwen2-moe-a2.7b), and the encoder-decoder path's
+# (whisper-tiny's encoder, decoder and cross-attention, llama-3.2-vision-90b's
+# G blocks and cross-attention, in training and at one query token), from
+# ``repro_torch.kernels.bench``.  Every entry carries ``causal`` and
+# ``Skv`` (``bench.attn_shape``).
 CHECK_SHAPES = [
     ("slice", SLICE),
     ("l_block", L_BLOCK),
     ("f32_l_block", dict(L_BLOCK, dtype=torch.float32)),
-    ("gqa_window", dict(B=1, S=2048, H=4, K=1, hd=256, window=512, dtype=torch.bfloat16)),
-    ("ragged", dict(B=2, S=1000, H=8, K=4, hd=128, window=None, dtype=torch.bfloat16)),
+    ("gqa_window", attn_shape(B=1, S=2048, H=4, K=1, hd=256, window=512)),
+    ("ragged", attn_shape(B=2, S=1000, H=8, K=4, hd=128)),
     ("f32_slice", dict(SLICE, dtype=torch.float32)),
-    ("f32_gqa_window", dict(B=1, S=2048, H=4, K=1, hd=256, window=512, dtype=torch.float32)),
-    ("f32_hd64", dict(B=2, S=512, H=4, K=2, hd=64, window=100, dtype=torch.float32)),
-    ("f32_hd32_ragged", dict(B=1, S=300, H=2, K=1, hd=32, window=32, dtype=torch.float32)),
+    ("f32_gqa_window", attn_shape(B=1, S=2048, H=4, K=1, hd=256, window=512,
+                                  dtype=torch.float32)),
+    ("f32_hd64", attn_shape(B=2, S=512, H=4, K=2, hd=64, window=100, dtype=torch.float32)),
+    ("f32_hd32_ragged", attn_shape(B=1, S=300, H=2, K=1, hd=32, window=32,
+                                   dtype=torch.float32)),
     # the bfloat16 backward's tensor-core instantiations the shapes above
     # leave out: hd 64, hd 32 ragged, hd 256 ragged with two kv heads
-    ("hd64", dict(B=2, S=512, H=4, K=2, hd=64, window=100, dtype=torch.bfloat16)),
-    ("hd32_ragged", dict(B=1, S=300, H=2, K=1, hd=32, window=32, dtype=torch.bfloat16)),
-    ("hd256_ragged_gqa", dict(B=1, S=1000, H=8, K=2, hd=256, window=None,
-                              dtype=torch.bfloat16)),
+    ("hd64", attn_shape(B=2, S=512, H=4, K=2, hd=64, window=100)),
+    ("hd32_ragged", attn_shape(B=1, S=300, H=2, K=1, hd=32, window=32)),
+    ("hd256_ragged_gqa", attn_shape(B=1, S=1000, H=8, K=2, hd=256)),
     # gemma3-1b's main-path shapes: L blocks (window 512 < S) and G blocks
     ("gemma3_l", GEMMA3_L),
     ("gemma3_g", GEMMA3_G),
@@ -215,7 +245,25 @@ CHECK_SHAPES = [
     ("internlm2_g", INTERNLM2_G),
     ("qwen32_g", QWEN32_G),
     ("qwen2moe_g", QWEN2MOE_G),
+    # the encoder-decoder path: bidirectional (ragged at 1500), causal at
+    # hd 64, cross-attention with Sq != Skv (also at one query token,
+    # forward only), a GQA group of 8 at 4096 tokens; and in float32, ragged
+    # on both sides and bidirectional
+    ("whisper_enc", WHISPER_ENC),
+    ("whisper_dec", WHISPER_DEC),
+    ("whisper_cross", WHISPER_CROSS),
+    ("llama_g", LLAMA_G),
+    ("llama_cross", LLAMA_CROSS),
+    ("cross_decode", CROSS_DECODE),
+    ("f32_cross_ragged", attn_shape(B=2, S=100, Skv=300, H=4, K=2, hd=64, causal=False,
+                                    dtype=torch.float32)),
+    ("f32_noncausal", attn_shape(B=1, S=1000, H=4, K=4, hd=32, causal=False,
+                                 dtype=torch.float32)),
 ]
+#: shapes also held through autograd against ``ref.attention``
+AUTOGRAD_SHAPES = ("slice", "l_block", "gqa_window", "f32_slice", "f32_l_block",
+                   "f32_gqa_window", "whisper_enc", "whisper_dec", "whisper_cross", "llama_g",
+                   "llama_cross", "f32_cross_ragged", "f32_noncausal")
 # The scans in decode: one token with a carried state, batch 4, at
 # recurrentgemma-2b's width and rwkv6-1.6b's heads.
 RGLRU_DECODE = dict(B=4, S=1, W=2560, dtype=torch.bfloat16, h0=True)
@@ -342,24 +390,27 @@ def check_kernels() -> dict:
     failed: list[str] = []
     for label, shp in CHECK_SHAPES:
         q, k, v, do = make_inputs(**shp)
-        causal, window, dt = True, shp["window"], shp["dtype"]
-        o, lse = fa.fwd(q, k, v, causal, window)
-        delta = fa.bwd_delta(o, do)
-        dq = fa.bwd_dq(q, k, v, do, lse, delta, causal, window)
-        dk, dv = fa.bwd_dkdv(q, k, v, do, lse, delta, causal, window)
+        causal, window, dt = shp["causal"], shp["window"], shp["dtype"]
+        # as training calls it: the output also in float32 (o32), which
+        # delta reads
+        o, lse, o32 = fa.fwd(q, k, v, causal, window, out_f32=True)
         torch.cuda.synchronize()
-        p_o, p_lse = fa.plain_fwd(q, k, v, causal, window)
-        p_delta = fa.plain_bwd_delta(o, do)
-        # the backward kernels are held against the plain backward on the
-        # same lse/delta, so each kernel is checked on its own inputs
-        p_dq, p_dk, p_dv = fa.plain_bwd(q, k, v, do, lse, delta, causal, window)
-        pairs = {"flash_fwd": [(o, p_o), (lse, p_lse)],
-                 "flash_bwd_delta": [(delta, p_delta)],
-                 "flash_bwd_dq": [(dq, p_dq)],
-                 "flash_bwd_dkdv": [(dk, p_dk), (dv, p_dv)]}
-        if label in ("slice", "l_block", "gqa_window", "f32_slice", "f32_l_block",
-                     "f32_gqa_window"):
-            pairs["autograd_vs_ref"] = list(zip(*autograd_vs_ref(q, k, v, do, window)))
+        p_o, p_lse, p_o32 = fa.plain_fwd(q, k, v, causal, window, out_f32=True)
+        pairs = {"flash_fwd": [(o, p_o), (lse, p_lse), (o32, p_o32)]}
+        if label not in FORWARD_ONLY:
+            delta = fa.bwd_delta(o32, do)
+            dq = fa.bwd_dq(q, k, v, do, lse, delta, causal, window)
+            dk, dv = fa.bwd_dkdv(q, k, v, do, lse, delta, causal, window)
+            torch.cuda.synchronize()
+            # the backward kernels are held against the plain backward on
+            # the same lse/delta, so each kernel is checked on its own inputs
+            p_dq, p_dk, p_dv = fa.plain_bwd(q, k, v, do, lse, delta, causal, window)
+            pairs.update({"flash_bwd_delta": [(delta, fa.plain_bwd_delta(o32, do))],
+                          "flash_bwd_dq": [(dq, p_dq)],
+                          "flash_bwd_dkdv": [(dk, p_dk), (dv, p_dv)]})
+        if label in AUTOGRAD_SHAPES:
+            pairs["autograd_vs_ref"] = list(zip(*autograd_vs_ref(q, k, v, do, causal,
+                                                                 window)))
         for name, items in pairs.items():
             for got, want in items:
                 # lse and delta are float32 outputs of float32 math
@@ -370,7 +421,7 @@ def check_kernels() -> dict:
                 if label == "slice" and name in fa.LAUNCHES:
                     worst[name] = max(worst.get(name, 0.0),
                                       float((got.float() - want.float()).abs().max()))
-        del q, k, v, do, o, lse, delta, dq, dk, dv, pairs
+        del q, k, v, do, o, lse, pairs
         torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: {failed}")
@@ -380,7 +431,8 @@ def check_kernels() -> dict:
 @phase("determinism")
 def check_determinism() -> None:
     """``fwd``, then ``bwd_dq`` and ``bwd_dkdv`` on its lse, twice on the
-    same inputs at the main paths' shapes: o, lse, dq, dk and dv must be
+    same inputs at the main paths' shapes (and whisper-tiny's
+    cross-attention): o, lse, dq, dk and dv must be
     bitwise equal (each output written by one thread, no atomics; the group
     partials are summed in a fixed order).  Likewise the wkv6 forward and
     backward at rwkv6-1.6b's shape: out, s_last, the checkpoints, dr, dk,
@@ -393,17 +445,17 @@ def check_determinism() -> None:
 
     failed = []
     for label, shp in (("slice", SLICE), ("l_block", L_BLOCK), ("gemma3_l", GEMMA3_L),
-                       ("internlm2_g", INTERNLM2_G)):
+                       ("internlm2_g", INTERNLM2_G), ("whisper_cross", WHISPER_CROSS)):
         q, k, v, do = make_inputs(**shp, seed=2)
-        w = shp["window"]
+        w, c = shp["window"], shp["causal"]
         runs = []
         for _ in range(2):
-            o, lse = fa.fwd(q, k, v, True, w)
-            delta = fa.bwd_delta(o, do)
-            runs.append((o, lse, fa.bwd_dq(q, k, v, do, lse, delta, True, w),
-                         *fa.bwd_dkdv(q, k, v, do, lse, delta, True, w)))
+            o, lse, o32 = fa.fwd(q, k, v, c, w, out_f32=True)
+            delta = fa.bwd_delta(o32, do)
+            runs.append((o, lse, o32, delta, fa.bwd_dq(q, k, v, do, lse, delta, c, w),
+                         *fa.bwd_dkdv(q, k, v, do, lse, delta, c, w)))
         same = {name: torch.equal(a, b)
-                for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs)}
+                for name, a, b in zip(("o", "lse", "o32", "delta", "dq", "dk", "dv"), *runs)}
         print(f"  {label:15s} bitwise equal over two runs: {same}", flush=True)
         if not all(same.values()):
             failed.append(label)
@@ -454,8 +506,10 @@ def report_flash_build() -> None:
     lines from the build log (registers, spills), the CUDA runtime's
     registers, dynamic shared memory and CTAs per SM of each bfloat16
     tensor-core instantiation, and the HMMA instructions in its SASS
-    (``cuobjdump -sass``).  Fails if a tensor-core kernel spills or has no
-    HMMA."""
+    (``cuobjdump -sass``), and one line that sums the float32 FMA kernels'
+    spills (kernel, head dim, bytes stored and loaded).  Fails if a
+    tensor-core kernel spills or has no HMMA; an FMA kernel's spill is
+    reported, not failed."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.build import library_path
 
@@ -467,11 +521,20 @@ def report_flash_build() -> None:
             cur = m.group(1) if _REPORTED.search(m.group(1)) else None
         elif cur and ("spill" in line or "Used" in line):
             info.setdefault(_kernel_label(cur), []).append(line.strip())
+    fma_spills = []
     for label, lines in sorted(info.items()):
         print(f"  ptxas {label}: {' | '.join(lines)}", flush=True)
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", " ".join(lines))]
+        text = " ".join(lines)
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
         if "_mma_" in label and any(spills):
             failed.append(f"{label} spills")
+        elif any(spills):
+            name, args = label[:-1].split("<")
+            stores, loads = (sum(int(n) for n in re.findall(rf"(\d+) bytes spill {kind}", text))
+                             for kind in ("stores", "loads"))
+            fma_spills.append(f"{name} hd {args.split(',')[1]}: {stores} B stores, "
+                              f"{loads} B loads")
+    print(f"  FMA (float32) kernels' spills: {'; '.join(fma_spills) or 'none'}", flush=True)
     for kernel in fa.MMA_KERNELS:
         for hd in fa.SUPPORTED_HEAD_DIMS:
             print(f"  runtime {kernel} bf16 hd {hd}: {fa.occupancy(kernel, hd)}", flush=True)
@@ -553,7 +616,7 @@ def report_wkv6_build() -> None:
                            for k in wk.KERNELS for hd in wk.HEAD_DIMS})
 
 
-def autograd_vs_ref(q, k, v, do, window):
+def autograd_vs_ref(q, k, v, do, causal, window):
     """(output, dq, dk, dv) through the kernels' autograd.Function and
     through autograd of the plain ``ref.attention`` (the independent oracle
     of the CPU tests) in float32 on the same values."""
@@ -564,7 +627,7 @@ def autograd_vs_ref(q, k, v, do, window):
     for fn, out, ins in ((fa.flash_attention, got, (q, k, v, do)),
                          (ref.attention, want, [t.float() for t in (q, k, v, do)])):
         leaves = [t.detach().requires_grad_() for t in ins[:3]]
-        o = fn(*leaves, causal=True, window=window)
+        o = fn(*leaves, causal=causal, window=window)
         out.extend([o.detach(), *torch.autograd.grad(o, leaves, ins[3])])
     return got, want
 
@@ -657,12 +720,27 @@ MODEL_CHECKS = {"qwen1.5-4b": (2, {"flash_fwd": 1}, {}),
                 "gemma3-1b": (2, {"flash_fwd": 2}, {}),
                 "qwen2-moe-a2.7b": (2, {"flash_fwd": 1}, {"num_experts": 8}),
                 "grok-1-314b": (2, {"flash_fwd": 1}, {"num_experts": 8}),
-                "internlm2-20b": (2, {"flash_fwd": 1}, {})}
+                "internlm2-20b": (2, {"flash_fwd": 1}, {}),
+                # C blocks (self and cross), plus whisper's encoder layers
+                "whisper-tiny": (2, {"flash_fwd": 2}, {}),
+                "llama-3.2-vision-90b": (2, {"flash_fwd": 3}, {})}
 
 
 #: CPU threads of the model check's CPU side, so that its sums run in one
 #: order from run to run
 MODEL_CHECK_THREADS = 4
+
+
+def worst_leaf(paths: list[str], want: list, got: list) -> tuple[float, str]:
+    """(the largest error of a gradient leaf over its scale, that leaf).
+    The cross-attention's key bias (``xattn/bk``: QKV bias, no RoPE) adds
+    q . bk to every score of a query row, which the softmax cancels: its
+    gradient is 0 in exact arithmetic, and both sides' round-off there is
+    measured against the largest leaf's scale instead of its own."""
+    top = max(float(a.abs().max()) for a in want)
+    return max((float((b.float() - a.float()).abs().max())
+                / (top if path.endswith("xattn/bk") else max(float(a.abs().max()), 1e-6)), path)
+               for path, a, b in zip(paths, want, got))
 
 
 @phase("model on the card vs the CPU")
@@ -673,8 +751,11 @@ def check_model() -> None:
     reduced gemma3-1b (float32, LG, one kv head, window 64 under 256
     tokens), reduced qwen2-moe-a2.7b (float32, 2 G layers, 8 experts, top-4,
     shared experts; 512 tokens, 8 groups of 64), reduced grok-1-314b (the
-    same with top-2, no shared experts) and reduced internlm2-20b (float32,
-    2 G layers): loss and every gradient leaf through the kernels on the card
+    same with top-2, no shared experts), reduced internlm2-20b (float32,
+    2 G layers), reduced whisper-tiny (2 C layers, 2 encoder layers over 64
+    frames: bidirectional and cross-attention) and reduced
+    llama-3.2-vision-90b (GC, 16 image tokens): loss and every gradient
+    leaf (the encoder's too) through the kernels on the card
     against the plain versions on the CPU (``MODEL_CHECK_THREADS``
     threads), from the same parameters and batch.  Tolerance 1e-4 of each
     leaf's scale: both sides are float32 (TF32 off), summed in different
@@ -682,6 +763,7 @@ def check_model() -> None:
     and leaves; the worst leaf of each arch is printed."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.launch.steps import init_params, model_loss
     from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -693,24 +775,27 @@ def check_model() -> None:
         g = torch.Generator().manual_seed(0)
         tokens, labels = (torch.randint(0, cfg.vocab_size, (2, 256), generator=g)
                           for _ in range(2))
-        params = T.init_lm(cfg, seed=0)
+        n_enc = cfg.encoder_seq or cfg.num_image_tokens
+        enc = torch.randn(2, n_enc, cfg.d_model, generator=g) if n_enc else None
+        params = init_params(cfg, seed=0)
         results = []
         for dev in ("cpu", "cuda", "cuda"):
             p = T.map_leaves(lambda _, t: t.to(dev).requires_grad_(), params)
             leaves = [t for _, t in T.leaf_order(p)]
             before = kernels.all_launches()
-            loss = T.loss_fn(cfg, p, tokens.to(dev), labels.to(dev))[0]
+            loss = model_loss(cfg, p, tokens.to(dev), labels.to(dev),
+                              encoder_in=None if enc is None else enc.to(dev))[0]
             launched = {k: n - before[k] for k, n in kernels.all_launches().items()}
             grads = torch.autograd.grad(loss, leaves)
             results.append((float(loss.detach()), [gr.cpu() for gr in grads]))
-            want = {k: n * cfg.num_units for k, n in per_unit.items()}
+            want = {k: n * cfg.num_units + cfg.encoder_layers * (k == "flash_fwd")
+                    for k, n in per_unit.items()}
             if dev == "cuda" and any(launched[k] != n for k, n in want.items()):
                 raise SystemExit(f"{arch} on the card: forward launches {launched}, "
                                  f"want {want}")
         (l_cpu, g_cpu), (l_gpu, g_gpu), (l_gpu2, g_gpu2) = results
-        paths = ["/".join(path) for path, _ in T.leaf_order(params)]
-        worst, leaf = max((float((a - b).abs().max()) / max(float(a.abs().max()), 1e-6), path)
-                          for path, a, b in zip(paths, g_cpu, g_gpu))
+        paths = ["/".join(map(str, path)) for path, _ in T.leaf_order(params)]
+        worst, leaf = worst_leaf(paths, g_cpu, g_gpu)
         varied = [path for path, a, b in zip(paths, g_gpu, g_gpu2) if not torch.equal(a, b)]
         print(f"  {arch}: loss cpu {l_cpu:.6f} card {l_gpu:.6f}; worst gradient leaf "
               f"{leaf} error {worst:.3e} of its scale (tol 1e-4); card twice: loss "
@@ -730,22 +815,27 @@ def check_model() -> None:
 # ----------------------------------------------------------------------
 # 4. timing at the slice shape
 # ----------------------------------------------------------------------
-def bounds(B, S, H, K, hd, window, dtype, **_) -> dict:
+def bounds(B, S, Skv, H, K, hd, window, causal, dtype, train=True, **_) -> dict:
     """Least time per kernel at this shape: max(bytes / HBM rate, FLOPs /
     peak rate for the input type).  FLOPs count only the matrix products
     over the (query, key) pairs the mask lets through (exp and the
     elementwise work are left out); bytes count each input read once and
-    each output written once."""
-    pos = torch.arange(S)
-    vis = pos[None, :] <= pos[:, None]
+    each output written once (q-side tensors of S rows, k and v of Skv).
+    ``train``: the calls as training makes them, where in bfloat16 the
+    forward also writes its float32 output (o32) and delta reads that."""
+    qp, kp = torch.arange(S)[:, None], torch.arange(Skv)[None, :]
+    vis = torch.ones(S, Skv, dtype=torch.bool)
+    if causal:
+        vis &= kp <= qp
     if window is not None:
-        vis &= pos[None, :] > pos[:, None] - window
+        vis &= kp > qp - window
     pairs = float(vis.sum()) * B * H
     es = torch.finfo(dtype).bits // 8
-    qb, kb, stat = B * S * H * hd * es, B * S * K * hd * es, B * H * S * 4
+    qb, kb, stat = B * S * H * hd * es, B * Skv * K * hd * es, B * H * S * 4
+    o32 = B * S * H * hd * 4 if train and dtype == torch.bfloat16 else 0
     work = {  # name: (matmul FLOPs, bytes)
-        "flash_fwd": (4 * pairs * hd, qb + 2 * kb + qb + stat),
-        "flash_bwd_delta": (2 * B * S * H * hd, 2 * qb + stat),
+        "flash_fwd": (4 * pairs * hd, qb + 2 * kb + qb + stat + o32),
+        "flash_bwd_delta": (2 * B * S * H * hd, qb + (o32 or qb) + stat),
         "flash_bwd_dq": (6 * pairs * hd, 2 * qb + 2 * kb + 2 * stat + qb),
         "flash_bwd_dkdv": (8 * pairs * hd, 2 * qb + 2 * kb + 2 * stat + 2 * kb),
     }
@@ -808,18 +898,24 @@ def wkv6_bounds(B, S, H, hd, dtype, state=False, save=True, **_) -> dict:
     return out
 
 
-def library_times(q, k, v, o, do, window) -> dict:
+def library_times(q, k, v, o, do, window, causal=True) -> dict:
     """scaled_dot_product_attention forward, its backward (one call giving
     dq, dk, dv), and ``torch.linalg.vecdot`` for delta (rowsum(dO * O),
-    (B, S, H) in bf16 where the kernel writes (B, H, S) in f32), on the
-    same inputs; (B, H, S, hd) views for SDPA, with k and v expanded to the
+    (B, S, H) in bf16 where the kernel writes (B, H, S) in f32; on the
+    bf16 output, since vecdot takes one dtype and the kernel reads o32),
+    on the same inputs; (B, H, S, hd) views for SDPA, with k and v expanded to the
     H query heads beforehand where K < H (the library's flash kernels take
     equal head counts).  Where the window is shorter than the sequence,
-    :func:`windowed_library_times` times the same windowed function."""
+    :func:`windowed_library_times` times the same windowed function;
+    bidirectional or cross-attention (``Sq != Skv``),
+    :func:`unmasked_library_times`."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ref import repeat_kv
 
+    if not causal:
+        return {"flash_bwd_delta": time_ms(lambda: torch.linalg.vecdot(o, do, dim=-1)),
+                **unmasked_library_times(q, k, v, o, do)}
     H, K = q.shape[2], k.shape[2]
     k, v = repeat_kv(k, H // K).contiguous(), repeat_kv(v, H // K).contiguous()
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
@@ -837,6 +933,38 @@ def library_times(q, k, v, o, do, window) -> dict:
     except (RuntimeError, TypeError) as e:   # library op missing or refusing
         print(f"  library backward not timed: {e}", flush=True)
     return out
+
+
+def unmasked_library_times(q, k, v, o, do) -> dict:
+    """SDPA forward of the unmasked function (``is_causal=False``, kv of
+    its own length, ``enable_gqa`` over the kernels' (B, Skv, K, hd) k and
+    v: no expansion), and its backward (the autograd node: dq, dk, dv in one
+    call); the output held to the kernel's within ``LIBRARY_LIMIT`` and
+    the backend PyTorch chose named from one profiled call.  Nothing where
+    SDPA refuses, with its reason."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    fwd = lambda: F.scaled_dot_product_attention(*leaves, is_causal=False,  # noqa: E731
+                                                 enable_gqa=True)
+    try:
+        out = fwd()
+    except (RuntimeError, TypeError) as e:   # no backend takes it
+        print(f"  library: SDPA refuses (is_causal=False, enable_gqa): "
+              f"{str(e).splitlines()[0][:160]}", flush=True)
+        return {}
+    ratio = close(out.detach().transpose(1, 2), o, *LIBRARY_LIMIT)[3]
+    kernels = [name for name in device_times(fwd) if "elementwise" not in name]
+    print(f"  library: SDPA (is_causal=False, enable_gqa), output {ratio:.3f} of the limit "
+          f"from the kernel's; its kernels {[n[:60] for n in kernels[:3]]}", flush=True)
+    if ratio > 1.0:
+        return {}
+    res = {"flash_fwd": time_ms(fwd)}
+    if q.shape[1] > 1:
+        dot = do.transpose(1, 2)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True))
+        res.update({"flash_bwd_dq": bwd_ms, "flash_bwd_dkdv": bwd_ms})
+    return res
 
 
 def windowed_library_times(qt, kt, vt, dot, window, o) -> dict:
@@ -886,34 +1014,42 @@ def print_row(label: str, name: str, row: dict) -> None:
         for key, val in row.items()), flush=True)
 
 
-def time_flash(shp: dict, label: str) -> dict:
+def time_flash(shp: dict, label: str, forward_only: bool = False) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v, do = make_inputs(**shp, seed=1)
-    w = shp["window"]
-    o, lse = fa.fwd(q, k, v, True, w)
-    delta = fa.bwd_delta(o, do)
+    w, c, train = shp["window"], shp["causal"], not forward_only
+    # each call as its path makes it: in training the forward also writes
+    # o32 and delta reads it
+    o, lse, o32 = fa.fwd(q, k, v, c, w, out_f32=True)
+    delta = fa.bwd_delta(o32, do)
     runs = {
-        "flash_fwd": (lambda: fa.fwd(q, k, v, True, w), lambda: fa.plain_fwd(q, k, v, True, w)),
-        "flash_bwd_delta": (lambda: fa.bwd_delta(o, do), lambda: fa.plain_bwd_delta(o, do)),
-        "flash_bwd_dq": (lambda: fa.bwd_dq(q, k, v, do, lse, delta, True, w),
-                         lambda: fa.plain_bwd(q, k, v, do, lse, delta, True, w)),
-        "flash_bwd_dkdv": (lambda: fa.bwd_dkdv(q, k, v, do, lse, delta, True, w),
-                           lambda: fa.plain_bwd(q, k, v, do, lse, delta, True, w)),
+        "flash_fwd": (lambda: fa.fwd(q, k, v, c, w, out_f32=train),
+                      lambda: fa.plain_fwd(q, k, v, c, w, out_f32=train)),
+        "flash_bwd_delta": (lambda: fa.bwd_delta(o32, do),
+                            lambda: fa.plain_bwd_delta(o32, do)),
+        "flash_bwd_dq": (lambda: fa.bwd_dq(q, k, v, do, lse, delta, c, w),
+                         lambda: fa.plain_bwd(q, k, v, do, lse, delta, c, w)),
+        "flash_bwd_dkdv": (lambda: fa.bwd_dkdv(q, k, v, do, lse, delta, c, w),
+                           lambda: fa.plain_bwd(q, k, v, do, lse, delta, c, w)),
     }
-    bnd = bounds(**shp)
-    lib = library_times(q, k, v, o, do, w)
+    if forward_only:
+        runs = {"flash_fwd": runs["flash_fwd"]}
+    bnd = bounds(**shp, train=train)
+    lib = library_times(q, k, v, o, do, w, c)
     out = {}
     for name, (kern, plain) in runs.items():
         out[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
                      "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
                      "library_ms": lib.get(name)}
         print_row(label, name, out[name])
+    if forward_only:
+        return out
     pair = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkdv"]["ms"]
     lib_bwd = out["flash_bwd_dq"]["library_ms"]
     print(f"  {label:8s} backward pair (dq + dk/dv) {pair:.4f} ms; library backward "
           f"{'not timed' if lib_bwd is None else f'{lib_bwd:.4f} ms'}", flush=True)
-    del q, k, v, do, o, lse, delta, runs
+    del q, k, v, do, o, lse, o32, delta, runs
     torch.cuda.empty_cache()
     return out
 
@@ -1014,8 +1150,9 @@ def profile_units() -> None:
 def time_kernels() -> dict:
     """Each kernel at its main path's shape (the kernels line); the flash
     kernels also at recurrentgemma-2b's local-attention shape, at
-    gemma3-1b's L and G shapes and at the G shapes of internlm2-20b,
-    qwen1.5-32b and qwen2-moe-a2.7b (printed rows of their own)."""
+    gemma3-1b's L and G shapes, at the G shapes of internlm2-20b,
+    qwen1.5-32b and qwen2-moe-a2.7b, and at the encoder-decoder path's six
+    (printed rows of their own; ``cross_decode`` forward only)."""
     timing = {**time_flash(SLICE, "slice"), **time_rglru(RGLRU_SLICE, "slice"),
               **time_wkv6(WKV6_SLICE, "slice")}
     time_flash(L_BLOCK, "l_block")
@@ -1024,6 +1161,10 @@ def time_kernels() -> dict:
     time_flash(INTERNLM2_G, "internlm2_g")
     time_flash(QWEN32_G, "qwen32_g")
     time_flash(QWEN2MOE_G, "qwen2moe_g")
+    for label, shp in (("whisper_enc", WHISPER_ENC), ("whisper_dec", WHISPER_DEC),
+                       ("whisper_cross", WHISPER_CROSS), ("llama_g", LLAMA_G),
+                       ("llama_cross", LLAMA_CROSS), ("cross_decode", CROSS_DECODE)):
+        time_flash(shp, label, forward_only=label in FORWARD_ONLY)
     return timing
 
 
@@ -1496,12 +1637,15 @@ DECODE_F32_LIMIT = 2e-4
 DECODE_KERNELS = {"recurrentgemma-2b": ("rglru_fwd",), "rwkv6-1.6b": ("wkv6_fwd",)}
 
 
-def _decode_config(arch: str, depth: int, dtype):
+def _decode_config(arch: str, depth: int | None, dtype):
+    """``arch`` at its published widths in ``dtype``, ``depth`` layers (its
+    published depth for None)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch), num_layers=depth, dtype=dtype).validate()
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=depth or cfg.num_layers, dtype=dtype).validate()
 
 
 def decode_vs_forward(arch: str, depth: int, total: int) -> dict:
@@ -1758,6 +1902,310 @@ def remat_and_accumulation() -> None:
         raise SystemExit(f"accumulation off one batch by {worst:.3e} at {leaf}")
 
 
+# ----------------------------------------------------------------------
+# 15. the encoder-decoder path: whisper-tiny and llama-3.2-vision-90b
+# ----------------------------------------------------------------------
+#: whisper-tiny on the card against the CPU, float32: batch, decoder tokens
+WHISPER_CHECK = (2, 64)
+#: whisper-tiny's bfloat16 training: batch, tokens (its 448-token text
+#: context), AdamW steps
+WHISPER_TRAIN = (8, 448, 3)
+#: whisper-tiny's decode: batch, prefilled tokens, decode steps (bfloat16
+#: timed); the float32 check against ``forward`` prefills and generates
+#: half as many
+WHISPER_DECODE = (4, 16, 48)
+#: llama-3.2-vision-90b at its published widths cut to one GGGGC unit: the
+#: bfloat16 training step's tokens (batch 1) and the float32 decode's
+#: tokens (batch 2, prefilled then generated half and half)
+LLAMA_TRAIN_SEQ = 4096
+LLAMA_DECODE_TOKENS = 32
+#: the card against the CPU, and decode against ``forward``, in float32:
+#: the f32 ``_tol`` of tests/test_kernels.py, of each tensor's scale
+ENCDEC_F32_LIMIT = 2e-4
+
+
+def _encoder_input(cfg, batch: int, gen: torch.Generator, device="cuda") -> torch.Tensor:
+    """Stub frames (whisper) or image embeddings (llama-vision), N(0, 1)."""
+    n = cfg.encoder_seq or cfg.num_image_tokens
+    return torch.randn(batch, n, cfg.d_model, generator=gen, device=device).to(cfg.dtype)
+
+
+def whisper_card_vs_cpu() -> dict:
+    """whisper-tiny at its published widths and depth (4 + 4 layers), float32
+    (TF32 off), ``WHISPER_CHECK`` tokens over 1500 frames: the logits, the
+    loss and every gradient leaf (the encoder's included) through the
+    kernels on the card against the plain versions on the CPU, within
+    ``ENCDEC_F32_LIMIT`` of each tensor's scale (``worst_leaf``).  Returns
+    the kernels the card side launched."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import init_params, loss_and_grads
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as T
+    from repro_torch.traces.generate import tf32
+
+    cfg = _decode_config("whisper-tiny", None, torch.float32)
+    B, S = WHISPER_CHECK
+    g = torch.Generator().manual_seed(3)
+    tokens, labels = (torch.randint(0, cfg.vocab_size, (B, S), generator=g) for _ in range(2))
+    frames = _encoder_input(cfg, B, g, "cpu")
+    params = init_params(cfg, seed=0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(MODEL_CHECK_THREADS)
+    out = {}
+    with tf32(False):
+        for dev in ("cpu", "cuda"):
+            p = T.map_leaves(lambda _, t: t.to(dev), params)
+            kernels.reset_launches()
+            with torch.no_grad():
+                logits = ED.forward(cfg, p, frames.to(dev), tokens.to(dev))
+            total, _, grads = loss_and_grads(cfg, p, tokens.to(dev), labels.to(dev),
+                                             encoder_in=frames.to(dev))
+            out[dev] = (logits.cpu(), float(total), [t.cpu() for _, t in T.leaf_order(grads)])
+            launched = {k: n for k, n in kernels.all_launches().items() if n}
+            del p, logits, grads
+    torch.set_num_threads(threads)
+    (lg_cpu, l_cpu, g_cpu), (lg_gpu, l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    scale = float(lg_cpu.abs().max())
+    err = float((lg_gpu - lg_cpu).abs().max()) / scale
+    paths = ["/".join(map(str, path)) for path, _ in T.leaf_order(params)]
+    worst, leaf = worst_leaf(paths, g_cpu, g_gpu)
+    print(f"  whisper-tiny f32 (4 + 4 layers, batch {B}, {S} tokens, 1500 frames) card vs "
+          f"CPU: logits {err:.3e} of scale {scale:.3e}; loss {l_gpu:.6f} vs {l_cpu:.6f}; "
+          f"worst of {len(paths)} gradient leaves {leaf} {worst:.3e} (limit "
+          f"{ENCDEC_F32_LIMIT:g}); card launches {launched}", flush=True)
+    if not (err <= ENCDEC_F32_LIMIT and worst <= ENCDEC_F32_LIMIT
+            and abs(l_gpu - l_cpu) <= ENCDEC_F32_LIMIT * abs(l_cpu)):
+        raise SystemExit(f"whisper-tiny on the card disagrees with the CPU: logits {err:.3e}, "
+                         f"{leaf} {worst:.3e}, loss {l_gpu} vs {l_cpu}")
+    # the logits' forward and the loss's: each encoder layer one launch,
+    # each C layer two (self and cross); the backward one dk/dv each
+    want = {"flash_fwd": 2 * (cfg.encoder_layers + 2 * cfg.num_layers),
+            "flash_bwd_dkdv": cfg.encoder_layers + 2 * cfg.num_layers}
+    if any(launched.get(k) != n for k, n in want.items()):
+        raise SystemExit(f"whisper-tiny launches {launched}, want {want}")
+    return launched
+
+
+def whisper_train_bf16() -> None:
+    """whisper-tiny at its published widths, bfloat16: ``WHISPER_TRAIN``
+    ``make_train_step`` steps (AdamW, ``remat`` on), frames and tokens from
+    a seed; each step's ms (host clock, synchronised; the first includes
+    cuBLAS's set-up) and the peak device memory."""
+    from repro_torch.launch.steps import init_params, make_train_step
+    from repro_torch.optim.sgd import adamw
+
+    cfg = _decode_config("whisper-tiny", None, torch.bfloat16)
+    B, S, steps = WHISPER_TRAIN
+    g = torch.Generator(device="cuda").manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda"),
+             "labels": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda"),
+             "frames": _encoder_input(cfg, B, g)}
+    params = init_params(cfg, seed=0, device="cuda")
+    opt = adamw(1e-4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  whisper-tiny bf16 train (batch {B} x {S} tokens, 1500 frames, AdamW, remat): "
+          f"ms a step {[round(t, 3) for t in times]}, losses {[round(x, 4) for x in losses]}, "
+          f"peak memory {peak:.2f} GB", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"whisper-tiny training: losses {losses}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+
+def encdec_decode_vs_forward(arch: str, dtype, batch: int, prompt: int, gen: int,
+                             num_layers: int | None = None) -> tuple[float, dict]:
+    """``prefill_via_decode`` of ``prompt`` tokens then ``gen`` greedy
+    ``make_serve_step`` steps (the encoder states computed once), against
+    one ``forward`` over the same tokens: (the worst logit error over the
+    logits' scale, the port kernels the decode launched)."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import init_params, make_serve_step
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as T
+
+    cfg = _decode_config(arch, num_layers, dtype)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    params = init_params(cfg, seed=0, device="cuda")
+    enc_in = _encoder_input(cfg, batch, g)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g, device="cuda")
+    audio = cfg.arch_type == "audio"
+    decoder = params["decoder"] if audio else params
+    with torch.no_grad():
+        enc = ED.encode(cfg, params["encoder"], enc_in) if audio else enc_in
+    kernels.reset_launches()
+    logits, cache = T.prefill_via_decode(cfg, decoder, tokens, prompt + gen, encoder_out=enc)
+    serve = make_serve_step(cfg)
+    outs, fed = [logits], [tokens]
+    for pos in range(prompt, prompt + gen):
+        token = outs[-1][:, -1].argmax(dim=-1)
+        lg, cache = serve(params, {"cache": cache, "token": token, "pos": pos,
+                                   ("encoder_states" if audio else "images"): enc})
+        outs.append(lg[:, None])
+        fed.append(token[:, None])
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in kernels.all_launches().items() if n}
+    with torch.no_grad():
+        full = T.forward(cfg, decoder, torch.cat(fed, dim=1), encoder_out=enc)
+    decoded = torch.cat(outs, dim=1)
+    scale = float(full.abs().max())
+    err = float((decoded - full).abs().max()) / scale
+    del params, decoder, cache, enc, full, decoded, outs
+    torch.cuda.empty_cache()
+    return err, launched
+
+
+def whisper_decode_timing() -> dict:
+    """bfloat16, ``WHISPER_DECODE``: the encoder states computed once, a
+    prefill, one warm-up step, then the decode steps timed on the host
+    clock (synchronised): tokens/s, ms a step, the port kernel launches a
+    token and one step's CUDA kernels and device time."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import init_params, make_serve_step
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as T
+
+    cfg = _decode_config("whisper-tiny", None, torch.bfloat16)
+    B, prompt, steps = WHISPER_DECODE
+    g = torch.Generator(device="cuda").manual_seed(6)
+    params = init_params(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc = ED.encode(cfg, params["encoder"], _encoder_input(cfg, B, g))
+    torch.cuda.synchronize()
+    t_encode = (time.perf_counter() - t0) * 1e3
+    tokens = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g, device="cuda")
+    logits, cache = T.prefill_via_decode(cfg, params["decoder"], tokens, prompt + steps + 2,
+                                         encoder_out=enc)
+    serve = make_serve_step(cfg)
+    state = {"token": logits[:, -1].argmax(dim=-1), "pos": prompt}
+
+    def step():
+        lg, _ = serve(params, {"cache": cache, "encoder_states": enc, **state})
+        state["token"], state["pos"] = lg.argmax(dim=-1), state["pos"] + 1
+
+    step()
+    torch.cuda.synchronize()
+    before = kernels.all_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    per_token = {k: (n - before[k]) / (steps - 1) for k, n in kernels.all_launches().items()
+                 if n != before[k]}
+    n_kernels, device_ms = _cuda_kernels(step)
+    out = {"tokens_per_s": B * (steps - 1) / dt, "step_ms": dt / (steps - 1) * 1e3}
+    print(f"  whisper-tiny bf16 decode: encoder states {t_encode:.3f} ms (batch {B}, 1500 "
+          f"frames, once); {out['tokens_per_s']:.1f} tokens/s ({steps - 1} steps after "
+          f"{prompt} prefilled and one warm-up), {out['step_ms']:.3f} ms a step; port kernel "
+          f"launches a step {per_token}; one step {n_kernels} CUDA kernels, {device_ms:.3f} ms "
+          f"of device time", flush=True)
+    if per_token.get("flash_fwd") != cfg.num_layers:
+        raise SystemExit(f"whisper-tiny decode: flash launches a step {per_token}")
+    del params, cache, enc
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama_train_step() -> dict:
+    """llama-3.2-vision-90b at its published widths, one GGGGC unit (5
+    layers, 6.53 G parameters with the embedding and the untied head),
+    bfloat16: one ``make_train_step`` step (SGD with momentum, ``remat``
+    on) at batch 1 x ``LLAMA_TRAIN_SEQ`` tokens and 1601 image tokens; its
+    ms (host clock, synchronised, cuBLAS's set-up included) and the peak
+    device memory.  Returns the port kernels it launched."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import init_params, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.sgd import sgd
+
+    cfg = _decode_config("llama-3.2-vision-90b", 5, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    batch = {k: torch.randint(0, cfg.vocab_size, (1, LLAMA_TRAIN_SEQ), generator=g,
+                              device="cuda") for k in ("tokens", "labels")}
+    batch["images"] = _encoder_input(cfg, 1, g)
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = T.param_count(params)
+    opt = sgd(1e-3, momentum=0.9)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    params, state, metrics = make_train_step(cfg, opt)(params, state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launched = {k: n for k, n in kernels.all_launches().items() if n}
+    print(f"  llama-3.2-vision-90b bf16 train step (one GGGGC unit, {n_params / 1e9:.3f} G "
+          f"parameters; batch 1 x {LLAMA_TRAIN_SEQ} tokens, 1601 image tokens; SGD, remat): "
+          f"{ms:.1f} ms, loss {loss:.4f}, grad norm {float(metrics['grad_norm']):.4f}, peak "
+          f"memory {peak:.2f} GB; launches {launched}", flush=True)
+    if not math.isfinite(loss) or launched.get("flash_fwd") != 2 * 6 \
+            or launched.get("flash_bwd_dkdv") != 6:
+        raise SystemExit(f"llama-3.2-vision-90b training: loss {loss}, launches {launched}")
+    del params, state, batch, metrics
+    torch.cuda.empty_cache()
+    return launched
+
+
+@phase("encoder-decoder on the card")
+def encdec_on_card(card: str) -> dict:
+    """whisper-tiny (full width and depth) on the card against the CPU in
+    float32, trained in bfloat16, decoded against ``forward`` in float32
+    and timed in bfloat16; llama-3.2-vision-90b at its published widths cut
+    to one GGGGC unit: one bfloat16 training step, and a float32 decode
+    against ``forward``.  Returns the port kernels the float32 checks,
+    the float32 decodes and the training step launched."""
+    from repro_torch.traces.generate import tf32
+
+    launches: dict[str, int] = {}
+
+    def add(counts: dict) -> None:
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    add(whisper_card_vs_cpu())
+    print(card, flush=True)
+    whisper_train_bf16()
+    B, prompt, steps = WHISPER_DECODE
+    with tf32(False):
+        err, launched = encdec_decode_vs_forward("whisper-tiny", torch.float32, B, prompt // 2,
+                                                 steps // 2)
+    print(f"  whisper-tiny f32 decode of {(prompt + steps) // 2} tokens (batch {B}) vs "
+          f"forward: worst {err:.3e} of the logits' scale (limit {ENCDEC_F32_LIMIT:g}); "
+          f"launches {launched}", flush=True)
+    if not err <= ENCDEC_F32_LIMIT:
+        raise SystemExit(f"whisper-tiny decode off forward by {err:.3e}")
+    add(launched)
+    whisper_decode_timing()
+    add(llama_train_step())
+    half = LLAMA_DECODE_TOKENS // 2
+    with tf32(False):
+        err, launched = encdec_decode_vs_forward("llama-3.2-vision-90b", torch.float32, 2,
+                                                 half, half, num_layers=5)
+    print(f"  llama-3.2-vision-90b f32 decode of {LLAMA_DECODE_TOKENS} tokens (batch 2, one "
+          f"GGGGC unit, 1601 image tokens) vs forward: worst {err:.3e} of the logits' scale "
+          f"(limit {ENCDEC_F32_LIMIT:g}); launches {launched}", flush=True)
+    if not err <= ENCDEC_F32_LIMIT or launched.get("flash_fwd") != LLAMA_DECODE_TOKENS:
+        raise SystemExit(f"llama-3.2-vision-90b decode off forward by {err:.3e}, "
+                         f"launches {launched}")
+    add(launched)
+    return launches
+
+
 def check_measurement(doc: dict, trace_text: str) -> None:
     """The repository's own checks on a measured run: finite positive
     times, the trace's layer rows, the counted all-reduce bytes equal to
@@ -1846,6 +2294,8 @@ def main() -> int:
         for name, n in path_launches.items():
             launches[name] = launches.get(name, 0) + n
     remat_and_accumulation()
+    for name, n in encdec_on_card(card).items():
+        launches[name] = launches.get(name, 0) + n
     line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),
              "replaces": REPLACES[mod.__name__.rsplit(".", 1)[1]], "launches": launches[name],
              "max_abs_err": worst[name], **timing[name]}

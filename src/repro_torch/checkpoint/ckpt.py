@@ -43,7 +43,7 @@ def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    return {SEP.join(path): _to_numpy(leaf) for path, leaf in leaf_order(tree)}
+    return {SEP.join(map(str, path)): _to_numpy(leaf) for path, leaf in leaf_order(tree)}
 
 
 def save_checkpoint(path: str | Path, params: Any, opt_state: Any = None,
@@ -65,7 +65,7 @@ def restore_checkpoint(path: str | Path, params_like: Any, opt_state_like: Any =
 
         def fill(template: Any, prefix: str) -> Any:
             def leaf(key_path: tuple, like: torch.Tensor) -> torch.Tensor:
-                key = SEP.join(key_path)
+                key = SEP.join(map(str, key_path))
                 arr = z[f"{prefix}{SEP}{key}"]
                 if arr.shape != tuple(like.shape):
                     raise ValueError(f"shape mismatch for {key}: {arr.shape} vs "

@@ -5,14 +5,18 @@
 // counterpart (the Pallas kernel is forward only, its gradient reference is
 // jax.grad of repro.kernels.ref.attention).
 //
-// Layout: q, o, dq (B, S, H, hd); k, v, dk, dv (B, S, K, hd), all contiguous;
-// H % K == 0 and query head h reads kv head h / (H / K) (GQA without
-// expanded heads in memory).  lse and delta are (B, H, S) float32.
+// Layout: q, o, dq (B, Sq, H, hd); k, v, dk, dv (B, Skv, K, hd), all
+// contiguous; H % K == 0 and query head h reads kv head h / (H / K) (GQA
+// without expanded heads in memory).  lse and delta are (B, H, Sq) float32.
 // Inputs are float32 or bfloat16; all sums are float32 (bf16 products on
 // the tensor cores accumulate in float32) and every output is written in the
 // input dtype.  Masks: causal (kpos <= qpos),
-// optional sliding window (kpos > qpos - window) and the ragged tail
-// (pos < S); kv tiles a q tile cannot see are skipped as a whole.
+// optional sliding window (kpos > qpos - window) and the ragged tails
+// (qpos < Sq, kpos < Skv); kv tiles a q tile cannot see are skipped as a
+// whole.  Sq != Skv (cross-attention: decoder queries on encoder states,
+// down to one query token in decode) comes only without causal mask or
+// window (the wrapper refuses the rest), so the causal tile bounds below
+// only ever see Sq == Skv.
 //
 // What bounds it on this card: at the main path's shape (B 2, S 1024, 20
 // heads of 128, causal, bf16) the forward does ~255 operations per byte it
@@ -43,7 +47,7 @@
 // in dk/dv, against the function's 4, 6 and 8.  The streamed tiles (K, V in
 // the forward and dq; Q, dO and their lse and delta in dk/dv) go through a
 // two-stage cp.async ring, the next tile loading while this one computes;
-// rows at or past S are zero-filled by the copy.  The forward updates its
+// rows at or past Sq (Skv) are zero-filled by the copy.  The forward updates its
 // online softmax once per 64-row kv tile (32 at hd 256), with the row max
 // over the 4 lanes of a quad.  dk/dv has one CTA per (kv tile, query head,
 // batch): with more than one query head per kv head it writes float32
@@ -116,15 +120,16 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0
   }
 }
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal, int window) {
-  return qpos < S && kpos < S && (!causal || kpos <= qpos) &&
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Skv, int causal,
+                                        int window) {
+  return qpos < Sq && kpos < Skv && (!causal || kpos <= qpos) &&
          (window <= 0 || kpos > qpos - window);
 }
 
-// kv tiles (of C rows) that q rows [q0, q0 + R) can see.
-__device__ __forceinline__ void kv_range(int q0, int R, int C, int S, int causal, int window,
+// kv tiles (of C rows, of Skv) that q rows [q0, q0 + R) can see.
+__device__ __forceinline__ void kv_range(int q0, int R, int C, int Skv, int causal, int window,
                                          int* lo, int* hi) {
-  int last = (S + C - 1) / C - 1;
+  int last = (Skv + C - 1) / C - 1;
   if (causal) last = min(last, (q0 + R - 1) / C);
   int first = 0;
   if (window > 0) first = max(0, q0 - window + 1) / C;
@@ -139,7 +144,7 @@ template <int HD, int R, int C>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int S, int H, int KH, int causal, int window, float scale) {
+                 int Sq, int Skv, int H, int KH, int causal, int window, float scale) {
   constexpr int LD = HD + 1, LP = C + 1;
   constexpr int RM = R / 16, CN = C / 16, DN = HD / 16;
   extern __shared__ float smem[];
@@ -152,11 +157,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kh = h / (H / KH);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qstride = H * HD, kstride = KH * HD;
-  const float* qb = q + ((size_t)b * S * H + h) * HD;
-  const float* kb = k + ((size_t)b * S * KH + kh) * HD;
-  const float* vb = v + ((size_t)b * S * KH + kh) * HD;
+  const float* qb = q + ((size_t)b * Sq * H + h) * HD;
+  const float* kb = k + ((size_t)b * Skv * KH + kh) * HD;
+  const float* vb = v + ((size_t)b * Skv * KH + kh) * HD;
 
-  load_tile<R, HD>(Qs, qb, q0, S, qstride, scale);
+  load_tile<R, HD>(Qs, qb, q0, Sq, qstride, scale);
 
   float acc[RM][DN], m[RM], l[RM];
 #pragma unroll
@@ -168,12 +173,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   int lo, hi;
-  kv_range(q0, R, C, S, causal, window, &lo, &hi);
+  kv_range(q0, R, C, Skv, causal, window, &lo, &hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * C;
     __syncthreads();
-    load_tile<C, HD>(Ks, kb, k0, S, kstride, 1.f);
-    load_tile<C, HD>(Vs, vb, k0, S, kstride, 1.f);
+    load_tile<C, HD>(Ks, kb, k0, Skv, kstride, 1.f);
+    load_tile<C, HD>(Vs, vb, k0, Skv, kstride, 1.f);
     __syncthreads();
 
     float s[RM][CN];
@@ -200,7 +205,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
-        if (!visible(qpos, k0 + tx + 16 * j, S, causal, window)) s[i][j] = NEG_INF;
+        if (!visible(qpos, k0 + tx + 16 * j, Sq, Skv, causal, window)) s[i][j] = NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max16(mx));
@@ -208,7 +213,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
-        const float p = visible(qpos, k0 + tx + 16 * j, S, causal, window)
+        const float p = visible(qpos, k0 + tx + 16 * j, Sq, Skv, causal, window)
                             ? expf(s[i][j] - m_new) : 0.f;
         Ps[(ty * RM + i) * LP + tx + 16 * j] = p;
         sum += p;
@@ -237,33 +242,34 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int qpos = q0 + ty * RM + i;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    float* ob = o + (((size_t)b * S + qpos) * H + h) * HD;
+    float* ob = o + (((size_t)b * Sq + qpos) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < DN; ++j) ob[tx + 16 * j] = acc[i][j] / lc;
-    if (tx == 0) lse[((size_t)b * H + h) * S + qpos] = m[i] + logf(lc);
+    if (tx == 0) lse[((size_t)b * H + h) * Sq + qpos] = m[i] + logf(lc);
   }
 }
 
 // ---------------------------------------------------------------------------
 // backward: delta = rowsum(dO * O)
 // ---------------------------------------------------------------------------
-// acc + the sum of the products of two 16-byte chunks of T (8 bf16 or 4
-// float32 values).
-template <typename T>
-__device__ __forceinline__ float dot16(const uint4& a, const uint4& b, float acc) {
-  if constexpr (std::is_same<T, float>::value) {
-    const float* x = reinterpret_cast<const float*>(&a);
+// acc + the sum of the products of a 16-byte chunk of dO (8 bf16 or 4
+// float32 values) and the same values of the float32 O: RO 16-byte chunks
+// of O (RO = 2 beside a bf16 dO, else 1).
+template <typename TD, int RO>
+__device__ __forceinline__ float dot16(const uint4 (&a)[RO], const uint4& b, float acc) {
+  if constexpr (std::is_same<TD, float>::value) {
+    const float* x = reinterpret_cast<const float*>(&a[0]);
     const float* y = reinterpret_cast<const float*>(&b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc = fmaf(x[i], y[i], acc);
   } else {
-    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
     const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 xf = __bfloat1622float2(x[i]), yf = __bfloat1622float2(y[i]);
+      const float2 xf = reinterpret_cast<const float2*>(&a[i / 2])[i % 2];
+      const float2 yf = __bfloat1622float2(y[i]);
       acc = fmaf(xf.x, yf.x, acc);
       acc = fmaf(xf.y, yf.y, acc);
     }
@@ -271,35 +277,43 @@ __device__ __forceinline__ float dot16(const uint4& a, const uint4& b, float acc
   return acc;
 }
 
-// A row (b, s, h) is read by L lanes, 16 bytes a lane (CPL chunks a lane
-// where 32 lanes do not cover it), a CTA taking DELTA_THREADS / L
-// consecutive rows; its sum is a shuffle over the L lanes, written by the
-// first.  One row a thread group and many small CTAs measured faster with
-// L2 cold than several rows a thread in flight or a CTA's writes staged
-// into contiguous runs (PERF.md).
+// A row (b, s, h) is read by L lanes, 16 bytes of dO a lane (CPL chunks a
+// lane where 32 lanes do not cover it; RO chunks of O beside each), a CTA
+// taking DELTA_THREADS / L consecutive rows; its sum is a shuffle over the
+// L lanes, written by the first.  One row a thread group and many small
+// CTAs measured faster with L2 cold than several rows a thread in flight or
+// a CTA's writes staged into contiguous runs (PERF.md).  O is float32 for
+// either dO: beside a bf16 dO it is the tensor-core forward's output before
+// its rounding to bf16 (o32), so that delta = rowsum(dO * O) is not off by
+// O's rounding, which in the short causal rows put dq off the float32
+// reference's by up to ~1e-2 (PERF.md).
 constexpr int DELTA_THREADS = 256;
-template <typename T, int HD>
+template <typename TD, int HD>
 __global__ void __launch_bounds__(DELTA_THREADS)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_delta_kernel(const float* __restrict__ o, const TD* __restrict__ dout,
                        float* __restrict__ delta, int S, int H, int rows) {
-  constexpr int CPR = HD * sizeof(T) / 16;  // 16-byte chunks a row
+  constexpr int CPR = HD * sizeof(TD) / 16;  // 16-byte chunks of a dO row
+  constexpr int RO = sizeof(float) / sizeof(TD);
   constexpr int L = CPR < 32 ? CPR : 32, CPL = CPR / L;
   const int r = blockIdx.x * (DELTA_THREADS / L) + threadIdx.x / L, li = threadIdx.x % L;
-  const uint4* ob = reinterpret_cast<const uint4*>(o) + (size_t)r * CPR + li;
+  const uint4* ob = reinterpret_cast<const uint4*>(o) + ((size_t)r * CPR + li) * RO;
   const uint4* db = reinterpret_cast<const uint4*>(dout) + (size_t)r * CPR + li;
-  uint4 x[CPL], y[CPL];
+  uint4 x[CPL][RO], y[CPL];
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
     if (r < rows) {
-      x[c] = __ldg(ob + c * L);
+#pragma unroll
+      for (int i = 0; i < RO; ++i) x[c][i] = __ldg(ob + c * L * RO + i);
       y[c] = __ldg(db + c * L);
     } else {
-      x[c] = y[c] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int i = 0; i < RO; ++i) x[c][i] = make_uint4(0u, 0u, 0u, 0u);
+      y[c] = make_uint4(0u, 0u, 0u, 0u);
     }
   }
   float acc = 0.f;
 #pragma unroll
-  for (int c = 0; c < CPL; ++c) acc = dot16<T>(x[c], y[c], acc);
+  for (int c = 0; c < CPL; ++c) acc = dot16<TD, RO>(x[c], y[c], acc);
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (li == 0 && r < rows) {
@@ -316,8 +330,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int S, int H, int KH, int causal, int window,
-                    float scale) {
+                    float* __restrict__ dq, int Sq, int Skv, int H, int KH, int causal,
+                    int window, float scale) {
   constexpr int LD = HD + 1, LP = C + 1;
   constexpr int RM = R / 16, CN = C / 16, DN = HD / 16;
   extern __shared__ float smem[];
@@ -331,32 +345,32 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kh = h / (H / KH);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qstride = H * HD, kstride = KH * HD;
-  const size_t head_off = ((size_t)b * S * H + h) * HD;
-  const float* kb = k + ((size_t)b * S * KH + kh) * HD;
-  const float* vb = v + ((size_t)b * S * KH + kh) * HD;
-  const float* lseb = lse + ((size_t)b * H + h) * S;
-  const float* deltab = delta + ((size_t)b * H + h) * S;
+  const size_t head_off = ((size_t)b * Sq * H + h) * HD;
+  const float* kb = k + ((size_t)b * Skv * KH + kh) * HD;
+  const float* vb = v + ((size_t)b * Skv * KH + kh) * HD;
+  const float* lseb = lse + ((size_t)b * H + h) * Sq;
+  const float* deltab = delta + ((size_t)b * H + h) * Sq;
 
-  load_tile<R, HD>(Qs, q + head_off, q0, S, qstride, scale);
-  load_tile<R, HD>(dOs, dout + head_off, q0, S, qstride, 1.f);
+  load_tile<R, HD>(Qs, q + head_off, q0, Sq, qstride, scale);
+  load_tile<R, HD>(dOs, dout + head_off, q0, Sq, qstride, 1.f);
 
   float lse_r[RM], delta_r[RM], acc[RM][DN];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int qpos = q0 + ty * RM + i;
-    lse_r[i] = qpos < S ? lseb[qpos] : 0.f;
-    delta_r[i] = qpos < S ? deltab[qpos] : 0.f;
+    lse_r[i] = qpos < Sq ? lseb[qpos] : 0.f;
+    delta_r[i] = qpos < Sq ? deltab[qpos] : 0.f;
 #pragma unroll
     for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
   }
 
   int lo, hi;
-  kv_range(q0, R, C, S, causal, window, &lo, &hi);
+  kv_range(q0, R, C, Skv, causal, window, &lo, &hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * C;
     __syncthreads();
-    load_tile<C, HD>(Ks, kb, k0, S, kstride, 1.f);
-    load_tile<C, HD>(Vs, vb, k0, S, kstride, 1.f);
+    load_tile<C, HD>(Ks, kb, k0, Skv, kstride, 1.f);
+    load_tile<C, HD>(Vs, vb, k0, Skv, kstride, 1.f);
     __syncthreads();
 
     float s[RM][CN], dp[RM][CN];
@@ -390,7 +404,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int qpos = q0 + ty * RM + i;
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
-        const float p = visible(qpos, k0 + tx + 16 * j, S, causal, window)
+        const float p = visible(qpos, k0 + tx + 16 * j, Sq, Skv, causal, window)
                             ? expf(s[i][j] - lse_r[i]) : 0.f;
         dSs[(ty * RM + i) * LP + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
       }
@@ -414,8 +428,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int qpos = q0 + ty * RM + i;
-    if (qpos >= S) continue;
-    float* db = dq + (((size_t)b * S + qpos) * H + h) * HD;
+    if (qpos >= Sq) continue;
+    float* db = dq + (((size_t)b * Sq + qpos) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < DN; ++j) db[tx + 16 * j] = acc[i][j] * scale;
   }
@@ -430,8 +444,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KH,
-                      int causal, int window, float scale) {
+                      float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int H,
+                      int KH, int causal, int window, float scale) {
   constexpr int LD = HD + 1, LP = C + 1;
   constexpr int RM = R / 16, CN = C / 16, DN = HD / 16;
   extern __shared__ float smem[];
@@ -446,10 +460,10 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int G = H / KH;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qstride = H * HD, kstride = KH * HD;
-  const size_t kv_off = ((size_t)b * S * KH + kh) * HD;
+  const size_t kv_off = ((size_t)b * Skv * KH + kh) * HD;
 
-  load_tile<R, HD>(Ks, k + kv_off, k0, S, kstride, 1.f);
-  load_tile<R, HD>(Vs, v + kv_off, k0, S, kstride, 1.f);
+  load_tile<R, HD>(Ks, k + kv_off, k0, Skv, kstride, 1.f);
+  load_tile<R, HD>(Vs, v + kv_off, k0, Skv, kstride, 1.f);
 
   float dk_acc[RM][DN], dv_acc[RM][DN];
 #pragma unroll
@@ -457,26 +471,26 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DN; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const int nqt = (S + C - 1) / C;
+  const int nqt = (Sq + C - 1) / C;
   const int qt_lo = causal ? k0 / C : 0;
   const int qt_hi = window > 0 ? min(nqt - 1, (k0 + R + window - 2) / C) : nqt - 1;
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
-    const size_t head_off = ((size_t)b * S * H + h) * HD;
-    const float* lseb = lse + ((size_t)b * H + h) * S;
-    const float* deltab = delta + ((size_t)b * H + h) * S;
+    const size_t head_off = ((size_t)b * Sq * H + h) * HD;
+    const float* lseb = lse + ((size_t)b * H + h) * Sq;
+    const float* deltab = delta + ((size_t)b * H + h) * Sq;
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
       const int q0 = qt * C;
       __syncthreads();
-      load_tile<C, HD>(Qs, q + head_off, q0, S, qstride, scale);
-      load_tile<C, HD>(dOs, dout + head_off, q0, S, qstride, 1.f);
+      load_tile<C, HD>(Qs, q + head_off, q0, Sq, qstride, scale);
+      load_tile<C, HD>(dOs, dout + head_off, q0, Sq, qstride, 1.f);
       float lse_c[CN], delta_c[CN];
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
         const int qpos = q0 + tx + 16 * j;
-        lse_c[j] = qpos < S ? lseb[qpos] : 0.f;
-        delta_c[j] = qpos < S ? deltab[qpos] : 0.f;
+        lse_c[j] = qpos < Sq ? lseb[qpos] : 0.f;
+        delta_c[j] = qpos < Sq ? deltab[qpos] : 0.f;
       }
       __syncthreads();
 
@@ -511,7 +525,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int kpos = k0 + ty * RM + i;
 #pragma unroll
         for (int j = 0; j < CN; ++j) {
-          const float p = visible(q0 + tx + 16 * j, kpos, S, causal, window)
+          const float p = visible(q0 + tx + 16 * j, kpos, Sq, Skv, causal, window)
                               ? expf(s[i][j] - lse_c[j]) : 0.f;
           PT[(ty * RM + i) * LP + tx + 16 * j] = p;
           dST[(ty * RM + i) * LP + tx + 16 * j] = p * (dp[i][j] - delta_c[j]);
@@ -546,8 +560,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int kpos = k0 + ty * RM + i;
-    if (kpos >= S) continue;
-    const size_t off = (((size_t)b * S + kpos) * KH + kh) * HD;
+    if (kpos >= Skv) continue;
+    const size_t off = (((size_t)b * Skv + kpos) * KH + kh) * HD;
 #pragma unroll
     for (int j = 0; j < DN; ++j) {
       dk[off + tx + 16 * j] = dk_acc[i][j];
@@ -626,7 +640,8 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [row0, row0 + ROWS) of one head (row stride `stride` elements) into
-// dst[r * (HD + 8) + d], asynchronously; rows at or past S are zeros.
+// dst[r * (HD + 8) + d], asynchronously; rows at or past S (the tensor's
+// length: Sq or Skv) are zeros.
 template <int ROWS, int HD, int NT>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int row0, int S,
                                                 int stride) {
@@ -651,12 +666,15 @@ __device__ __forceinline__ void load_stats_async(float* dst, const float* src, i
 // (hi + lo) as A to O += P V.  A row's BC scores lie in the 4 lanes of a
 // quad (columns 2t, 2t + 1 of each n8 block), so its max is two shuffles;
 // its sum stays a per-lane partial until the epilogue.  Scores are kept as
-// s * scale * log2(e), so P = exp2(s' - m').
+// s * scale * log2(e), so P = exp2(s' - m').  With o32 (not null) it also
+// writes the output in float32, before its rounding: what the backward's
+// delta reads.
 template <int HD, int NW, int BC>
 __global__ void __launch_bounds__(NW * 32, 1)  // up to 255 registers: no spills
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                     int S, int H, int KH, int causal, int window, float scale) {
+                     float* __restrict__ o32, int Sq, int Skv, int H, int KH, int causal,
+                     int window, float scale) {
   constexpr int NT = NW * 32, BR = 16 * NW, LDS = HD + 8, NC = BC / 16;
   constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -664,21 +682,21 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Ks = Qs + BR * LDS;        // two stages of BC x LDS
   bf16* Vs = Ks + 2 * BC * LDS;    // two stages
 
-  const int nqt = (S + BR - 1) / BR;
+  const int nqt = (Sq + BR - 1) / BR;
   const int q0 = (nqt - 1 - blockIdx.y) * BR;  // y = 0 first: the last q tile sees the most kv tiles
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int kh = h / (H / KH);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int qstride = H * HD, kstride = KH * HD;
-  const size_t q_off = ((size_t)b * S * H + h) * HD, kv_off = ((size_t)b * S * KH + kh) * HD;
+  const size_t q_off = ((size_t)b * Sq * H + h) * HD, kv_off = ((size_t)b * Skv * KH + kh) * HD;
 
   int lo, hi;
-  kv_range(q0, BR, BC, S, causal, window, &lo, &hi);
+  kv_range(q0, BR, BC, Skv, causal, window, &lo, &hi);
   auto load_kv = [&](int kt, int st) {
-    load_tile_async<BC, HD, NT>(Ks + st * BC * LDS, k + kv_off, kt * BC, S, kstride);
-    load_tile_async<BC, HD, NT>(Vs + st * BC * LDS, v + kv_off, kt * BC, S, kstride);
+    load_tile_async<BC, HD, NT>(Ks + st * BC * LDS, k + kv_off, kt * BC, Skv, kstride);
+    load_tile_async<BC, HD, NT>(Vs + st * BC * LDS, v + kv_off, kt * BC, Skv, kstride);
   };
-  load_tile_async<BR, HD, NT>(Qs, q + q_off, q0, S, qstride);
+  load_tile_async<BR, HD, NT>(Qs, q + q_off, q0, Sq, qstride);
   load_kv(lo, 0);
   cp_async_commit();
 
@@ -710,7 +728,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int kc0 = k0 + c * 16;
-      if (!(qw0 >= S || kc0 >= S || (causal && kc0 > qw0 + 15) ||
+      if (!(qw0 >= Sq || kc0 >= Skv || (causal && kc0 > qw0 + 15) ||
             (window > 0 && qw0 - (kc0 + 15) >= window)))
         vis |= 1u << c;
     }
@@ -746,8 +764,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int r = e >> 1;
-            const bool ok = visible(qw0 + g + r * 8, k0 + c * 16 + j * 8 + 2 * t + (e & 1), S,
-                                    causal, window);
+            const bool ok = visible(qw0 + g + r * 8, k0 + c * 16 + j * 8 + 2 * t + (e & 1), Sq,
+                                    Skv, causal, window);
             s[c][j][e] = ok ? s[c][j][e] * sl2 : NEG_INF;
             mx[r] = fmaxf(mx[r], s[c][j][e]);
           }
@@ -807,13 +825,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qpos = qw0 + g + half * 8;
-    if (qpos >= S) continue;
-    bf16* ob = o + (((size_t)b * S + qpos) * H + h) * HD + 2 * t;
+    if (qpos >= Sq) continue;
+    const size_t off = (((size_t)b * Sq + qpos) * H + h) * HD + 2 * t;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(ob + n * 8) = __float22bfloat162_rn(
-          make_float2(acc[n][2 * half] / l[half], acc[n][2 * half + 1] / l[half]));
-    if (t == 0) lse[((size_t)b * H + h) * S + qpos] = m[half] * LN2 + logf(l[half]);
+    for (int n = 0; n < HD / 8; ++n) {
+      const float2 x = make_float2(acc[n][2 * half] / l[half], acc[n][2 * half + 1] / l[half]);
+      *reinterpret_cast<__nv_bfloat162*>(o + off + n * 8) = __float22bfloat162_rn(x);
+      if (o32) *reinterpret_cast<float2*>(o32 + off + n * 8) = x;
+    }
+    if (t == 0) lse[((size_t)b * H + h) * Sq + qpos] = m[half] * LN2 + logf(l[half]);
   }
 }
 
@@ -823,15 +843,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // tiles).  Warp w of a group owns kv rows 16w..16w+15 and, per 16-row q
 // chunk, builds S^T = K Q^T and dP^T = V dO^T (16 x 16 f32), then P^T, dS^T
 // and feeds them as A to dV += P^T dO and dK += dS^T Q.  G = 1: writes dk,
-// dv in bf16 (B, S, KH, HD); G > 1: float32 partials per query head
-// (B, S, H, HD).
+// dv in bf16 (B, Skv, KH, HD); G > 1: float32 partials per query head
+// (B, Skv, H, HD).
 template <int HD, int DV, int NW, int BR>
 __global__ void __launch_bounds__(NW * 32 * (HD / DV), 1)  // up to 255 registers: no spills
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          void* __restrict__ dk, void* __restrict__ dv, int S, int H, int KH,
-                          int causal, int window, float scale) {
+                          void* __restrict__ dk, void* __restrict__ dv, int Sq, int Skv, int H,
+                          int KH, int causal, int window, float scale) {
   constexpr int NT = NW * 32 * (HD / DV), BC = 16 * NW, LDS = HD + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
@@ -847,22 +867,22 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int warp = (threadIdx.x >> 5) % NW, dv0 = (threadIdx.x >> 5) / NW * DV;
   const int qstride = H * HD, kstride = KH * HD;
-  const size_t kv_off = ((size_t)b * S * KH + kh) * HD, q_off = ((size_t)b * S * H + h) * HD;
-  const float* lseb = lse + ((size_t)b * H + h) * S;
-  const float* deltab = delta + ((size_t)b * H + h) * S;
+  const size_t kv_off = ((size_t)b * Skv * KH + kh) * HD, q_off = ((size_t)b * Sq * H + h) * HD;
+  const float* lseb = lse + ((size_t)b * H + h) * Sq;
+  const float* deltab = delta + ((size_t)b * H + h) * Sq;
 
-  const int nqt = (S + BR - 1) / BR;
+  const int nqt = (Sq + BR - 1) / BR;
   const int qt_lo = causal ? k0 / BR : 0;
   const int qt_hi = window > 0 ? min(nqt - 1, (k0 + BC + window - 2) / BR) : nqt - 1;
 
   auto load_q = [&](int qt, int st) {
-    load_tile_async<BR, HD, NT>(Qs + st * BR * LDS, q + q_off, qt * BR, S, qstride);
-    load_tile_async<BR, HD, NT>(dOs + st * BR * LDS, dout + q_off, qt * BR, S, qstride);
-    load_stats_async<BR, NT>(Ls + st * BR, lseb, qt * BR, S);
-    load_stats_async<BR, NT>(Ds + st * BR, deltab, qt * BR, S);
+    load_tile_async<BR, HD, NT>(Qs + st * BR * LDS, q + q_off, qt * BR, Sq, qstride);
+    load_tile_async<BR, HD, NT>(dOs + st * BR * LDS, dout + q_off, qt * BR, Sq, qstride);
+    load_stats_async<BR, NT>(Ls + st * BR, lseb, qt * BR, Sq);
+    load_stats_async<BR, NT>(Ds + st * BR, deltab, qt * BR, Sq);
   };
-  load_tile_async<BC, HD, NT>(Ks, k + kv_off, k0, S, kstride);
-  load_tile_async<BC, HD, NT>(Vs, v + kv_off, k0, S, kstride);
+  load_tile_async<BC, HD, NT>(Ks, k + kv_off, k0, Skv, kstride);
+  load_tile_async<BC, HD, NT>(Vs, v + kv_off, k0, Skv, kstride);
   load_q(qt_lo, 0);
   cp_async_commit();
 
@@ -894,7 +914,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll 1
     for (int c = 0; c < BR / 16; ++c) {
       const int qc0 = q0 + c * 16;
-      if (kw0 >= S || qc0 >= S || (causal && qc0 + 15 < kw0) ||
+      if (kw0 >= Skv || qc0 >= Sq || (causal && qc0 + 15 < kw0) ||
           (window > 0 && qc0 - (kw0 + 15) >= window))
         continue;  // nothing of this 16 x 16 block is visible (warp-uniform)
       float s[2][4], dp[2][4];
@@ -923,7 +943,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int ql = c * 16 + j * 8 + 2 * t + (e & 1);
-          const float p = visible(q0 + ql, kw0 + g + (e >> 1) * 8, S, causal, window)
+          const float p = visible(q0 + ql, kw0 + g + (e >> 1) * 8, Sq, Skv, causal, window)
                               ? expf(s[j][e] * scale - Lt[ql]) : 0.f;
           s[j][e] = p;
           dp[j][e] = p * (dp[j][e] - Dt[ql]);
@@ -958,16 +978,16 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int kpos = kw0 + g + half * 8;
-      if (kpos >= S) continue;
+      if (kpos >= Skv) continue;
       const int col = dv0 + n * 8 + 2 * t;
       const float2 kx = make_float2(dk_acc[n][2 * half] * scale, dk_acc[n][2 * half + 1] * scale);
       const float2 vx = make_float2(dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
       if (partial) {
-        const size_t off = (((size_t)b * S + kpos) * H + h) * HD + col;
+        const size_t off = (((size_t)b * Skv + kpos) * H + h) * HD + col;
         *reinterpret_cast<float2*>(static_cast<float*>(dk) + off) = kx;
         *reinterpret_cast<float2*>(static_cast<float*>(dv) + off) = vx;
       } else {
-        const size_t off = (((size_t)b * S + kpos) * KH + kh) * HD + col;
+        const size_t off = (((size_t)b * Skv + kpos) * KH + kh) * HD + col;
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dk) + off) = __float22bfloat162_rn(kx);
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dv) + off) = __float22bfloat162_rn(vx);
       }
@@ -982,8 +1002,8 @@ __global__ void __launch_bounds__(NW * 32, 1)  // up to 255 registers: no spills
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int S, int H, int KH, int causal, int window,
-                        float scale) {
+                        bf16* __restrict__ dq, int Sq, int Skv, int H, int KH, int causal,
+                        int window, float scale) {
   constexpr int NT = NW * 32, BR = 16 * NW, LDS = HD + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -991,22 +1011,22 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Ks = dOs + BR * LDS;       // two stages of BC x LDS
   bf16* Vs = Ks + 2 * BC * LDS;    // two stages
 
-  const int nqt = (S + BR - 1) / BR;
+  const int nqt = (Sq + BR - 1) / BR;
   const int q0 = (nqt - 1 - blockIdx.y) * BR;  // y = 0 first: the last q tile sees the most kv tiles
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int kh = h / (H / KH);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int qstride = H * HD, kstride = KH * HD;
-  const size_t q_off = ((size_t)b * S * H + h) * HD, kv_off = ((size_t)b * S * KH + kh) * HD;
+  const size_t q_off = ((size_t)b * Sq * H + h) * HD, kv_off = ((size_t)b * Skv * KH + kh) * HD;
 
   int lo, hi;
-  kv_range(q0, BR, BC, S, causal, window, &lo, &hi);
+  kv_range(q0, BR, BC, Skv, causal, window, &lo, &hi);
   auto load_kv = [&](int kt, int st) {
-    load_tile_async<BC, HD, NT>(Ks + st * BC * LDS, k + kv_off, kt * BC, S, kstride);
-    load_tile_async<BC, HD, NT>(Vs + st * BC * LDS, v + kv_off, kt * BC, S, kstride);
+    load_tile_async<BC, HD, NT>(Ks + st * BC * LDS, k + kv_off, kt * BC, Skv, kstride);
+    load_tile_async<BC, HD, NT>(Vs + st * BC * LDS, v + kv_off, kt * BC, Skv, kstride);
   };
-  load_tile_async<BR, HD, NT>(Qs, q + q_off, q0, S, qstride);
-  load_tile_async<BR, HD, NT>(dOs, dout + q_off, q0, S, qstride);
+  load_tile_async<BR, HD, NT>(Qs, q + q_off, q0, Sq, qstride);
+  load_tile_async<BR, HD, NT>(dOs, dout + q_off, q0, Sq, qstride);
   load_kv(lo, 0);
   cp_async_commit();
 
@@ -1015,8 +1035,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qpos = qw0 + g + half * 8;
-    lse_r[half] = qpos < S ? lse[((size_t)b * H + h) * S + qpos] : 0.f;
-    delta_r[half] = qpos < S ? delta[((size_t)b * H + h) * S + qpos] : 0.f;
+    lse_r[half] = qpos < Sq ? lse[((size_t)b * H + h) * Sq + qpos] : 0.f;
+    delta_r[half] = qpos < Sq ? delta[((size_t)b * H + h) * Sq + qpos] : 0.f;
   }
   float acc[HD / 8][4];
 #pragma unroll
@@ -1041,7 +1061,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll 1
     for (int c = 0; c < BC / 16; ++c) {
       const int kc0 = k0 + c * 16;
-      if (qw0 >= S || kc0 >= S || (causal && kc0 > qw0 + 15) ||
+      if (qw0 >= Sq || kc0 >= Skv || (causal && kc0 > qw0 + 15) ||
           (window > 0 && qw0 - (kc0 + 15) >= window))
         continue;  // nothing of this 16 x 16 block is visible (warp-uniform)
       float s[2][4], dp[2][4];
@@ -1070,8 +1090,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
-          const float p = visible(qw0 + g + r * 8, kc0 + j * 8 + 2 * t + (e & 1), S, causal,
-                                  window)
+          const float p = visible(qw0 + g + r * 8, kc0 + j * 8 + 2 * t + (e & 1), Sq, Skv,
+                                  causal, window)
                               ? expf(s[j][e] * scale - lse_r[r]) : 0.f;
           dp[j][e] = p * (dp[j][e] - delta_r[r]);
         }
@@ -1097,8 +1117,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int qpos = qw0 + g + half * 8;
-      if (qpos >= S) continue;
-      bf16* db = dq + (((size_t)b * S + qpos) * H + h) * HD + n * 8 + 2 * t;
+      if (qpos >= Sq) continue;
+      bf16* db = dq + (((size_t)b * Sq + qpos) * H + h) * HD + n * 8 + 2 * t;
       *reinterpret_cast<__nv_bfloat162*>(db) = __float22bfloat162_rn(
           make_float2(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale));
     }
@@ -1166,8 +1186,8 @@ template <int HD> constexpr size_t dkdv_smem() {
 struct Args {
   const void *q, *k, *v, *dout;
   void *o, *dq, *dk, *dv;
-  float *lse, *delta;
-  int B, S, H, KH, causal, window;
+  float *lse, *delta, *o32;
+  int B, Sq, Skv, H, KH, causal, window;
   float scale;
   cudaStream_t stream;
 };
@@ -1179,10 +1199,10 @@ template <int HD> cudaError_t launch_fwd(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.S + R - 1) / R, a.H, a.B);
+  dim3 grid((a.Sq + R - 1) / R, a.H, a.B);
   kern<<<grid, THREADS, smem, a.stream>>>((const float*)a.q, (const float*)a.k, (const float*)a.v,
-                                          (float*)a.o, a.lse, a.S, a.H, a.KH, a.causal, a.window,
-                                          a.scale);
+                                          (float*)a.o, a.lse, a.Sq, a.Skv, a.H, a.KH, a.causal,
+                                          a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1194,10 +1214,10 @@ template <int HD> cudaError_t launch_fwd_mma(const Args& a) {
                                        (int)smem);
   if (e != cudaSuccess) return e;
   constexpr int BR = 16 * F::NW;
-  dim3 grid(a.B * a.H, (a.S + BR - 1) / BR);
+  dim3 grid(a.B * a.H, (a.Sq + BR - 1) / BR);
   kern<<<grid, 32 * F::NW, smem, a.stream>>>((const bf16*)a.q, (const bf16*)a.k,
-                                             (const bf16*)a.v, (bf16*)a.o, a.lse, a.S, a.H,
-                                             a.KH, a.causal, a.window, a.scale);
+                                             (const bf16*)a.v, (bf16*)a.o, a.lse, a.o32, a.Sq,
+                                             a.Skv, a.H, a.KH, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1209,16 +1229,16 @@ template <int HD> cudaError_t launch_dq_mma(const Args& a) {
                                        (int)smem);
   if (e != cudaSuccess) return e;
   constexpr int BR = 16 * M::NW;
-  dim3 grid(a.B * a.H, (a.S + BR - 1) / BR);
+  dim3 grid(a.B * a.H, (a.Sq + BR - 1) / BR);
   kern<<<grid, 32 * M::NW, smem, a.stream>>>((const bf16*)a.q, (const bf16*)a.k,
                                              (const bf16*)a.v, (const bf16*)a.dout, a.lse,
-                                             a.delta, (bf16*)a.dq, a.S, a.H, a.KH, a.causal,
-                                             a.window, a.scale);
+                                             a.delta, (bf16*)a.dq, a.Sq, a.Skv, a.H, a.KH,
+                                             a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-// dk, dv: bf16 (B, S, KH, HD) where H == KH, else float32 partials
-// (B, S, H, HD) that the caller sums over each group of H / KH heads.
+// dk, dv: bf16 (B, Skv, KH, HD) where H == KH, else float32 partials
+// (B, Skv, H, HD) that the caller sums over each group of H / KH heads.
 template <int HD> cudaError_t launch_dkdv_mma(const Args& a) {
   using M = MmaTiles<HD>;
   auto kern = flash_bwd_dkdv_mma_kernel<HD, M::DV, M::NW, M::STREAM>;
@@ -1227,11 +1247,11 @@ template <int HD> cudaError_t launch_dkdv_mma(const Args& a) {
                                        (int)smem);
   if (e != cudaSuccess) return e;
   constexpr int BC = 16 * M::NW;
-  dim3 grid(a.B * a.H, (a.S + BC - 1) / BC);
+  dim3 grid(a.B * a.H, (a.Skv + BC - 1) / BC);
   kern<<<grid, 32 * M::NW * (HD / M::DV), smem, a.stream>>>((const bf16*)a.q, (const bf16*)a.k,
                                              (const bf16*)a.v, (const bf16*)a.dout, a.lse,
-                                             a.delta, a.dk, a.dv, a.S, a.H, a.KH, a.causal,
-                                             a.window, a.scale);
+                                             a.delta, a.dk, a.dv, a.Sq, a.Skv, a.H, a.KH,
+                                             a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1273,10 +1293,10 @@ template <int HD> cudaError_t launch_dq(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.S + R - 1) / R, a.H, a.B);
+  dim3 grid((a.Sq + R - 1) / R, a.H, a.B);
   kern<<<grid, THREADS, smem, a.stream>>>((const float*)a.q, (const float*)a.k, (const float*)a.v,
-                                          (const float*)a.dout, a.lse, a.delta, (float*)a.dq, a.S,
-                                          a.H, a.KH, a.causal, a.window, a.scale);
+                                          (const float*)a.dout, a.lse, a.delta, (float*)a.dq, a.Sq,
+                                          a.Skv, a.H, a.KH, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1287,11 +1307,11 @@ template <int HD> cudaError_t launch_dkdv(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.S + R - 1) / R, a.KH, a.B);
+  dim3 grid((a.Skv + R - 1) / R, a.KH, a.B);
   kern<<<grid, THREADS, smem, a.stream>>>((const float*)a.q, (const float*)a.k, (const float*)a.v,
                                           (const float*)a.dout, a.lse, a.delta, (float*)a.dk,
-                                          (float*)a.dv, a.S, a.H, a.KH, a.causal, a.window,
-                                          a.scale);
+                                          (float*)a.dv, a.Sq, a.Skv, a.H, a.KH, a.causal,
+                                          a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1331,68 +1351,75 @@ template <typename T, int HD> struct Dkdv {
   }
 };
 
-template <typename T, int HD> cudaError_t launch_delta(const void* o, const void* dout,
-                                                        float* delta, int B, int S, int H,
-                                                        cudaStream_t st) {
-  constexpr int CPR = HD * sizeof(T) / 16, ROWS = DELTA_THREADS / (CPR < 32 ? CPR : 32);
+template <typename TD, int HD>
+cudaError_t launch_delta(const float* o, const void* dout, float* delta, int B, int S, int H,
+                         cudaStream_t st) {
+  constexpr int CPR = HD * sizeof(TD) / 16, ROWS = DELTA_THREADS / (CPR < 32 ? CPR : 32);
   const int rows = B * S * H;
-  flash_bwd_delta_kernel<T, HD><<<(rows + ROWS - 1) / ROWS, DELTA_THREADS, 0, st>>>(
-      (const T*)o, (const T*)dout, delta, S, H, rows);
+  flash_bwd_delta_kernel<TD, HD><<<(rows + ROWS - 1) / ROWS, DELTA_THREADS, 0, st>>>(
+      o, (const TD*)dout, delta, S, H, rows);
   return cudaGetLastError();
 }
-template <typename T> cudaError_t delta_by_hd(const void* o, const void* dout, float* delta,
-                                              int B, int S, int H, int hd, cudaStream_t st) {
+template <typename TD>
+cudaError_t delta_by_hd(const float* o, const void* dout, float* delta, int B, int S, int H,
+                        int hd, cudaStream_t st) {
   switch (hd) {
-    case 32: return launch_delta<T, 32>(o, dout, delta, B, S, H, st);
-    case 64: return launch_delta<T, 64>(o, dout, delta, B, S, H, st);
-    case 128: return launch_delta<T, 128>(o, dout, delta, B, S, H, st);
-    case 256: return launch_delta<T, 256>(o, dout, delta, B, S, H, st);
+    case 32: return launch_delta<TD, 32>(o, dout, delta, B, S, H, st);
+    case 64: return launch_delta<TD, 64>(o, dout, delta, B, S, H, st);
+    case 128: return launch_delta<TD, 128>(o, dout, delta, B, S, H, st);
+    case 256: return launch_delta<TD, 256>(o, dout, delta, B, S, H, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  window <= 0 means no sliding window.
+// dtype: 0 float32, 1 bfloat16.  window <= 0 means no sliding window.  Sq
+// and Skv are q's and k's lengths (equal unless causal and window are off).
+// o32: null, or (bfloat16 only) a float32 (B, Sq, H, hd) that receives the
+// output before its rounding to bfloat16.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                         int B, int S, int H, int KH, int hd, int causal, int window,
-                         float scale, int dtype, void* stream) {
+                         float* o32, int B, int Sq, int Skv, int H, int KH, int hd, int causal,
+                         int window, float scale, int dtype, void* stream) {
   Args a{};
-  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
-  a.B = B; a.S = S; a.H = H; a.KH = KH; a.causal = causal; a.window = window;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse; a.o32 = o32;
+  a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.KH = KH; a.causal = causal; a.window = window;
   a.scale = scale; a.stream = (cudaStream_t)stream;
   return (int)Dispatch<Fwd>::run(dtype, hd, a);
 }
 
-// o and dout start on a 16-byte boundary (the kernel reads 16-byte chunks).
-extern "C" int flash_bwd_delta(const void* o, const void* dout, float* delta, int B, int S,
+// o is float32 (for a bfloat16 dout, the forward's o32); dtype is dout's:
+// 0 float32, 1 bfloat16.  o and dout start on a 16-byte boundary (the
+// kernel reads 16-byte chunks).
+extern "C" int flash_bwd_delta(const float* o, const void* dout, float* delta, int B, int S,
                                int H, int hd, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return (int)delta_by_hd<float>(o, dout, delta, B, S, H, hd, st);
-  if (dtype == 1) return (int)delta_by_hd<__nv_bfloat16>(o, dout, delta, B, S, H, hd, st);
+  if (dtype == 1) return (int)delta_by_hd<bf16>(o, dout, delta, B, S, H, hd, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const float* lse, const float* delta, void* dq, int B, int S,
-                            int H, int KH, int hd, int causal, int window, float scale,
+                            const float* lse, const float* delta, void* dq, int B, int Sq,
+                            int Skv, int H, int KH, int hd, int causal, int window, float scale,
                             int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = (float*)lse; a.delta = (float*)delta;
-  a.dq = dq; a.B = B; a.S = S; a.H = H; a.KH = KH; a.causal = causal; a.window = window;
+  a.dq = dq; a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.KH = KH; a.causal = causal;
+  a.window = window;
   a.scale = scale; a.stream = (cudaStream_t)stream;
   return (int)Dispatch<Dq>::run(dtype, hd, a);
 }
 
-// bfloat16 with H > KH: dk and dv are float32 (B, S, H, hd) partials, one
+// bfloat16 with H > KH: dk and dv are float32 (B, Skv, H, hd) partials, one
 // per query head, for the caller to sum over each group of H / KH heads.
 extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, void* dk, void* dv, int B,
-                              int S, int H, int KH, int hd, int causal, int window,
+                              int Sq, int Skv, int H, int KH, int hd, int causal, int window,
                               float scale, int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = (float*)lse; a.delta = (float*)delta;
-  a.dk = dk; a.dv = dv; a.B = B; a.S = S; a.H = H; a.KH = KH; a.causal = causal;
+  a.dk = dk; a.dv = dv; a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.KH = KH; a.causal = causal;
   a.window = window; a.scale = scale; a.stream = (cudaStream_t)stream;
   return (int)Dispatch<Dkdv>::run(dtype, hd, a);
 }

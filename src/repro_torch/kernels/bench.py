@@ -13,19 +13,44 @@ import subprocess
 
 import torch
 
+
+def attn_shape(B, S, H, K, hd, window=None, dtype=torch.bfloat16, causal=True, Skv=None):
+    """A flash attention shape: q (B, S, H, hd), k and v (B, Skv, K, hd)
+    (``Skv`` defaults to S), the mask (``causal``, ``window``) and the
+    dtype; every key present, so that each caller reads them alike."""
+    return dict(B=B, S=S, Skv=S if Skv is None else Skv, H=H, K=K, hd=hd, window=window,
+                causal=causal, dtype=dtype)
+
+
 # The main paths' attention shapes at batch_per_gpu 2, seq 1024: qwen1.5-4b's
 # G blocks, recurrentgemma-2b's L blocks (window 2048 >= S: causal only),
 # gemma3-1b's L blocks (window 512 < S: the window masks) and G blocks.
-SLICE = dict(B=2, S=1024, H=20, K=20, hd=128, window=None, dtype=torch.bfloat16)
-L_BLOCK = dict(B=2, S=1024, H=10, K=1, hd=256, window=2048, dtype=torch.bfloat16)
-GEMMA3_L = dict(B=2, S=1024, H=4, K=1, hd=256, window=512, dtype=torch.bfloat16)
+SLICE = attn_shape(B=2, S=1024, H=20, K=20, hd=128)
+L_BLOCK = attn_shape(B=2, S=1024, H=10, K=1, hd=256, window=2048)
+GEMMA3_L = attn_shape(B=2, S=1024, H=4, K=1, hd=256, window=512)
 GEMMA3_G = dict(GEMMA3_L, window=None)
 # The G blocks of internlm2-20b (and grok-1-314b: 48 query heads on 8 kv
 # heads, a group of 6), qwen1.5-32b (40 heads) and qwen2-moe-a2.7b (16
 # heads), all at hd 128.
-INTERNLM2_G = dict(B=2, S=1024, H=48, K=8, hd=128, window=None, dtype=torch.bfloat16)
+INTERNLM2_G = attn_shape(B=2, S=1024, H=48, K=8, hd=128)
 QWEN32_G = dict(INTERNLM2_G, H=40, K=40)
 QWEN2MOE_G = dict(INTERNLM2_G, H=16, K=16)
+# The encoder-decoder path: whisper-tiny (6 heads of 64, batch 8) over its
+# 1500 frames (the encoder: bidirectional, ragged at 1500 = 23 x 64 + 28),
+# its 448-token text context (the decoder's causal self-attention) and the
+# decoder's cross-attention to the frames; llama-3.2-vision-90b (64 heads
+# on 8 kv heads of 128) at 4096 tokens, its G blocks and its C blocks'
+# cross-attention to 1601 image tokens, in training and at one query token
+# (decode, batch 4).
+WHISPER_ENC = attn_shape(B=8, S=1500, H=6, K=6, hd=64, causal=False)
+WHISPER_DEC = attn_shape(B=8, S=448, H=6, K=6, hd=64)
+WHISPER_CROSS = attn_shape(B=8, S=448, Skv=1500, H=6, K=6, hd=64, causal=False)
+LLAMA_G = attn_shape(B=1, S=4096, H=64, K=8, hd=128)
+LLAMA_CROSS = attn_shape(B=1, S=4096, Skv=1601, H=64, K=8, hd=128, causal=False)
+CROSS_DECODE = attn_shape(B=4, S=1, Skv=1601, H=64, K=8, hd=128, causal=False)
+#: labels of the shapes whose path runs the forward alone: decode's
+#: cross-attention at one token, under ``torch.no_grad`` (no o32)
+FORWARD_ONLY = ("cross_decode",)
 # rwkv6-1.6b's wkv shape at batch_per_gpu 2, seq 1024 (32 heads of 64).
 WKV6_SLICE = dict(B=2, S=1024, H=32, hd=64, dtype=torch.bfloat16)
 # recurrentgemma-2b's RG-LRU shape at batch_per_gpu 2, seq 1024 (W = rnn_width).
@@ -44,11 +69,13 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def make_inputs(B, S, H, K, hd, dtype, seed=0, **_):
-    """q, k, v, do for flash attention: N(0, 1) in ``dtype`` on the card."""
+def make_inputs(B, S, H, K, hd, dtype, Skv=None, seed=0, **_):
+    """q, k, v, do for flash attention: N(0, 1) in ``dtype`` on the card;
+    k and v of ``Skv`` rows (S by default)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     mk = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)  # noqa: E731
-    return mk(B, S, H, hd), mk(B, S, K, hd), mk(B, S, K, hd), mk(B, S, H, hd)
+    Skv = S if Skv is None else Skv
+    return mk(B, S, H, hd), mk(B, Skv, K, hd), mk(B, Skv, K, hd), mk(B, S, H, hd)
 
 
 def rglru_inputs(B, S, W, dtype, h0=False, r_shift=0.0, lam=None, seed=0, **_):

@@ -28,10 +28,18 @@ rounded once, they would put the outputs over the bfloat16 check's limit
 paths' shapes is the tensor cores' rate (the forward's, at qwen1.5-4b's
 shape, its bytes, just under the ridge); they run 8-12x above it
 (``PERF.md``), which ``wgmma`` fed by TMA would narrow.
-``flash_bwd_delta`` only moves bytes: it reads 16 bytes a lane.  With more than one query head per kv head,
+``flash_bwd_delta`` only moves bytes: it reads 16 bytes of dO a lane and
+a float32 O beside it (for bfloat16, the forward's ``o32``).  With more than one query head per kv head,
 ``flash_bwd_dkdv`` writes float32 partials per query head and
 :func:`bwd_dkdv` sums them over the group (:func:`sum_groups`).  float32
 keeps the FMA kernels: TF32 would not meet its 2e-4 check.
+
+q and k may differ in length (``Sq != Skv``: cross-attention, down to one
+query token in decode) only without a causal mask or window: the
+reference has no causal or windowed cross-attention, and the wrappers
+raise on one.  The reference sends such calls, and the encoder's
+bidirectional ones, to ``ref.attention``; the port computes the same
+function with these kernels.
 
 A wrapper given CPU tensors computes its plain version; given CUDA tensors
 it launches its kernel or raises (no fallback).  :func:`flash_attention` is
@@ -70,11 +78,11 @@ def reset_launches() -> None:
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: The library's entry points and their ``argtypes``.
 SIGNATURES = {
-    "flash_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p],
+    "flash_fwd": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p],
     "flash_bwd_delta": [_p, _p, _p, _i, _i, _i, _i, _i, _p],
-    "flash_bwd_dq": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p],
-    "flash_bwd_dkdv": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _i,
-                       _p],
+    "flash_bwd_dq": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p],
+    "flash_bwd_dkdv": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f,
+                       _i, _p],
     "flash_mma_occupancy": [_i, _i, _p],
 }
 _lib = None
@@ -93,15 +101,20 @@ def load_library() -> ctypes.CDLL:
 # ----------------------------------------------------------------------
 # Checks shared by the wrappers
 # ----------------------------------------------------------------------
-def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                 window: int | None = None) -> None:
     """Raise on anything the kernels do not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"want q (B,S,H,hd) and k, v (B,S,K,hd); got "
+        raise ValueError(f"want q (B,Sq,H,hd) and k, v (B,Skv,K,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, hd = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
-        raise ValueError("the kernels take self-attention with aligned q/kv "
-                         f"positions: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in batch or "
+                         "head dim")
+    if k.shape[1] != S and (causal or window is not None):
+        raise ValueError("q and kv lengths differ (cross-attention): the kernels take "
+                         f"that only with causal=False and no window; q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, causal={causal}, window={window}")
     if H % k.shape[2]:
         raise ValueError(f"H={H} not a multiple of K={k.shape[2]}")
     if hd not in SUPPORTED_HEAD_DIMS:
@@ -119,10 +132,10 @@ def _window_arg(window: int | None) -> int:
 # ----------------------------------------------------------------------
 # Plain versions (float32 math, scores materialized)
 # ----------------------------------------------------------------------
-def _visible(S: int, causal: bool, window: int | None, device) -> torch.Tensor:
-    pos = torch.arange(S, device=device)
-    qp, kp = pos[:, None], pos[None, :]
-    mask = torch.ones(S, S, dtype=torch.bool, device=device)
+def _visible(Sq: int, Skv: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=device)
     if causal:
         mask &= kp <= qp
     if window is not None:
@@ -131,18 +144,19 @@ def _visible(S: int, causal: bool, window: int | None, device) -> torch.Tensor:
 
 
 def _scores(q, k, causal, window):
-    """Scaled, masked scores (B, H, S, S) in f32, the scaled q, the
+    """Scaled, masked scores (B, H, Sq, Skv) in f32, the scaled q, the
     expanded k and the mask."""
     B, S, H, hd = q.shape
     qs = q.float() * (1.0 / math.sqrt(hd))
     kf = repeat_kv(k.float(), H // k.shape[2])
     s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
-    mask = _visible(S, causal, window, q.device)
+    mask = _visible(S, k.shape[1], causal, window, q.device)
     return s.masked_fill(~mask, NEG_INF), qs, kf, mask
 
 
-def plain_fwd(q, k, v, causal=True, window=None, rounding="f32"):
-    """(o in q's dtype, lse (B, H, S) f32): what ``flash_fwd`` computes.
+def plain_fwd(q, k, v, causal=True, window=None, rounding="f32", out_f32=False):
+    """(o in q's dtype, lse (B, H, Sq) f32): what ``flash_fwd`` computes;
+    with ``out_f32`` also o in float32 before its rounding (:func:`fwd`).
     ``rounding`` other than ``"f32"`` emulates how the unnormalised
     probabilities exp(s - m) enter O = P V on the tensor cores
     (:func:`round_operand`), before the division by the float32 row sum;
@@ -158,17 +172,19 @@ def plain_fwd(q, k, v, causal=True, window=None, rounding="f32"):
         o = torch.einsum("bhqk,bkhd->bqhd", round_operand(p, rounding), vf) \
             / lc.permute(0, 2, 1, 3)
     lse = (m + torch.log(lc)).squeeze(-1)
-    return o.to(q.dtype).contiguous(), lse.contiguous()
+    out = (o.to(q.dtype).contiguous(), lse.contiguous())
+    return (*out, o.contiguous()) if out_f32 else out
 
 
 def plain_bwd_delta(o, do):
-    """delta = rowsum(dO * O) as (B, H, S) f32: ``flash_bwd_delta``."""
+    """delta = rowsum(dO * O) as (B, H, S) f32: ``flash_bwd_delta`` (which
+    takes O in float32)."""
     return (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
 def sum_groups(partial: torch.Tensor, K: int) -> torch.Tensor:
-    """Per-query-head partials (B, S, H, hd) summed over each group of
-    H / K heads sharing a kv head: (B, S, K, hd).  Query head h belongs
+    """Per-query-head partials (B, Skv, H, hd) summed over each group of
+    H / K heads sharing a kv head: (B, Skv, K, hd).  Query head h belongs
     to kv head h // (H / K)."""
     B, S, H, hd = partial.shape
     return partial.view(B, S, K, H // K, hd).sum(3)
@@ -214,45 +230,59 @@ def plain_bwd(q, k, v, do, lse, delta, causal=True, window=None, rounding="f32")
 # ----------------------------------------------------------------------
 # Wrappers: one per kernel
 # ----------------------------------------------------------------------
-def fwd(q, k, v, causal=True, window=None):
-    """(o, lse).  ``flash_fwd`` on CUDA tensors, :func:`plain_fwd` on CPU."""
-    check_inputs(q, k, v)
+def fwd(q, k, v, causal=True, window=None, out_f32=False):
+    """(o, lse), with ``out_f32`` (o, lse, o32): o32 is the output in
+    float32 before its rounding to q's dtype, which the backward's delta
+    reads (for float32 inputs, o itself).  ``flash_fwd`` on CUDA tensors,
+    :func:`plain_fwd` on CPU."""
+    check_inputs(q, k, v, causal, window)
     w = _window_arg(window)
     if not q.is_cuda:
-        return plain_fwd(q, k, v, causal, window)
+        return plain_fwd(q, k, v, causal, window, out_f32=out_f32)
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    o32 = o if q.dtype == torch.float32 else \
+        torch.empty(q.shape, dtype=torch.float32, device=q.device) if out_f32 else None
     err = load_library().flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, S, H, k.shape[2], hd, int(causal), w, 1.0 / math.sqrt(hd),
+        None if o32 is None or o32 is o else o32.data_ptr(),
+        B, S, k.shape[1], H, k.shape[2], hd, int(causal), w, 1.0 / math.sqrt(hd),
         DTYPE_CODE[q.dtype], stream())
     LAUNCHES["flash_fwd"] += 1
     raise_on(err, "flash_fwd")
-    return o, lse
+    return (o, lse, o32) if out_f32 else (o, lse)
 
 
-def bwd_delta(o, do):
-    """delta (B, H, S) f32.  ``flash_bwd_delta`` on CUDA tensors."""
-    if o.dim() != 4 or o.shape != do.shape:
-        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must match")
-    if o.shape[3] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {o.shape[3]} not in {SUPPORTED_HEAD_DIMS}")
-    check_same(o, do)
-    check_aligned("o and dO", o, do)
-    if not o.is_cuda:
-        return plain_bwd_delta(o, do)
-    B, S, H, hd = o.shape
-    delta = torch.empty(B, H, S, dtype=torch.float32, device=o.device)
-    err = load_library().flash_bwd_delta(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                                         B, S, H, hd, DTYPE_CODE[o.dtype], stream())
+def bwd_delta(o32, do):
+    """delta (B, H, S) f32 from the forward's float32 output o32
+    (:func:`fwd` with ``out_f32``) and dO (float32 or bfloat16).
+    ``flash_bwd_delta`` on CUDA tensors."""
+    if o32.dim() != 4 or o32.shape != do.shape:
+        raise ValueError(f"o32 {tuple(o32.shape)} and dO {tuple(do.shape)} must match")
+    if o32.shape[3] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {o32.shape[3]} not in {SUPPORTED_HEAD_DIMS}")
+    if o32.dtype != torch.float32:
+        raise ValueError(f"delta reads the forward's float32 output (fwd(..., out_f32=True)), "
+                         f"got {o32.dtype}")
+    check_same(o32)
+    check_same(do)
+    if o32.device != do.device:
+        raise ValueError("inputs must share one device")
+    check_aligned("o32 and dO", o32, do)
+    if not o32.is_cuda:
+        return plain_bwd_delta(o32, do)
+    B, S, H, hd = o32.shape
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=o32.device)
+    err = load_library().flash_bwd_delta(o32.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                                         B, S, H, hd, DTYPE_CODE[do.dtype], stream())
     LAUNCHES["flash_bwd_delta"] += 1
     raise_on(err, "flash_bwd_delta")
     return delta
 
 
-def _check_bwd(q, k, v, do, lse, delta):
-    check_inputs(q, k, v)
+def _check_bwd(q, k, v, do, lse, delta, causal, window):
+    check_inputs(q, k, v, causal, window)
     check_same(q, do)
     if do.shape != q.shape:
         raise ValueError("dO must have q's shape")
@@ -266,7 +296,7 @@ def _check_bwd(q, k, v, do, lse, delta):
 
 def bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
     """dq.  ``flash_bwd_dq`` on CUDA tensors."""
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, delta, causal, window)
     w = _window_arg(window)
     if not q.is_cuda:
         return plain_bwd(q, k, v, do, lse, delta, causal, window)[0]
@@ -274,7 +304,7 @@ def bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
     dq = torch.empty_like(q)
     err = load_library().flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), B, S, H, k.shape[2], hd, int(causal), w,
+        delta.data_ptr(), dq.data_ptr(), B, S, k.shape[1], H, k.shape[2], hd, int(causal), w,
         1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
     LAUNCHES["flash_bwd_dq"] += 1
     raise_on(err, "flash_bwd_dq")
@@ -283,23 +313,23 @@ def bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
 
 def bwd_dkdv(q, k, v, do, lse, delta, causal=True, window=None):
     """(dk, dv).  ``flash_bwd_dkdv`` on CUDA tensors."""
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, delta, causal, window)
     w = _window_arg(window)
     if not q.is_cuda:
         return plain_bwd(q, k, v, do, lse, delta, causal, window)[1:]
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    Skv, K = k.shape[1], k.shape[2]
     # bf16 with G = H / K > 1: one CTA per query head writes float32
-    # partials (B, S, H, hd), summed here over the group (no atomics)
+    # partials (B, Skv, H, hd), summed here over the group (no atomics)
     partial = q.dtype == torch.bfloat16 and H != K
     if partial:
-        dk = torch.empty(B, S, H, hd, dtype=torch.float32, device=q.device)
+        dk = torch.empty(B, Skv, H, hd, dtype=torch.float32, device=q.device)
         dv = torch.empty_like(dk)
     else:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = load_library().flash_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, K, hd,
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, Skv, H, K, hd,
         int(causal), w, 1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
     LAUNCHES["flash_bwd_dkdv"] += 1
     raise_on(err, "flash_bwd_dkdv")
@@ -328,28 +358,36 @@ def occupancy(kernel: str, hd: int) -> dict:
 
 
 class FlashAttention(torch.autograd.Function):
-    """Self-attention through the kernels; the backward recomputes the
-    probabilities from the saved row logsumexp."""
+    """Attention through the kernels; the backward recomputes the
+    probabilities from the saved row logsumexp.  Where a gradient is wanted
+    the forward also keeps its output in float32 (o32), and delta = rowsum(dO
+    * O) reads that: from the output rounded to bfloat16, dq in the short
+    causal rows would be off the float32 reference by up to ~1e-2."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, keep_f32):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = fwd(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, o, lse)
+        if keep_f32:
+            o, lse, o32 = fwd(q, k, v, causal, window, out_f32=True)
+        else:
+            (o, lse), o32 = fwd(q, k, v, causal, window), None
+        ctx.save_for_backward(q, k, v, o32, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o32, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = bwd_delta(o, do)
+        delta = bwd_delta(o32, do)
         dk, dv = bwd_dkdv(q, k, v, do, lse, delta, ctx.causal, ctx.window)
         dq = bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
-    """q: (B, S, H, hd); k, v: (B, S, K, hd) with H % K == 0.  Returns
-    (B, S, H, hd) in q's dtype; differentiable in q, k and v."""
-    return FlashAttention.apply(q, k, v, causal, window)
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) with H % K == 0, and Sq ==
+    Skv unless ``causal`` is False and there is no window.  Returns (B, Sq,
+    H, hd) in q's dtype; differentiable in q, k and v."""
+    keep_f32 = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, causal, window, keep_f32)

@@ -16,7 +16,11 @@ fallback.
 The reference's TPU gates (``S % 128``, ``hd % 128``, ``W % 128``,
 ``S % 64``) are not carried over: the kernels mask ragged edges, and on
 CUDA a case a kernel does not take raises, it never quietly takes
-``ref``.
+``ref``.  The reference also sends bidirectional attention (the whisper
+encoder) and cross-attention (``Sq != Skv``, the ``C`` blocks) to ``ref``
+on every backend; here, on CUDA, the flash kernels compute them, which
+take ``Sq != Skv`` with ``causal=False`` and no window and raise on a
+causal or windowed one.
 """
 from __future__ import annotations
 
@@ -43,8 +47,8 @@ def attention(q, k, v, *, q_positions=None, kv_positions=None, causal=True,
                              kv_positions=kv_positions, causal=causal,
                              window=window)
     if q_positions is not None or kv_positions is not None:
-        raise ValueError("the attention kernel takes aligned self-attention "
-                         "positions only (pass none)")
+        raise ValueError("the attention kernels take q at arange(Sq) and kv at "
+                         "arange(Skv) only (pass no positions)")
     return fa.flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -7,7 +7,9 @@ Counterpart of :mod:`repro.launch.serve`: the same arguments, the same
 ``prefill_via_decode`` of random prompts followed by a greedy decode loop,
 and the same summary keys.  As in the reference, the model is always
 ``get_config(arch).reduced(num_layers=2)`` (``--reduced`` is accepted and
-changes nothing); full width is served through
+changes nothing), and an ``audio`` or ``vlm`` arch is served as its dense
+``G`` backbone alone, as the reference does; full width, and the
+encoder-decoder, are served through
 :func:`repro_torch.launch.steps.make_serve_step`.  Runs on CUDA unless
 ``--device cpu`` is given, and raises without a GPU.
 """
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import init_params, make_serve_step
+from repro_torch.launch.steps import dense_backbone, init_params, make_serve_step
 from repro_torch.models import transformer as T
 
 
@@ -45,7 +47,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch).reduced(num_layers=2)
+    cfg = dense_backbone(get_config(args.arch).reduced(num_layers=2))
     params = init_params(cfg, seed=0, device=device)
     max_len = args.prompt_len + args.gen
     gen = torch.Generator(device=device).manual_seed(0)

@@ -1,36 +1,82 @@
 """Step builders: the train, prefill and serve steps.
 
 Counterpart of :mod:`repro.launch.steps` (``init_params``,
-``make_train_step``, ``make_prefill_step``, ``make_serve_step``).  The
-dry-run's shape-only pieces, ``params_shape`` and ``input_specs``, wait for
-the shape-only lowering (``ROADMAP.md`` queue 1, item 9); the
-encoder-decoder branch waits for item 8.  A step updates the parameters
-and optimizer state in place (:mod:`repro_torch.optim.sgd`) and returns
-them.
+``make_train_step``, ``make_prefill_step``, ``make_serve_step``), with the
+reference's branches: an ``audio`` arch (whisper-tiny) is the
+encoder-decoder of :mod:`repro_torch.models.encdec`, fed ``frames`` in
+training and prefill and ``encoder_states`` in decode; a ``vlm`` arch
+(llama-3.2-vision-90b) is the LM with ``images`` (stub patch embeddings)
+as its ``C`` blocks' ``encoder_out``.  The dry-run's shape-only pieces,
+``params_shape`` and ``input_specs``, wait for the shape-only lowering
+(``ROADMAP.md`` queue 1, item 9).  A step updates the parameters and
+optimizer state in place (:mod:`repro_torch.optim.sgd`) and returns them.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.sgd import Optimizer, global_norm
 
 
+def dense_backbone(cfg: ModelConfig) -> ModelConfig:
+    """The config the launchers run for ``cfg``: an ``audio`` or ``vlm``
+    arch trains and serves as its LM backbone alone, every layer a ``G``
+    block of type ``dense``, as the reference's launchers do
+    (``repro/launch/train.py:60-63``, ``repro/launch/serve.py:37-39``);
+    any other arch as it is."""
+    if cfg.arch_type in ("audio", "vlm"):
+        return dataclasses.replace(cfg, layer_pattern="G", arch_type="dense")
+    return cfg
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cpu"):
+    if cfg.arch_type == "audio":
+        return ED.init_encdec(cfg, seed=seed, device=device)
     return T.init_lm(cfg, seed=seed, device=device)
 
 
+#: the batch key of each encoder-fed arch type's encoder input
+ENCODER_INPUT = {"audio": "frames", "vlm": "images"}
+
+
+def encoder_input(cfg: ModelConfig, batch: dict):
+    """``frames`` (audio) or ``images`` (vlm) of ``batch``; None for an
+    LM-only arch."""
+    key = ENCODER_INPUT.get(cfg.arch_type)
+    return None if key is None else batch[key]
+
+
+def model_loss(cfg: ModelConfig, params, tokens, labels, remat: bool = False,
+               param_hook: T.ParamHook | None = None, encoder_in=None):
+    """(total loss, metrics) of the arch's model: the encoder-decoder's
+    ``loss_fn`` for an ``audio`` arch (``encoder_in`` the frames), else the
+    LM's (``encoder_in`` the images of a ``vlm`` arch, or None)."""
+    if cfg.arch_type == "audio":
+        if param_hook is not None:
+            raise ValueError("the encoder-decoder takes no param_hook (nor does the "
+                             "reference's encdec.loss_fn)")
+        return ED.loss_fn(cfg, params, encoder_in, tokens, labels, remat=remat)
+    return T.loss_fn(cfg, params, tokens, labels, encoder_out=encoder_in, remat=remat,
+                     param_hook=param_hook)
+
+
 def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = False,
-                   param_hook: T.ParamHook | None = None):
+                   param_hook: T.ParamHook | None = None, encoder_in=None):
     """(total loss, metrics, gradients keyed like ``params``): the port's
-    ``loss_fn``, then ``torch.autograd.grad`` over every leaf."""
+    ``loss_fn``, then ``torch.autograd.grad`` over every leaf.
+    ``encoder_in``: the frames of an ``audio`` arch or the images of a
+    ``vlm`` arch (:func:`encoder_input`)."""
     paths, leaves = zip(*T.leaf_order(params))
     for leaf in leaves:
         leaf.requires_grad_(True)
     try:
-        total, metrics = T.loss_fn(cfg, params, tokens.long(), labels.long(), remat=remat,
-                                   param_hook=param_hook)
+        total, metrics = model_loss(cfg, params, tokens.long(), labels.long(), remat,
+                                    param_hook, encoder_in)
         grad_list = torch.autograd.grad(total, leaves)
     finally:
         for leaf in leaves:
@@ -44,7 +90,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
                     accum_steps: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: loss -> gradients -> optimizer update; ``batch`` holds
-    ``tokens`` and ``labels`` (B, S).  ``remat`` recomputes each unit in the
+    ``tokens`` and ``labels`` (B, S), and ``frames`` (audio) or ``images``
+    (vlm) (B, n, d_model), split with them into microbatches.  ``remat``
+    recomputes each unit in the
     backward pass.  ``accum_steps > 1`` splits the batch into that many
     microbatches and sums their gradients in float32, then scales by 1 /
     ``accum_steps``; the metrics are the microbatches' means, as in the
@@ -54,9 +102,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     def train_step(params, opt_state, batch):
-        tokens, labels = batch["tokens"], batch["labels"]
+        tokens, labels, enc_in = batch["tokens"], batch["labels"], encoder_input(cfg, batch)
         if accum_steps == 1:
-            total, metrics, grads = loss_and_grads(cfg, params, tokens, labels, remat)
+            total, metrics, grads = loss_and_grads(cfg, params, tokens, labels, remat,
+                                                   encoder_in=enc_in)
             loss = metrics["loss"]
             aux = metrics.get("moe_aux", torch.zeros((), device=total.device))
         else:
@@ -66,8 +115,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
             grads = T.map_leaves(lambda _, p: torch.zeros(p.shape, dtype=torch.float32,
                                                           device=p.device), params)
             total = loss = aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            for tok, lab in zip(tokens.chunk(accum_steps), labels.chunk(accum_steps)):
-                tot, m, g = loss_and_grads(cfg, params, tok, lab, remat)
+            encs = [None] * accum_steps if enc_in is None else enc_in.chunk(accum_steps)
+            for tok, lab, enc in zip(tokens.chunk(accum_steps), labels.chunk(accum_steps),
+                                     encs):
+                tot, m, g = loss_and_grads(cfg, params, tok, lab, remat, encoder_in=enc)
                 for path, acc in T.leaf_order(grads):
                     acc.add_(T.get_path(g, path).float())
                 total = total + tot
@@ -86,11 +137,15 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, batch) -> logits (B, S, V)``, no gradient."""
+    """``prefill_step(params, batch) -> logits (B, S, V)``, no gradient;
+    ``batch`` holds ``tokens``, and ``frames`` or ``images`` as in
+    training."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return T.forward(cfg, params, batch["tokens"])
+        if cfg.arch_type == "audio":
+            return ED.forward(cfg, params, batch["frames"], batch["tokens"])
+        return T.forward(cfg, params, batch["tokens"], encoder_out=encoder_input(cfg, batch))
 
     return prefill_step
 
@@ -98,11 +153,16 @@ def make_prefill_step(cfg: ModelConfig):
 def make_serve_step(cfg: ModelConfig, *, seq_axis: str | None = None):
     """``serve_step(params, batch) -> (logits (B, V), cache)``: one-token
     decode; ``batch`` holds ``cache`` (:func:`repro_torch.models.transformer.
-    init_cache`), ``token`` (B,) and ``pos`` (a Python int).  The cache is
-    updated in place."""
+    init_cache`), ``token`` (B,) and ``pos`` (a Python int), and for an
+    ``audio`` arch ``encoder_states`` (:func:`repro_torch.models.encdec.
+    encode` of the frames, computed once a request), for a ``vlm`` arch
+    ``images``.  The cache is updated in place."""
 
     def serve_step(params, batch):
-        return T.decode_step(cfg, params, batch["cache"], batch["token"], batch["pos"],
-                             seq_axis=seq_axis)
+        cache, token, pos = batch["cache"], batch["token"], batch["pos"]
+        if cfg.arch_type == "audio":
+            return ED.decode_step(cfg, params, cache, batch["encoder_states"], token, pos)
+        return T.decode_step(cfg, params, cache, token, pos,
+                             encoder_out=encoder_input(cfg, batch), seq_axis=seq_axis)
 
     return serve_step

@@ -17,7 +17,10 @@ puts two ranks on one card) and step through
 :func:`repro_torch.comm.ddp.make_ddp_train_step` under ``--policy``, each
 on its shard of the global batch of ``--batch`` rows; rank 0 reports.
 ``samples_per_s`` is that global batch over the mean step time (the
-reference multiplies it by the world once more).
+reference multiplies it by the world once more).  As in the reference, an
+``audio`` or ``vlm`` arch (whisper-tiny, llama-3.2-vision-90b) trains as
+its dense ``G`` backbone alone (:func:`repro_torch.launch.steps.
+dense_backbone`).
 """
 from __future__ import annotations
 
@@ -67,12 +70,13 @@ def train_loop(args, device: torch.device, rank: int = 0, world: int = 1, comm=N
     (the summary, the parameters and the optimizer state at the end)."""
     from repro_torch.checkpoint.ckpt import save_checkpoint
     from repro_torch.data.pipeline import PrefetchLoader, SyntheticLMDataset
-    from repro_torch.launch.steps import init_params, loss_and_grads
+    from repro_torch.launch.steps import dense_backbone, init_params, loss_and_grads
     from repro_torch.optim.sgd import adamw, sgd
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(num_layers=2)
+    cfg = dense_backbone(cfg)
     opt = sgd(args.lr, momentum=0.9) if args.optimizer == "sgd" else adamw(args.lr)
     params = init_params(cfg, seed=0, device=device)
     opt_state = opt.init(params)

@@ -1,5 +1,6 @@
-"""GQA self-attention: parameters, projections with QKV bias, RoPE, the
-full-sequence forward, and the KV-cache decode.
+"""GQA attention: parameters, projections with QKV bias, RoPE, the
+full-sequence forward (self-attention, or cross-attention from ``kv_src``),
+and the KV-cache decode.
 
 Counterpart of :mod:`repro.models.attention` lines 24-148.  The inner
 attention math is :func:`repro_torch.kernels.ops.attention` (the Hopper
@@ -40,22 +41,31 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
 
 
-def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, kv_src: torch.Tensor):
+    """q from ``x``; k and v from ``kv_src`` (``x`` itself in self-attention)."""
+    q, k, v = _proj(x, p["wq"]), _proj(kv_src, p["wk"]), _proj(kv_src, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
 
 
 def attention_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor, *, causal: bool = True,
-                  window: int | None = None) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d), self-attention at positions ``arange(S)``."""
+                  window: int | None = None, kv_src: torch.Tensor | None = None,
+                  use_rope: bool = True) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  Self-attention at positions ``arange(S)``,
+    rotated unless ``use_rope`` is False (the encoder's bidirectional
+    attention passes ``causal=False`` and keeps RoPE, as the reference
+    does); or, given ``kv_src`` (B, S_kv, d), cross-attention: k and v
+    projected from ``kv_src``, no RoPE and no causal mask (reference
+    ``attention_fwd``: ``causal and not cross``)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x)
-    pos = torch.arange(S, device=x.device).expand(B, S)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    out = kops.attention(q, k, v, causal=causal, window=window)
+    cross = kv_src is not None
+    q, k, v = _project_qkv(cfg, p, x, kv_src if cross else x)
+    if use_rope and not cross:
+        pos = torch.arange(S, device=x.device).expand(B, S)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out = kops.attention(q, k, v, causal=causal and not cross, window=window)
     H, hd, d = p["wo"].shape
     return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, d)
 
@@ -87,7 +97,7 @@ def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Params
         raise NotImplementedError("the sequence-sharded decode needs a mesh "
                                   "(ROADMAP.md queue 1, item 1.4)")
     B = x.shape[0]
-    q, k_new, v_new = _project_qkv(cfg, p, x)
+    q, k_new, v_new = _project_qkv(cfg, p, x, x)
     posb = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q = apply_rope(q, posb, cfg.rope_theta)
     k_new = apply_rope(k_new, posb, cfg.rope_theta)

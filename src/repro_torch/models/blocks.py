@@ -1,13 +1,16 @@
-"""Block registry for the ported kinds: ``G`` (global attention + MLP),
-``L`` (sliding-window attention + MLP), ``R`` (RG-LRU recurrent block +
-MLP), pre-norm residual, with the MLP a mixture of experts when the config
-has experts, else dense (gated SiLU or GELU); and ``W`` (RWKV6 time mix +
-channel mix, pre-norm residual, no MLP).
+"""Block registry: ``G`` (global attention + MLP), ``L`` (sliding-window
+attention + MLP), ``R`` (RG-LRU recurrent block + MLP), ``C`` (causal
+self-attention, cross-attention to the encoder's states, MLP: the whisper
+decoder's and llama-vision's image layers), pre-norm residual, with the MLP
+a mixture of experts when the config has experts, else dense (gated SiLU
+or GELU); and ``W`` (RWKV6 time mix + channel mix, pre-norm residual, no
+MLP).
 
 Counterpart of :mod:`repro.models.blocks` lines 28-190: init, the train /
 prefill apply, and the decode pair (:func:`init_block_cache`,
-:func:`decode_block`).  The ``C`` kind raises ``NotImplementedError`` until
-its slice lands (``ROADMAP.md`` queue 1, item 8).
+:func:`decode_block`).  A ``C`` block's decode cache is its self-attention
+cache only: as in the reference, its cross-attention is recomputed from
+``encoder_out`` at every token.
 """
 from __future__ import annotations
 
@@ -20,16 +23,14 @@ from repro_torch.models import recurrent as rec
 from repro_torch.models.common import (ModelConfig, Params, apply_norm, dense_init,
                                        init_norm)
 
-_NOT_PORTED = {
-    "C": "the cross-attention block waits for ROADMAP.md queue 1 item 8 (encoder-decoder)",
-}
-
-
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"block kind {kind!r}: {_NOT_PORTED[kind]}")
-    if kind not in ("G", "L", "R", "W"):
+    if kind not in ("G", "L", "R", "W", "C"):
         raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _check_encoder(kind: str, encoder_out) -> None:
+    if kind == "C" and encoder_out is None:
+        raise ValueError("a C block cross-attends: it needs encoder_out")
 
 
 # ----------------------------------------------------------------------
@@ -82,6 +83,10 @@ def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
                 "channel_mix": rec.init_rwkv_channel_mix(cfg, gen, device, lead)}
     if kind == "R":
         mixer = {"rglru": rec.init_rglru_block(cfg, gen, device, lead)}
+    elif kind == "C":
+        mixer = {"attn": attn.init_attention(cfg, gen, device, lead),
+                 "norm_x": init_norm(cfg, device, lead),
+                 "xattn": attn.init_attention(cfg, gen, device, lead)}
     else:
         mixer = {"attn": attn.init_attention(cfg, gen, device, lead)}
     return {"norm1": init_norm(cfg, device, lead), **mixer,
@@ -89,11 +94,20 @@ def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
             **_ffn_init(cfg, gen, device, lead)}
 
 
+def _cross(cfg: ModelConfig, p: Params, x: torch.Tensor, encoder_out: torch.Tensor):
+    """A ``C`` block's cross-attention sub-layer, pre-norm residual."""
+    h = apply_norm(cfg, p["norm_x"], x)
+    return x + attn.attention_fwd(cfg, p["xattn"], h, kv_src=encoder_out, use_rope=False)
+
+
 def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                encoder_out: torch.Tensor | None = None,
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(the block's output, its MoE aux loss in float32; None without
-    experts, where the reference's is 0)."""
+    experts, where the reference's is 0).  ``encoder_out`` (B, S_enc, d):
+    the states a ``C`` block attends to."""
     _check_kind(cfg, kind)
+    _check_encoder(kind, encoder_out)
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "W":
         x = x + rec.rwkv_time_mix(cfg, p["time_mix"], h)[0]
@@ -104,6 +118,8 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     else:
         window = cfg.sliding_window if kind == "L" else None
         x = x + attn.attention_fwd(cfg, p["attn"], h, causal=True, window=window)
+        if kind == "C":
+            x = _cross(cfg, p, x, encoder_out)
     h = apply_norm(cfg, p["norm2"], x)
     y, aux = _ffn_apply(cfg, p, h)
     return x + y, aux
@@ -115,12 +131,12 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int, device="cpu",
                      lead: tuple[int, ...] = ()) -> Params:
     """The zero decode state of one block, with the leading axes ``lead``:
-    ``G`` a full kv cache, ``L`` a ring buffer of ``min(seq_len,
-    sliding_window)`` slots, ``R`` the scan state ``h`` (f32) and the conv
-    state, ``W`` the wkv state ``S`` (f32) and the two mixers' last
-    tokens."""
+    ``G`` and ``C`` a full kv cache (a ``C`` block's self-attention only),
+    ``L`` a ring buffer of ``min(seq_len, sliding_window)`` slots, ``R``
+    the scan state ``h`` (f32) and the conv state, ``W`` the wkv state
+    ``S`` (f32) and the two mixers' last tokens."""
     _check_kind(cfg, kind)
-    if kind in ("G", "L"):
+    if kind in ("G", "L", "C"):
         return attn.init_kv_cache(cfg, batch, seq_len,
                                   window=cfg.sliding_window if kind == "L" else None,
                                   device=device, lead=lead)
@@ -135,11 +151,14 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int, devi
 
 
 def decode_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, cache: Params,
-                 pos: int, seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
+                 pos: int, encoder_out: torch.Tensor | None = None,
+                 seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
     """x: (B, 1, d) at position ``pos`` -> (x, new cache).  An attention
     block's new cache is ``cache`` itself, written in place; a recurrent
-    block's holds new tensors."""
+    block's holds new tensors.  A ``C`` block attends from the token to all
+    of ``encoder_out``, recomputing that attention's k and v each call."""
     _check_kind(cfg, kind)
+    _check_encoder(kind, encoder_out)
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "W":
         y, tm = rec.rwkv_time_mix(cfg, p["time_mix"], h,
@@ -156,5 +175,7 @@ def decode_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, cache:
             cfg, p["attn"], h, cache, pos, window=cfg.sliding_window if kind == "L" else None,
             seq_axis=seq_axis if kind == "G" else None)
     x = x + y
+    if kind == "C":
+        x = _cross(cfg, p, x, encoder_out)
     h = apply_norm(cfg, p["norm2"], x)
     return x + _ffn_apply(cfg, p, h)[0], new_cache

@@ -11,6 +11,9 @@ leaves at their use sites, as in the reference.  ``remat`` recomputes each
 unit in the backward pass (``torch.utils.checkpoint``, the counterpart of
 ``jax.checkpoint(unit_body)``), so the kernels' forward launches double.
 ``constrain`` (sharding annotations) has no counterpart here.
+``encoder_out`` (B, S_enc, d) is what the ``C`` blocks cross-attend to:
+the whisper encoder's states (:mod:`repro_torch.models.encdec`) or
+llama-vision's stub image embeddings.
 
 Decode (:func:`decode_step`) runs under ``torch.no_grad`` and writes the
 cache in place (the reference returns a new one); ``pos`` is a Python int,
@@ -36,15 +39,20 @@ ParamHook = Callable[[Params, tuple, "int | None"], Params]
 # ----------------------------------------------------------------------
 # Init
 # ----------------------------------------------------------------------
+def make_generator(seed: int, device) -> torch.Generator | None:
+    """A generator on ``device`` seeded with ``seed``; None on the meta
+    device (shapes only), which takes none."""
+    device = torch.device(device)
+    return None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
+
+
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
     """Random parameters from ``seed`` (a ``torch.Generator`` on
     ``device``; ``device="meta"`` gives shapes only).  The layout equals
     ``repro.models.transformer.init_lm``'s; the values do not (the two
     RNGs differ; :func:`from_reference` carries the reference's over)."""
     device = torch.device(device)
-    # the meta device (shapes only) takes no generator
-    gen = None if device.type == "meta" else \
-        torch.Generator(device=device).manual_seed(seed)
+    gen = make_generator(seed, device)
     params: Params = {
         "embedding": dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.dtype, device,
                                 in_axis_size=cfg.d_model),
@@ -63,10 +71,14 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
 
 def leaf_order(params: Params, prefix: tuple = ()) -> Iterator[tuple[tuple, torch.Tensor]]:
     """``(key path, leaf)`` in ``jax.tree_util.tree_flatten`` order (dict
-    keys sorted at every level)."""
+    keys sorted at every level, lists in index order, an index an int in
+    the path: the encoder's layer list)."""
     if isinstance(params, dict):
         for key in sorted(params):
             yield from leaf_order(params[key], prefix + (key,))
+    elif isinstance(params, list):
+        for i, item in enumerate(params):
+            yield from leaf_order(item, prefix + (i,))
     else:
         yield prefix, params
 
@@ -78,9 +90,11 @@ def get_path(params: Params, path: tuple):
 
 
 def map_leaves(fn, params: Params, prefix: tuple = ()) -> Params:
-    """A tree of ``fn(path, leaf)`` with ``params``' keys."""
+    """A tree of ``fn(path, leaf)`` with ``params``' keys and lists."""
     if isinstance(params, dict):
         return {k: map_leaves(fn, v, prefix + (k,)) for k, v in params.items()}
+    if isinstance(params, list):
+        return [map_leaves(fn, v, prefix + (i,)) for i, v in enumerate(params)]
     return fn(prefix, params)
 
 
@@ -101,7 +115,8 @@ def _sum_aux(auxes: list) -> torch.Tensor | None:
 
 
 def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-                  remat: bool = False, param_hook: ParamHook | None = None):
+                  encoder_out: torch.Tensor | None = None, remat: bool = False,
+                  param_hook: ParamHook | None = None):
     """(final hidden states, head, the MoE aux loss summed over every
     block; None without experts)."""
     ph = param_hook or (lambda p, path, unit=None: p)
@@ -112,7 +127,7 @@ def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         unit_params = ph(unit_slice(params["units"], u), ("units",), u)
         auxes = []
         for i, kind in enumerate(cfg.layer_pattern):
-            x, a = B.apply_block(cfg, kind, unit_params[f"b{i}"], x)
+            x, a = B.apply_block(cfg, kind, unit_params[f"b{i}"], x, encoder_out)
             auxes.append(a)
         return x, _sum_aux(auxes)
 
@@ -124,7 +139,8 @@ def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             x, a = unit_body(x, u)
         auxes.append(a)
     for i, kind in enumerate(cfg.remainder_pattern):
-        x, a = B.apply_block(cfg, kind, ph(params[f"rem{i}"], (f"rem{i}",), None), x)
+        x, a = B.apply_block(cfg, kind, ph(params[f"rem{i}"], (f"rem{i}",), None), x,
+                             encoder_out)
         auxes.append(a)
     aux = _sum_aux(auxes)
     x = apply_norm(cfg, ph(params["final_norm"], ("final_norm",), None), x)
@@ -132,12 +148,14 @@ def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     return x, head, aux
 
 
-def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, remat: bool = False,
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            encoder_out: torch.Tensor | None = None, remat: bool = False,
             param_hook: ParamHook | None = None) -> torch.Tensor:
     """tokens: (B, S) int -> logits (B, S, V) in logit_dtype.  The
     reference also returns the MoE aux loss; :func:`loss_fn` returns it
     here."""
-    x, head, _ = _final_hidden(cfg, params, tokens, remat=remat, param_hook=param_hook)
+    x, head, _ = _final_hidden(cfg, params, tokens, encoder_out=encoder_out, remat=remat,
+                               param_hook=param_hook)
     return (x @ head).to(cfg.logit_dtype)
 
 
@@ -149,13 +167,15 @@ MOE_AUX_WEIGHT = 0.01
 
 
 def loss_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            labels: torch.Tensor, *, remat: bool = False,
+            labels: torch.Tensor, *, encoder_out: torch.Tensor | None = None,
+            remat: bool = False,
             param_hook: ParamHook | None = None) -> tuple[torch.Tensor, dict]:
     """(cross-entropy + ``MOE_AUX_WEIGHT`` x the MoE aux loss, {"loss": the
     cross-entropy, "moe_aux": the aux loss}).  Without experts the
     reference's aux is 0: the total is the cross-entropy itself and
     ``moe_aux`` is left out, so dense blocks launch nothing for it."""
-    x, head, aux = _final_hidden(cfg, params, tokens, remat=remat, param_hook=param_hook)
+    x, head, aux = _final_hidden(cfg, params, tokens, encoder_out=encoder_out, remat=remat,
+                                 param_hook=param_hook)
     if cfg.vocab_size >= CHUNKED_XENT_MIN_VOCAB:
         from repro_torch.models.loss import chunked_cross_entropy
         loss = chunked_cross_entropy(x, head, labels)
@@ -194,7 +214,8 @@ def _write_back(cache: Params, new: Params) -> None:
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Tensor,
-                pos: int, *, seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
+                pos: int, *, encoder_out: torch.Tensor | None = None,
+                seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
     """One-token decode: token (B,) int at position ``pos`` (a Python int).
     Returns (logits (B, V) in logit_dtype, cache), the cache updated in
     place."""
@@ -207,7 +228,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
     blocks += [(params[f"rem{i}"], cache[f"rem{i}"], kind)
                for i, kind in enumerate(cfg.remainder_pattern)]
     for p, c, kind in blocks:
-        x, new = B.decode_block(cfg, kind, p, x, c, pos, seq_axis=seq_axis)
+        x, new = B.decode_block(cfg, kind, p, x, c, pos, encoder_out=encoder_out,
+                                seq_axis=seq_axis)
         _write_back(c, new)
     x = apply_norm(cfg, params["final_norm"], x)
     head = params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
@@ -216,12 +238,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
 
 @torch.no_grad()
 def prefill_via_decode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                       seq_len: int) -> tuple[torch.Tensor, Params]:
+                       seq_len: int, *, encoder_out: torch.Tensor | None = None,
+                       ) -> tuple[torch.Tensor, Params]:
     """Sequential prefill (the serving example's, for small models): the
     tokens (B, S) fed one at a time through :func:`decode_step` into a
     fresh cache of ``seq_len``.  Returns (logits (B, S, V), cache)."""
     cache = init_cache(cfg, tokens.shape[0], seq_len, device=tokens.device)
-    logits = [decode_step(cfg, params, cache, tokens[:, t], t)[0]
+    logits = [decode_step(cfg, params, cache, tokens[:, t], t, encoder_out=encoder_out)[0]
               for t in range(tokens.shape[1])]
     return torch.stack(logits, dim=1), cache
 
@@ -240,6 +263,6 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
 
 def from_reference(tree: Params, device="cpu") -> Params:
     """The port's parameters from the reference's parameter pytree given as
-    nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
-    params)``), key path for key path, dtypes kept."""
+    nested dicts (and lists) of numpy arrays (``jax.tree_util.tree_map(
+    np.asarray, params)``), key path for key path, dtypes kept."""
     return map_leaves(lambda _, arr: _to_tensor(arr, device), tree)

@@ -21,6 +21,7 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.kernels import ref as jref
+from repro.models import blocks as jblocks
 from repro.models import transformer as JT
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.kernels import ops as tops
@@ -119,14 +120,21 @@ class TestCaches:
             assert ring, "no ring buffer of the window's 8 slots"
 
     def test_seq_axis_and_c_blocks_raise(self):
-        _, tcfg = _configs("qwen1.5-4b")
+        """``seq_axis`` still raises; the ``C`` block's cache (ported with
+        the encoder-decoder slice) equals the reference's: its
+        self-attention kv cache only."""
+        jcfg, tcfg = _configs("qwen1.5-4b")
         params = TT.init_lm(tcfg, seed=0)
         cache = TT.init_cache(tcfg, 1, 4)
         with pytest.raises(NotImplementedError, match="queue 1, item 1.4"):
             TT.decode_step(tcfg, params, cache, torch.zeros(1, dtype=torch.long), 0,
                            seq_axis="data")
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            tblocks.init_block_cache(tcfg, "C", 1, 4)
+        jl = _jax_leaves(jblocks.init_block_cache(jcfg, "C", 1, 4))
+        tl = list(TT.leaf_order(tblocks.init_block_cache(tcfg, "C", 1, 4)))
+        assert [p for p, _ in jl] == [p for p, _ in tl] == [("k",), ("v",)]
+        for (path, j), (_, t) in zip(jl, tl):
+            assert tuple(j.shape) == tuple(t.shape) and not t.any(), path
+            assert str(j.dtype) == str(t.dtype).removeprefix("torch."), path
 
     def test_full_cache_refuses_a_position_past_its_end(self):
         _, tcfg = _configs("qwen1.5-4b")

@@ -48,7 +48,9 @@ def test_every_port_module_is_found():
                  "repro_torch.examples.dag_validation",
                  "repro_torch.launch.steps", "repro_torch.launch.serve",
                  "repro_torch.launch.train", "repro_torch.data.pipeline",
-                 "repro_torch.checkpoint.ckpt", "repro_torch.examples.quickstart"):
+                 "repro_torch.checkpoint.ckpt", "repro_torch.examples.quickstart",
+                 "repro_torch.models.encdec", "repro_torch.configs.whisper_tiny",
+                 "repro_torch.configs.llama32_vision_90b"):
         assert must in names
 
 

@@ -175,14 +175,20 @@ class TestDispatchAndChecks:
     def test_positions_raise_on_kernel_path(self):
         q, k, v = _torch(_inputs(1, 32, 2, 2, 64), "float32")
         pos = torch.arange(32)[None]
-        with pytest.raises(ValueError, match="aligned"):
+        with pytest.raises(ValueError, match="pass no positions"):
             ops.attention(q, k, v, q_positions=pos, kv_positions=pos, impl="kernel")
 
     def test_cross_lengths_raise(self):
+        """q and kv of different lengths: refused causal or windowed (the
+        reference has no such cross-attention), taken bidirectional."""
         q, _, _ = _torch(_inputs(1, 32, 2, 2, 64), "float32")
         _, k, v = _torch(_inputs(1, 48, 2, 2, 64), "float32")
-        with pytest.raises(ValueError, match="aligned"):
+        with pytest.raises(ValueError, match="causal=False and no window"):
             fa.fwd(q, k, v)
+        with pytest.raises(ValueError, match="causal=False and no window"):
+            fa.fwd(q, k, v, causal=False, window=8)
+        o, lse = fa.fwd(q, k, v, causal=False)
+        assert o.shape == q.shape and lse.shape == (1, 2, 32)
 
     def test_bad_dtype_and_layout_raise(self):
         q, k, v = _torch(_inputs(1, 32, 2, 2, 64), "float32")

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.models import blocks as jblocks
 from repro.models import common as jcommon
 from repro.models import loss as jloss
 from repro.models import recurrent as jrec
@@ -142,11 +143,17 @@ class TestConfig:
                 mk(tcommon).validate()
 
     def test_unported_block_kinds_raise(self):
-        """``C`` still raises; ``W`` (rwkv6-1.6b) and a block with experts
-        (the MoE slice) are ported and initialise."""
+        """Every block kind is ported now: ``C`` (the encoder-decoder
+        slice) initialises with the reference's keys, as do ``W``
+        (rwkv6-1.6b) and a block with experts (the MoE slice); an unknown
+        kind raises."""
         cfg = torch_get_config(ARCH).reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-            tblocks.init_block(cfg, "C", None, "meta")
+        assert set(tblocks.init_block(cfg, "C", None, "meta")) == \
+            set(jax.eval_shape(lambda k: jblocks.init_block(jax_get_config(ARCH).reduced(),
+                                                            "C", k), jax.random.PRNGKey(0))) == \
+            {"norm1", "attn", "norm_x", "xattn", "norm2", "mlp"}
+        with pytest.raises(ValueError, match="unknown block kind"):
+            tblocks.init_block(cfg, "X", None, "meta")
         assert set(tblocks.init_block(cfg, "W", None, "meta")) == \
             {"norm1", "time_mix", "norm2", "channel_mix"}
         moe = tblocks.init_block(dataclasses.replace(cfg, num_experts=4, experts_per_token=2),

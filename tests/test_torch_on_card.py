@@ -64,14 +64,14 @@ class TestOnCard:
         pytest.param(torch.bfloat16, 1024, 16, 16, 128, None, id="qwen2moe_g")])
     def test_kernels_vs_plain(self, dtype, S, H, K, hd, window):
         q, k, v, do = _inputs(S, H, K, hd, dtype)
-        o, lse = fa.fwd(q, k, v, True, window)
-        delta = fa.bwd_delta(o, do)
+        o, lse, o32 = fa.fwd(q, k, v, True, window, out_f32=True)
+        delta = fa.bwd_delta(o32, do)
         dq = fa.bwd_dq(q, k, v, do, lse, delta, True, window)
         dk, dv = fa.bwd_dkdv(q, k, v, do, lse, delta, True, window)
-        p_o, p_lse = fa.plain_fwd(q, k, v, True, window)
+        p_o, p_lse, p_o32 = fa.plain_fwd(q, k, v, True, window, out_f32=True)
         p_dq, p_dk, p_dv = fa.plain_bwd(q, k, v, do, lse, delta, True, window)
-        for what, got, want in (("o", o, p_o), ("lse", lse, p_lse),
-                                ("delta", delta, fa.plain_bwd_delta(o, do)),
+        for what, got, want in (("o", o, p_o), ("lse", lse, p_lse), ("o32", o32, p_o32),
+                                ("delta", delta, fa.plain_bwd_delta(o32, do)),
                                 ("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
             _assert_close(got, want, what)
 
@@ -86,8 +86,8 @@ class TestOnCard:
         """bf16 ``bwd_dq`` and ``bwd_dkdv`` twice: equal bits (no atomics;
         the group partials are summed in a fixed order)."""
         q, k, v, do = _inputs(S, H, K, hd, torch.bfloat16)
-        o, lse = fa.fwd(q, k, v, True, window)
-        delta = fa.bwd_delta(o, do)
+        _, lse, o32 = fa.fwd(q, k, v, True, window, out_f32=True)
+        delta = fa.bwd_delta(o32, do)
         runs = [(fa.bwd_dq(q, k, v, do, lse, delta, True, window),
                  *fa.bwd_dkdv(q, k, v, do, lse, delta, True, window)) for _ in range(2)]
         for what, a, b in zip(("dq", "dk", "dv"), *runs):
@@ -111,10 +111,10 @@ class TestOnCard:
         """``bwd_delta`` reads 16-byte chunks: a view that starts off a
         16-byte boundary raises, with no fallback."""
         _, _, _, do = _inputs(64, 2, 2, 64, torch.bfloat16)
-        flat = torch.zeros(do.numel() + 1, dtype=torch.bfloat16, device="cuda")
-        o = flat[1:].view(do.shape)
+        flat = torch.zeros(do.numel() + 1, dtype=torch.float32, device="cuda")
+        o32 = flat[1:].view(do.shape)
         with pytest.raises(ValueError, match="16-byte"):
-            fa.bwd_delta(o, do)
+            fa.bwd_delta(o32, do)
 
     def test_fwd_raises_on_unaligned_rows(self):
         """The bf16 ``fwd`` copies q, k and v in 16-byte chunks: a view that
@@ -144,6 +144,82 @@ class TestOnCard:
         q, k, v, _ = _inputs(64, 2, 2, 96, torch.float32)
         with pytest.raises(ValueError, match="head dim"):
             ops.attention(q, k, v)
+
+    @pytest.mark.parametrize("dtype,B,Sq,Skv,H,K,hd,causal", [
+        # chip_smoke.py's encoder-decoder shapes: whisper-tiny's encoder
+        # (bidirectional, ragged at 1500), decoder and cross-attention,
+        # llama-3.2-vision-90b's G blocks and cross-attention (a group of 8)
+        pytest.param(torch.bfloat16, 8, 1500, 1500, 6, 6, 64, False, id="whisper_enc"),
+        pytest.param(torch.bfloat16, 8, 448, 448, 6, 6, 64, True, id="whisper_dec"),
+        pytest.param(torch.bfloat16, 8, 448, 1500, 6, 6, 64, False, id="whisper_cross"),
+        pytest.param(torch.bfloat16, 1, 4096, 4096, 64, 8, 128, True, id="llama_g"),
+        pytest.param(torch.bfloat16, 1, 4096, 1601, 64, 8, 128, False, id="llama_cross"),
+        pytest.param(torch.bfloat16, 4, 1, 1601, 64, 8, 128, False, id="cross_decode"),
+        pytest.param(torch.float32, 2, 100, 300, 4, 2, 64, False, id="f32_cross_ragged"),
+        pytest.param(torch.float32, 1, 1000, 1000, 4, 4, 32, False, id="f32_noncausal"),
+        # every head dim, fewer kv rows than q rows, one query row
+        *(pytest.param(dt, 2, sq, skv, 4, 2, hd, False, id=f"{str(dt)[6:]}_{sq}x{skv}_hd{hd}")
+          for dt in (torch.float32, torch.bfloat16) for hd in (32, 64, 128, 256)
+          for sq, skv in ((70, 19), (1, 130)))])
+    def test_bidirectional_and_cross_kernels_vs_plain(self, dtype, B, Sq, Skv, H, K, hd,
+                                                      causal):
+        """q and kv of different lengths (no mask) and bidirectional
+        attention: every kernel against its plain version, as
+        ``test_kernels_vs_plain``."""
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, do = (torch.randn(B, Sq, H, hd, generator=g, device="cuda").to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Skv, K, hd, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        o, lse, o32 = fa.fwd(q, k, v, causal, None, out_f32=True)
+        delta = fa.bwd_delta(o32, do)
+        dq = fa.bwd_dq(q, k, v, do, lse, delta, causal, None)
+        dk, dv = fa.bwd_dkdv(q, k, v, do, lse, delta, causal, None)
+        p_o, p_lse, p_o32 = fa.plain_fwd(q, k, v, causal, None, out_f32=True)
+        p_dq, p_dk, p_dv = fa.plain_bwd(q, k, v, do, lse, delta, causal, None)
+        for what, got, want in (("o", o, p_o), ("lse", lse, p_lse), ("o32", o32, p_o32),
+                                ("delta", delta, fa.plain_bwd_delta(o32, do)),
+                                ("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
+            _assert_close(got, want, what)
+
+    def test_long_causal_autograd_vs_ref_bfloat16(self):
+        """4096 causal tokens, a GQA group of 8, bfloat16: autograd through
+        the kernels against autograd through ``ref.attention`` in float32,
+        within chip_smoke.py's AUTOGRAD_BF16_LIMIT (1e-2, 1e-1 rms).  Its
+        delta reads the forward's float32 output: from the output rounded
+        to bfloat16, dq's short rows read 1.41 of that limit."""
+        g = torch.Generator(device="cuda").manual_seed(2)
+        q, do = (torch.randn(1, 4096, 8, 128, generator=g, device="cuda").bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn(1, 4096, 1, 128, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        outs = []
+        for fn, ins in ((fa.flash_attention, (q, k, v, do)),
+                        (ref.attention, [t.float() for t in (q, k, v, do)])):
+            leaves = [t.detach().requires_grad_() for t in ins[:3]]
+            o = fn(*leaves, causal=True)
+            outs.append([o.detach(), *torch.autograd.grad(o, leaves, ins[3])])
+        for what, got, want in zip(("o", "dq", "dk", "dv"), *outs):
+            w = want.float()
+            limit = 1e-2 * w.abs() + 1e-1 * w.square().mean().sqrt()
+            worst = float(((got.float() - w).abs() / limit).max())
+            assert worst <= 1.0, f"{what}: {worst:.3f} of its limit"
+
+    def test_cross_attention_autograd_vs_ref_float32(self):
+        """``ops.attention`` at Sq != Skv (no mask) against autograd through
+        ``ref.attention`` in float32; a causal one raises."""
+        g = torch.Generator(device="cuda").manual_seed(1)
+        q, do = (torch.randn(2, 50, 4, 64, generator=g, device="cuda") for _ in range(2))
+        k, v = (torch.randn(2, 170, 2, 64, generator=g, device="cuda") for _ in range(2))
+        outs = []
+        for fn in (ops.attention, ref.attention):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = fn(*leaves, causal=False)
+            outs.append([o.detach(), *torch.autograd.grad(o, leaves, do)])
+        for what, got, want in zip(("o", "dq", "dk", "dv"), *outs):
+            _assert_close(got, want, what)
+        with pytest.raises(ValueError, match="causal=False and no window"):
+            ops.attention(q, k, v, causal=True)
 
 
 def _rglru_inputs(B, S, W, dtype, r_shift=0.0, lam=None):
@@ -411,6 +487,45 @@ class TestDecodeOnCard:
         for kind, name in (("R", "rglru_fwd"), ("W", "wkv6_fwd")):
             assert launched[name] == 40 * cfg.layer_pattern.count(kind) * cfg.num_units, \
                 launched
+
+
+class TestEncoderDecoderOnCard:
+    @pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-90b"])
+    def test_decode_equals_forward(self, arch):
+        """Reduced whisper-tiny (2 C layers, 2 encoder layers over 64 frames)
+        and llama-3.2-vision-90b (GC, 16 image tokens), float32, TF32 off:
+        decoded token by token (the cross-attention through the forward
+        kernel at one query token) against ``forward``, within 2e-4 of the
+        logits' scale; the loss's gradients reach the encoder."""
+        from repro_torch import kernels
+        from repro_torch.configs import get_config
+        from repro_torch.launch.steps import init_params, loss_and_grads
+        from repro_torch.models import encdec as ED
+        from repro_torch.models import transformer as T
+        from repro_torch.traces.generate import tf32
+
+        cfg = get_config(arch).reduced(num_layers=2)
+        params = init_params(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=g, device="cuda")
+        enc_in = torch.randn(2, cfg.encoder_seq or cfg.num_image_tokens, cfg.d_model,
+                             generator=g, device="cuda")
+        audio = cfg.arch_type == "audio"
+        decoder = params["decoder"] if audio else params
+        with tf32(False):
+            with torch.no_grad():
+                enc = ED.encode(cfg, params["encoder"], enc_in) if audio else enc_in
+            kernels.reset_launches()
+            decoded, _ = T.prefill_via_decode(cfg, decoder, tokens, 24, encoder_out=enc)
+            launched = kernels.all_launches()
+            with torch.no_grad():
+                full = T.forward(cfg, decoder, tokens, encoder_out=enc)
+            _, _, grads = loss_and_grads(cfg, params, tokens, tokens, encoder_in=enc_in)
+        scale = float(full.abs().max())
+        assert float((decoded - full).abs().max()) <= 2e-4 * scale
+        assert launched["flash_fwd"] == 24 * cfg.layer_pattern.count("C") * cfg.num_units
+        if audio:
+            assert float(grads["encoder"]["layers"][0]["attn"]["wq"].abs().max()) > 0
 
 
 class TestLaunchersOnCard:

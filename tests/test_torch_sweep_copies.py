@@ -315,9 +315,18 @@ class TestWorkloadTables:
 
     def test_unknown_workloads_rejected_like_reference(self):
         for bad in ("cnn:vgg", "llm:gpt-5", "warp:x", "trace:/no/such.trace",
-                    "llm:whisper-tiny"):
+                    "llm:whisper-large"):
             with pytest.raises(ValueError, match="unknown workload"):
                 tworkloads.resolve_workload(bad)
+            with pytest.raises(ValueError, match="unknown workload"):
+                jworkloads.resolve_workload(bad)
+
+    @pytest.mark.parametrize("name", ["llm:whisper-tiny", "llm:llama-3.2-vision-90b"])
+    def test_encdec_workloads_equal_reference(self, name):
+        """The two encoder-fed archs (``C`` blocks; whisper's audio encoder)
+        resolve, since their configs are ported, to the reference's table."""
+        self._assert_tables_equal(tworkloads.resolve_workload(name),
+                                  jworkloads.resolve_workload(name))
 
 
 class TestGrids:
