@@ -87,12 +87,28 @@ Phases, in order; any failure ends the script with a non-zero code:
    checked to be on the card before they are copied back; the two tiers
    (``columns()``) and ``sweep()`` end to end timed against the NumPy path
    (median of 20 after a warm-up, synchronised), scenarios/s printed, the
-   CUDA kernels of one evaluation counted (``torch.profiler``); the
+   CUDA kernels of one evaluation counted (``torch.profiler``), then the
+   kernels and aten operators of three more evaluations of each grid, with
+   the kernel names whose counts differ between the grids; the
    measured-workloads grid of ``benchmarks/bench_model_vs_measured.py``
    over those traces with its row accounting (0 simulated); and
    ``grad_iteration_time`` on CUDA at two family grids against the CPU
    (1e-9) and against central differences on the NumPy twin (1e-3);
-10. CNN traces (Table VI): the paper's per-layer method on its CNNs.
+10. the sweep service on the card: ``repro_torch.launch.serve_sweep``'s
+   HTTP server over a ``SweepService`` on CUDA, 10 ``backend="torch"``
+   queries POSTed at once from their own client threads (the frontier axes
+   split by workload, the mixed grid, and one with het, straggler, sync_k
+   and fault axes, under seeds 0 and 7), each answer decoded
+   (``table_from_wire``) and held against a direct ``sweep()`` on the card
+   (bit for bit, or 1e-12 relative) and the NumPy engine (1e-6), with the
+   queries each kernel call served, latency p50 / p99, scenarios/s over the
+   kernels' busy time and cache hits from the trailers and ``/stats``;
+   the frontier axes over the CNNs and this run's traces (155 520
+   scenarios) streamed to CSV in chunks of 16 384 and read back equal to
+   ``sweep()``; and a small grid (resnet50 and ``trace:alexnet-k80``, all
+   ten policies, het, sync_k and fault axes) on the card against the
+   event-driven simulator (1e-6), its sub-grids on a process pool;
+11. CNN traces (Table VI): the paper's per-layer method on its CNNs.
    AlexNet at 99 x 99 and ResNet at 64 x 64 (one block a stage) on the card
    against the CPU, every layer's forward and gradients in float32 with
    TF32 off, within ``generate.F32_LIMIT`` (2e-5) of each tensor's scale,
@@ -107,12 +123,12 @@ Phases, in order; any failure ends the script with a non-zero code:
    and its kernels
    (``torch.profiler``); each trace predicted on 8 V100s under Caffe-MPI
    beside ``trace:alexnet-k80``;
-11. DAG validation (§V-D): ``repro_torch.examples.dag_validation`` with 2
+12. DAG validation (§V-D): ``repro_torch.examples.dag_validation`` with 2
    timed steps a policy (qwen1.5-4b, 2 units, 2 gloo ranks on the card):
    per-layer costs, the DAG's prediction with and without
    ``shared_compute``, the measured ``wfbp`` and ``at_end`` steps, its
    ``RESULT``; the flash kernels must launch (counted from 0 in each rank);
-12. decode on the card: qwen1.5-4b (2 ``G``), recurrentgemma-2b (one
+13. decode on the card: qwen1.5-4b (2 ``G``), recurrentgemma-2b (one
    ``RRL`` unit), rwkv6-1.6b (2 ``W``) and gemma3-1b (one ``LLLLLG`` unit)
    at their published widths, batch 4: ``prefill_via_decode`` then greedy
    ``make_serve_step`` steps in float32 (TF32 off), every position's
@@ -123,16 +139,16 @@ Phases, in order; any failure ends the script with a non-zero code:
    bfloat16 (tokens/s, port kernel launches and CUDA kernels a step) and
    ``rglru_fwd`` / ``wkv6_fwd`` at one token against their plain versions
    and bounds (phase 3 also holds them at one token, bf16 and f32);
-13. the training launcher: ``python -m repro_torch.launch.train --arch
+14. the training launcher: ``python -m repro_torch.launch.train --arch
    gemma3-1b --full --optimizer adamw`` (26 layers), 3 steps of 4 x 1024
    tokens with ``--checkpoint``: finite loss, every parameter and optimizer
    leaf restored bit for bit; then ``--data-parallel 2 --policy wfbp`` at
    reduced widths (2 gloo ranks);
-14. remat and accumulation: ``make_train_step`` on one gemma3-1b unit at
+15. remat and accumulation: ``make_train_step`` on one gemma3-1b unit at
    the published widths: ``remat=True`` gives the gradient bits of
    ``remat=False`` with the flash forward launched twice as often, and
    ``accum_steps=2`` agrees with one batch within 3e-2 of each leaf's scale;
-15. the encoder-decoder on the card: whisper-tiny at its published widths
+16. the encoder-decoder on the card: whisper-tiny at its published widths
    and depth (4 + 4 layers) in float32, batch 2 x 64 tokens over 1500
    frames, logits, loss and every gradient leaf on the card against the
    CPU within 2e-4 of scale; 3 bfloat16 ``make_train_step`` steps (AdamW)
@@ -144,7 +160,7 @@ Phases, in order; any failure ends the script with a non-zero code:
    (6.53 G parameters): one bfloat16 ``make_train_step`` step (SGD) at 1 x
    4096 tokens and 1601 image tokens, ms and peak memory, and a float32
    decode of 32 tokens against ``forward`` within 2e-4;
-16. print the ``kernels`` line (launches: the six measurements', the
+17. print the ``kernels`` line (launches: the six measurements', the
    validation's, the float32 decode's, the training launcher's and the
    encoder-decoder phase's), then the ``ok`` line last.
 
@@ -1255,6 +1271,26 @@ def _cuda_kernels(fn) -> tuple[int, float]:
     return len(dev), sum(e.device_time_total for e in dev) / 1e3
 
 
+def _kernel_census(fn, calls: int = 3) -> list[tuple[int, int, dict]]:
+    """For each of ``calls`` profiled calls of ``fn``: (CUDA kernels, aten
+    operators dispatched on the host, kernels by name)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = Counter(e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.name.startswith("aten::"))
+        out.append((sum(dev.values()), ops, dict(dev)))
+    return out
+
+
 def sweep_grid_on_card(label: str, grid, device: str = "cuda") -> dict:
     """One grid through the sweep backend on the card: checked against the
     port's NumPy engine column by column, then timed.  Returns the
@@ -1318,6 +1354,7 @@ def sweep_grid_on_card(label: str, grid, device: str = "cuda") -> dict:
         "numpy_sweep_s": _median_s(lambda: sweep(grid, backend="numpy")),
     }
     out["cuda_kernels"], out["device_ms"] = _cuda_kernels(tev.device_columns)
+    out["census"] = _kernel_census(tev.device_columns)
     print(f"  {label}: {n} scenarios, {out['kernel_points']} kernel points x "
           f"{out['layers']} layers, {out['timeline_specs']} timeline specs; worst "
           f"relative {worst:.3e} against NumPy (limit {SWEEP_RTOL:g}); "
@@ -1325,7 +1362,10 @@ def sweep_grid_on_card(label: str, grid, device: str = "cuda") -> dict:
           f"{ours.n_simulated} simulated", flush=True)
     print(f"  {label}: evaluator built (structure + copy to the card) in "
           f"{build_s * 1e3:.3f} ms; one evaluation launches {out['cuda_kernels']} CUDA "
-          f"kernels, {out['device_ms']:.4f} ms of device time", flush=True)
+          f"kernels, {out['device_ms']:.4f} ms of device time; three more profiled "
+          f"evaluations: {[c[0] for c in out['census']]} CUDA kernels, "
+          f"{[c[1] for c in out['census']]} aten operators, "
+          f"{[len(c[2]) for c in out['census']]} kernel names", flush=True)
     for what, s_card, s_np in (("two tiers", out["columns_s"], out["numpy_tiers_s"]),
                                ("sweep()", out["sweep_s"], out["numpy_sweep_s"])):
         print(f"  {label}: {what}: {device} {s_card * 1e3:.4f} ms ({n / s_card:,.0f} "
@@ -1334,6 +1374,22 @@ def sweep_grid_on_card(label: str, grid, device: str = "cuda") -> dict:
     print(f"  {label}: two tiers on the card, synchronised, no copy back: "
           f"{out['tiers_device_s'] * 1e3:.4f} ms", flush=True)
     return out
+
+
+def report_kernel_census(small: list, large: list) -> None:
+    """Whether one evaluation of the two grids launches different CUDA
+    kernels: the kernel names whose counts differ, per profiled call, and
+    every kernel name of the first call with its count."""
+    for i, ((n_s, ops_s, by_s), (n_l, ops_l, by_l)) in enumerate(zip(small, large)):
+        diff = {k: (by_s.get(k, 0), by_l.get(k, 0)) for k in sorted(set(by_s) | set(by_l))
+                if by_s.get(k, 0) != by_l.get(k, 0)}
+        print(f"  kernel census, call {i}: frontier {n_s} kernels / {ops_s} aten operators, "
+              f"frontier + traces {n_l} / {ops_l}; counts that differ (frontier, + traces): "
+              + ("none" if not diff else "; ".join(f"{k[:90]} {a} vs {b}"
+                                                   for k, (a, b) in diff.items())),
+              flush=True)
+    print("  kernel names (frontier, call 0): " + "; ".join(
+        f"{k[:100]} x{n}" for k, n in sorted(small[0][2].items())), flush=True)
 
 
 def check_sweep_gradients(device: str = "cuda") -> None:
@@ -1390,9 +1446,10 @@ def check_sweep(trace_dir: Path, device: str = "cuda") -> None:
 
     traces = tuple(f"torch:{trace_dir / f'{arch}.trace'}" for arch in MAIN_PATHS)
     frontier = frontier_grid()
-    sweep_grid_on_card("frontier", frontier, device)
-    sweep_grid_on_card("frontier + traces", dataclasses.replace(
+    small = sweep_grid_on_card("frontier", frontier, device)
+    large = sweep_grid_on_card("frontier + traces", dataclasses.replace(
         frontier, workloads=frontier.workloads + traces), device)
+    report_kernel_census(small["census"], large["census"])
     # benchmarks/bench_model_vs_measured.py:74-80, over this run's traces
     measured = ScenarioGrid(workloads=traces, clusters=("k80-pcie-10gbe", "v100-nvlink-ib"),
                             worker_counts=(2, 8, 32),
@@ -1412,7 +1469,156 @@ def check_sweep(trace_dir: Path, device: str = "cuda") -> None:
 
 
 # ----------------------------------------------------------------------
-# 10. the paper's per-layer trace method on its CNNs (Table VI)
+# 10. the sweep service on the card
+# ----------------------------------------------------------------------
+SERVICE_HET, SERVICE_STRAGGLER = "het:1x0.5+3x1.0", "lognormal:0.2x16"
+SERVICE_FAULT = "fail:0.05@restart2x16"
+#: The oracle grid: every policy, het, sync_k and fault axis against the
+#: event-driven simulator (draws of x8: each draw is one simulation).
+ORACLE_WORKERS, ORACLE_FAULT = (2, 4), "fail:0.05@restart2x8"
+
+
+def service_queries() -> list[dict]:
+    """At least 8 torch queries: the frontier axes split by workload, the
+    mixed grid, and one with het, straggler, sync_k and fault axes, under
+    seeds 0 and 7."""
+    from repro_torch.core.scenarios import frontier_grid
+
+    out = []
+    for seed in (0, 7):
+        out += [{"grid": "frontier", "workloads": [w], "seed": seed}
+                for w in frontier_grid().workloads]
+        out.append({"grid": "mixed", "seed": seed})
+        out.append({"workloads": ["resnet50"], "workers": [4, 16],
+                    "het": ["none", SERVICE_HET], "stragglers": ["none", SERVICE_STRAGGLER],
+                    "sync_k": ["none", "3"], "faults": ["none", SERVICE_FAULT],
+                    "seed": seed})
+    return out
+
+
+def serve_queries_on_card(device: str) -> None:
+    """Part 1: the HTTP server over a service on ``device``, every query
+    POSTed at once from its own client thread, each answer held against a
+    direct sweep on the card and against the NumPy engine."""
+    import threading
+
+    from repro_torch.core import agreement as A
+    from repro_torch.launch import serve_sweep
+
+    queries = service_queries()
+    srv = serve_sweep.make_server(port=0, window_s=0.5, device=device)
+    if srv.service.device.type != torch.device(device).type:
+        raise SystemExit(f"service on {srv.service.device}, not {device}")
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        answers: list = [None] * len(queries)
+
+        def ask(i: int) -> None:
+            answers[i] = A.http_query(port, queries[i])
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=ask, args=(i,)) for i in range(len(queries))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        wall = time.perf_counter() - t0
+        stats = A.http_get(port, "/stats")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.service.close()
+    worst_direct = worst_numpy = 0.0
+    bitwise = True
+    for doc, lines in zip(queries, answers):
+        if lines is None or lines[-1].get("type") != "trailer":
+            raise SystemExit(f"query {doc}: no answer")
+        got = serve_sweep.table_from_wire(lines)
+        direct = A.direct_table(doc, "torch", device)
+        bitwise &= A.bit_identical(got, direct)
+        worst_direct = max(worst_direct, A.assert_tables_agree(got, direct, A.COALESCED_RTOL))
+        worst_numpy = max(worst_numpy, A.assert_tables_agree(
+            got, A.direct_table(doc, "numpy"), A.BATCHED_RTOL))
+    trailers = [lines[-1] for lines in answers]
+    served = [t["qos"]["coalesced_queries"] for t in trailers]
+    if max(served) < 2 or any(t["backend"] != "torch" for t in trailers):
+        raise SystemExit(f"no coalesced torch group: {served}")
+    lat = stats["latency"]
+    print(f"  {len(queries)} queries ({sum(t['n_scenarios'] for t in trailers)} scenarios) "
+          f"over HTTP in {wall:.3f} s; {stats['kernel_calls']} kernel calls, queries per "
+          f"call (each query's group) {served}; coalesce factor "
+          f"{stats['coalesce_factor']:.3f}", flush=True)
+    print(f"  against a direct sweep on {device}: "
+          f"{'bit for bit' if bitwise else 'not bit for bit'}, worst relative "
+          f"{worst_direct:.3e} (limit {A.COALESCED_RTOL:g}); against the NumPy engine "
+          f"{worst_numpy:.3e} (limit {A.BATCHED_RTOL:g})", flush=True)
+    print(f"  latency p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms (window "
+          f"500 ms); {stats['sustained_scenarios_per_sec']:,.0f} scenarios/s over the "
+          f"kernels' busy time; cache {stats['cache']}", flush=True)
+
+
+def stream_on_card(grid, device: str) -> None:
+    """Part 2: ``stream_csv`` of the frontier axes over the CNNs and this
+    run's traces, read back and held to ``sweep()``'s rows."""
+    from repro_torch.core import agreement as A
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        meta = A.stream_matches_sweep(grid, Path(tmp) / "frontier.csv", chunk=16384,
+                                      device=device)
+        total = time.perf_counter() - t0
+    print(f"  streamed {meta['n_scenarios']} scenarios in {meta['n_chunks']} chunks of "
+          f"16384 to CSV in {meta['elapsed_s']:.3f} s ({meta['scenarios_per_sec']:,.0f}/s), "
+          f"read back equal to sweep() (with the check: {total:.3f} s)", flush=True)
+
+
+def oracle_on_card(device: str) -> None:
+    """Part 3: the card's rows of a small grid against the event-driven
+    simulator, its sub-grids on a process pool of the host's cores."""
+    import os
+
+    from repro_torch.core import agreement as A
+    from repro_torch.core.policies import ALL_POLICIES
+    from repro_torch.core.scenarios import ScenarioGrid
+    from repro_torch.core.sweep import sweep
+
+    grid = ScenarioGrid(workloads=("resnet50", "trace:alexnet-k80"),
+                        clusters=("v100-nvlink-ib",), worker_counts=ORACLE_WORKERS,
+                        policies=tuple(ALL_POLICIES), collectives=("ring",),
+                        het_profiles=(None, SERVICE_HET), sync_ks=(None, 3),
+                        faults=(None, ORACLE_FAULT))
+    jobs = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    sim = A.simulated_table(grid, jobs=jobs)
+    sim_s = time.perf_counter() - t0
+    worst = A.assert_tables_agree(sweep(grid, device=device).columns, sim, A.BATCHED_RTOL,
+                                  oracle=True)
+    print(f"  oracle: {len(grid)} scenarios (workers {ORACLE_WORKERS}, ten policies, het, "
+          f"sync_k, {ORACLE_FAULT}) on {device} against the event-driven simulator: worst "
+          f"relative {worst:.3e} (limit {A.BATCHED_RTOL:g}); the simulator took {sim_s:.3f} s "
+          f"on {jobs} processes", flush=True)
+
+
+@phase("sweep service on the card")
+def sweep_service_on_card(trace_dir: Path, device: str = "cuda") -> None:
+    """Phase 10: the sweep service answering concurrent HTTP queries on the
+    card, a 155 520-scenario grid streamed in chunks, and the card's rows
+    against the event-driven simulator."""
+    import dataclasses
+
+    from repro_torch.core.scenarios import frontier_grid
+
+    traces = tuple(f"torch:{trace_dir / f'{arch}.trace'}" for arch in MAIN_PATHS)
+    frontier = frontier_grid()
+    serve_queries_on_card(device)
+    stream_on_card(dataclasses.replace(frontier, workloads=frontier.workloads + traces),
+                   device)
+    oracle_on_card(device)
+
+
+# ----------------------------------------------------------------------
+# 11. the paper's per-layer trace method on its CNNs (Table VI)
 # ----------------------------------------------------------------------
 #: Timed layers of the full-width traces.
 CNN_LAYERS = {"alexnet": 11, "resnet50": 19}
@@ -1580,7 +1786,7 @@ def cnn_traces(trace_dir: Path) -> None:
 
 
 # ----------------------------------------------------------------------
-# 11. the §V-D validation: per-layer costs -> DAG -> measured steps
+# 12. the §V-D validation: per-layer costs -> DAG -> measured steps
 # ----------------------------------------------------------------------
 #: Timed steps a policy (the reference times 10; 3 took the script past
 #: its 600 s aim on a call with slow gloo).
@@ -1618,7 +1824,7 @@ def dag_validation() -> dict:
 
 
 # ----------------------------------------------------------------------
-# 12. decode on the card: KV and ring-buffer caches, the scans at one token
+# 13. decode on the card: KV and ring-buffer caches, the scans at one token
 # ----------------------------------------------------------------------
 #: arch -> (layers at the published widths, tokens of the float32 check:
 #: prompt + generation).  gemma3-1b's 600 tokens pass its 512-token window,
@@ -1790,7 +1996,7 @@ def decode_on_card(card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
-# 13. the training launcher
+# 14. the training launcher
 # ----------------------------------------------------------------------
 #: ``python -m repro_torch.launch.train`` at gemma3-1b's full 26 layers and
 #: published widths, AdamW
@@ -1848,7 +2054,7 @@ def train_launcher() -> dict:
 
 
 # ----------------------------------------------------------------------
-# 14. remat and gradient accumulation
+# 15. remat and gradient accumulation
 # ----------------------------------------------------------------------
 #: accumulation against one batch in bfloat16: the bf16 limit of
 #: tests/test_kernels.py, of each leaf's scale
@@ -1903,7 +2109,7 @@ def remat_and_accumulation() -> None:
 
 
 # ----------------------------------------------------------------------
-# 15. the encoder-decoder path: whisper-tiny and llama-3.2-vision-90b
+# 16. the encoder-decoder path: whisper-tiny and llama-3.2-vision-90b
 # ----------------------------------------------------------------------
 #: whisper-tiny on the card against the CPU, float32: batch, decoder tokens
 WHISPER_CHECK = (2, 64)
@@ -2287,6 +2493,7 @@ def main() -> int:
                 launches[name] = launches.get(name, 0) + n
         report_model_vs_measured(measured)
         check_sweep(Path(trace_dir))
+        sweep_service_on_card(Path(trace_dir))
         cnn_traces(Path(trace_dir))
         for name, n in dag_validation().items():
             launches[name] = launches.get(name, 0) + n

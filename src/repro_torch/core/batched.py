@@ -6,7 +6,7 @@ bit for bit.  Its twin on the card, :mod:`repro_torch.core.batched_torch`,
 reuses its structure (axis tables, code vectors, the unique compute rows,
 the straggler Monte Carlo pass).
 
-The per-scenario fast path (:func:`repro.core.sweep._fast_eval`) is
+The per-scenario fast path (:func:`repro_torch.core.sweep._fast_eval`) is
 vectorized over the *layer* dimension only — every scenario still pays
 a Python round-trip through ``resolve_workload -> iteration_costs ->
 closed_form``, which caps the engine at roughly 10k scenarios/s.  This
@@ -40,8 +40,8 @@ payloads costed through the same collective dispatch as the per-layer
 the policy select substitutes that residual for the WFBP term — see
 :func:`repro_torch.core.analytical.has_timeline_form` for why this is exact.
 
-Correctness contract (the reference's tests): every closed-form row
-agrees with the per-scenario reference implementation ``_fast_eval`` to <= 1e-9
+Correctness contract: every closed-form row agrees with the
+per-scenario reference implementation ``_fast_eval`` to <= 1e-9
 relative, and every timeline row with the event-driven
 ``simulate_steady`` oracle to <= 1e-6 (property-tested on the default,
 mixed and frontier grids).  This module is the throughput engine
@@ -67,7 +67,7 @@ from repro_torch.core.hardware import (CLUSTERS, apply_interconnect_preset,
                                  ring_allreduce_coeffs,
                                  tree_allreduce_coeffs)
 from repro_torch.core.policies import Policy, get_policy
-from repro_torch.core.resulttable import METHOD_LABELS
+from repro_torch.core.resulttable import METHOD_LABELS, rows_from_table
 from repro_torch.core.scenarios import (Scenario, ScenarioGrid,
                                   normalize_interconnect,
                                   normalize_sync_k)
@@ -756,9 +756,9 @@ class GridEvaluator:
     dropped), the scenario -> kernel-point map and the row label lists
     directly from the grid's cross-product structure — no per-scenario
     Python objects at all.  Closed-form *and* bucket-timeline policies
-    are both batched; scenarios whose policy has neither form are
-    marked in the per-row ``batched`` mask (the port's sweep refuses
-    such grids: it has no simulator fallback).
+    are both batched; scenarios whose policy has neither form come
+    back as ``None`` rows and :meth:`scenario_at` materializes just
+    those for the simulator fallback.
 
     The evaluator holds only *structure*; :meth:`run` computes the
     numbers.  Get instances through :func:`grid_evaluator`, which
@@ -930,8 +930,8 @@ class GridEvaluator:
         """Attach the tail columns for the rows of ``codes`` in place:
         the point-mass default everywhere, overwritten by the straggler
         Monte Carlo pass (:func:`_apply_mc_tails`) on stochastic rows.
-        Simulator-fallback rows are excluded (the port's sweep refuses
-        grids that hold them)."""
+        Simulator-fallback rows are excluded — their tails come from
+        the per-draw oracle in :mod:`repro_torch.core.sweep`."""
         if not self._any_mc:
             t_iter = np.asarray(cols["iteration_time_s"])
             cols["t_mean_s"] = t_iter
@@ -960,11 +960,39 @@ class GridEvaluator:
             tmul=self._ktmul, bwmul=self._kbwmul, latmul=self._klatmul),
             seed=seed)
 
+    def run_span(self, lo: int, hi: int, seed: int = 0):
+        """Evaluate just the flat scenario indices ``[lo, hi)`` —
+        kernel restricted to the unique kernel points the span touches,
+        so a worker evaluating one shard never pays for the whole grid.
+        Returns ``(table, batched)``: the columnar result table and the
+        per-row batched mask (``False`` rows carry tier-2 placeholder
+        numbers the caller must overwrite with the simulator — see
+        :mod:`repro_torch.core.parallel`)."""
+        codes = self._scenario_codes(lo, hi)
+        uk, inv = np.unique(codes["kidx"], return_inverse=True)
+        kc = _kernel_cols(
+            self._wax, self._cax, self._kwidx[uk], self._kcidx[uk],
+            self._kcoll[uk], self._kn[uk], self._kbatch[uk],
+            tl_specs=self._pax.tl_specs,
+            tmul=None if self._ktmul is None else self._ktmul[uk],
+            bwmul=None if self._kbwmul is None else self._kbwmul[uk],
+            latmul=None if self._klatmul is None else self._klatmul[uk])
+        cols = _policy_select(self._pax, codes["pi"], kc, inv)
+        self._apply_tails(codes, cols, seed)
+        return (select_to_columns(cols, self._label_columns(codes)),
+                codes["batched"])
+
+    def scenario_at(self, i: int) -> Scenario:
+        """Materialize flat index ``i`` (used for simulator-fallback
+        entries only)."""
+        return self.grid.scenario_at(i)
+
 
 class GridRun:
     """One evaluation of a grid: the ``(K,)`` kernel columns plus the
-    shared structure, materializing columnar result tables by row range
-    (:meth:`table_slice`)."""
+    shared structure, materializing columnar result tables chunk by
+    chunk (:meth:`table_slice` is the hot path; :meth:`rows_slice` is
+    the per-row compat view)."""
 
     def __init__(self, ev: GridEvaluator, kernel_cols: dict[str, np.ndarray],
                  seed: int = 0):
@@ -994,13 +1022,25 @@ class GridRun:
         arrays, numeric columns straight from the policy select.
         Returns ``(table, batched)`` where ``batched`` is the per-row
         mask; ``False`` rows carry tier-2 placeholder numbers (their
-        policy needs the simulator, which the port does not run)."""
+        policy needs the simulator) that the caller overwrites via
+        :func:`repro_torch.core.resulttable.fill_rows`."""
         ev = self._ev
         codes = ev._scenario_codes(lo, hi)
         cols = _policy_select(ev._pax, codes["pi"], self._kc, codes["kidx"])
         ev._apply_tails(codes, cols, self._seed)
         return (select_to_columns(cols, ev._label_columns(codes)),
                 codes["batched"])
+
+    def rows_slice(self, lo: int, hi: int) -> list[dict | None]:
+        """Batched rows for flat scenario indices ``[lo, hi)`` in grid
+        order; entries whose policy needs the simulator come back as
+        ``None`` for the caller to fill."""
+        table, batched = self.table_slice(lo, hi)
+        rows: list[dict | None] = rows_from_table(table)
+        if not self._ev.all_batched:
+            for i in np.nonzero(~batched)[0].tolist():
+                rows[i] = None                # selected a bogus equation
+        return rows
 
 
 #: Structure memo: prepared evaluators keyed by grid value + the
@@ -1031,6 +1071,20 @@ def grid_evaluator(grid: ScenarioGrid) -> GridEvaluator:
     return ev
 
 
+def evaluator_cached(grid: ScenarioGrid) -> bool:
+    """True when :func:`grid_evaluator` would hit the structure memo —
+    a pure probe (nothing is built, no entry is added), which is how
+    the sweep service (:mod:`repro_torch.core.service`) accounts cache
+    hit/miss rates without perturbing the cache it is measuring."""
+    try:
+        tables = tuple(resolve_workload(w) for w in grid.workloads)
+        key = (grid, tuple(id(t) for t in tables))
+        hash(key)
+    except (TypeError, ValueError):
+        return False
+    return key in _EVALUATOR_MEMO
+
+
 # ----------------------------------------------------------------------
 # Scenario-list front end (arbitrary iterables, already validated).
 # ----------------------------------------------------------------------
@@ -1039,7 +1093,7 @@ def scenario_axes(scenarios: Sequence[Scenario]):
     workload/cluster-pair/policy axes and the per-scenario code
     vectors.  Returns ``(wax, cax, pax, widx, cidx, polidx, coll, n,
     batch)`` — the inputs of the two-tier kernel with the identity
-    scenario -> kernel-point map.  Shared by :func:`eval_scenarios_table`
+    scenario -> kernel-point map.  Shared by :func:`eval_scenarios`
     and the torch backend's list front end
     (:func:`repro_torch.core.batched_torch.eval_scenarios_table_torch`), raising
     ``ValueError`` if any scenario's policy has neither a closed nor a
@@ -1201,3 +1255,12 @@ def eval_scenarios_table(scenarios: Sequence[Scenario],
                     hks, wtab, bwmul, latmul, st_specs, stidx,
                     cols, seed, synck=synck, ft_specs=ft_specs, fidx=fidx)
     return select_to_columns(cols, scenario_labels(scenarios))
+
+
+def eval_scenarios(scenarios: Sequence[Scenario],
+                   seed: int = 0) -> list[dict]:
+    """Batched rows (input order) for a scenario list — the per-row
+    view of :func:`eval_scenarios_table`."""
+    if not scenarios:
+        return []
+    return rows_from_table(eval_scenarios_table(scenarios, seed=seed))

@@ -45,7 +45,10 @@ operation, and :func:`grad_iteration_time` returns exactly 0 for it.
 finite-difference tests evaluate.
 
 Not ported: the reference's ``mesh=`` sharding of the scenario axis (one
-card has nothing to shard over).
+card has nothing to shard over).  Policies with neither batched form, and
+the per-scenario reference paths, run on the host only
+(:mod:`repro_torch.core.sweep` with ``backend="numpy"``): this backend
+raises on them (:func:`require_all_batched`) rather than fall back.
 """
 from __future__ import annotations
 
@@ -308,8 +311,9 @@ def _columns_torch(tables: dict, pflags: dict, kcodes: dict, scodes: dict,
 def require_all_batched(ev: batched.GridEvaluator, backend: str) -> None:
     """Raise ``ValueError`` naming the grid's policies that have neither a
     closed nor a bucket-timeline form: they need the event-driven
-    simulator, which the port's sweep does not run, and silently dropping
-    or approximating their rows would defeat the point of the sweep."""
+    simulator, which runs on the host (``backend="numpy"``) only, and
+    silently moving their rows off the device would defeat the point of
+    choosing it."""
     if ev.all_batched:
         return
     bad = [name for name, f, t in zip(
@@ -317,9 +321,8 @@ def require_all_batched(ev: batched.GridEvaluator, backend: str) -> None:
         if not (bool(f) or bool(t))]
     raise ValueError(
         f"backend={backend!r} evaluates closed-form and bucket-timeline "
-        f"policies only; {bad} need the event-driven simulator, which "
-        f"the port's sweep does not run (the reference's "
-        f"repro.core.sweep with backend='numpy' does).")
+        f"policies only; {bad} need the event-driven simulator: use "
+        f"backend='numpy'")
 
 
 # ----------------------------------------------------------------------
@@ -484,6 +487,18 @@ def _memo_key(grid: ScenarioGrid, device: torch.device):
     key = (grid, tuple(id(t) for t in tables), str(device))
     hash(key)
     return key, tables
+
+
+def torch_evaluator_cached(grid: ScenarioGrid, device=None) -> bool:
+    """True when :func:`torch_grid_evaluator` would hit the structure memo
+    for ``device`` — the twin of
+    :func:`repro_torch.core.batched.evaluator_cached` (a pure probe; the
+    sweep service's cache-hit accounting)."""
+    try:
+        key, _ = _memo_key(grid, resolve_device(device))
+    except (TypeError, ValueError, RuntimeError):
+        return False
+    return key in _TORCH_MEMO
 
 
 def torch_grid_evaluator(grid: ScenarioGrid, *, device=None) -> TorchGridEvaluator:

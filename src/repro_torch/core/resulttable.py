@@ -7,7 +7,8 @@ The sweep pipeline's result unit is a **table** — a dict mapping each
 label columns, ``int64``/``float64`` for the numeric ones).  Tables
 flow straight out of the batched kernels
 (:meth:`repro_torch.core.batched.GridRun.table_slice`,
-:meth:`repro_torch.core.batched_torch.TorchGridRun.table_slice`) into
+:meth:`repro_torch.core.batched_torch.TorchGridRun.table_slice`), through the parallel
+execution layer (:mod:`repro_torch.core.parallel`) and into
 :class:`repro_torch.core.sweep.SweepResult` without ever materializing a
 ``list[dict]`` on the hot path; per-row dicts are a *view* built on
 demand by :func:`rows_from_table` (``.tolist()`` converts whole
@@ -20,6 +21,8 @@ the schema from here, which is what lets the kernel emit result
 columns directly without a circular import.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
@@ -49,6 +52,11 @@ LABEL_COLUMNS = ("workload", "cluster", "policy", "collective",
 #: Integer-valued columns (int64).
 INT_COLUMNS = ("n_workers", "sync_k", "batch_per_gpu")
 
+#: Float-valued columns (float64).
+FLOAT_COLUMNS = ("iteration_time_s", "samples_per_sec", "speedup",
+                 "t_comm_s", "t_comp_s", "t_mean_s", "t_p95_s",
+                 "t_p99_s")
+
 #: Evaluation-path labels indexed by the policy tier code the batched
 #: select computes (0 = closed form, 1 = bucket timeline, 2 =
 #: event-driven simulator).
@@ -69,8 +77,35 @@ def empty_table() -> dict[str, np.ndarray]:
     return {k: np.empty(0, dtype=_dtype_of(k)) for k in COLUMNS}
 
 
+def table_from_rows(rows: Sequence[dict]) -> dict[str, np.ndarray]:
+    """Columnar table from tidy row dicts (the per-scenario reference
+    paths still produce rows; everything downstream speaks tables)."""
+    if not rows:
+        return empty_table()
+    return {k: np.array([r[k] for r in rows], dtype=_dtype_of(k))
+            for k in COLUMNS}
+
+
+def concat_tables(tables: Sequence[dict]) -> dict[str, np.ndarray]:
+    """Concatenate chunk tables in order into one table."""
+    tables = [t for t in tables if len(next(iter(t.values())))]
+    if not tables:
+        return empty_table()
+    if len(tables) == 1:
+        return tables[0]
+    return {k: np.concatenate([t[k] for t in tables]) for k in COLUMNS}
+
+
 def table_len(table: dict) -> int:
     return len(table["workload"])
+
+
+def slice_table(table: dict, lo: int, hi: int) -> dict[str, np.ndarray]:
+    """Row slice ``[lo, hi)`` of a table, as column **views** (NumPy
+    basic slicing — no bytes copied): how the sweep service
+    de-multiplexes one coalesced kernel table back into per-query
+    results."""
+    return {k: table[k][lo:hi] for k in COLUMNS}
 
 
 def rows_from_table(table: dict,
@@ -84,6 +119,15 @@ def rows_from_table(table: dict,
 
     return [dict(zip(COLUMNS, values))
             for values in zip(*(col(k) for k in COLUMNS))]
+
+
+def fill_rows(table: dict, indices: Sequence[int],
+              rows: Sequence[dict]) -> None:
+    """Overwrite ``table``'s rows at ``indices`` with ``rows`` in
+    place (the simulator-fallback interleave)."""
+    idx = np.asarray(list(indices), dtype=np.int64)
+    for k in COLUMNS:
+        table[k][idx] = np.array([r[k] for r in rows], dtype=_dtype_of(k))
 
 
 def method_counts(table: dict) -> tuple[int, int, int]:

@@ -1,8 +1,6 @@
 """Declarative scenario grids for the S-SGD sweep engine.
 
-A copy of :mod:`repro.core.scenarios`: :class:`Scenario`,
-:class:`ScenarioGrid`, the ``default``, ``mixed`` and ``frontier`` grids
-and :func:`grid_from_spec`.
+A copy of :mod:`repro.core.scenarios`.
 
 A :class:`Scenario` is one fully-specified what-if question the paper's
 DAG model can answer: *this* workload on *this* cluster with *this*
@@ -19,14 +17,16 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
 from repro_torch.core import het as het_mod
 from repro_torch.core.hardware import (CLUSTERS, COLLECTIVE_ALGORITHMS,
-                                       INTERCONNECT_PRESETS,
-                                       resolve_interconnect_preset)
-from repro_torch.core.policies import ALL_POLICIES
+                                 INTERCONNECT_PRESETS, ClusterSpec,
+                                 apply_interconnect_preset,
+                                 resolve_interconnect_preset)
+from repro_torch.core.policies import ALL_POLICIES, Policy, get_policy
 from repro_torch.core.workloads import validate_workload
 
 
@@ -146,6 +146,44 @@ class Scenario:
                              f"got {self.batch_per_gpu}")
 
 
+def apply_het_links(cluster: ClusterSpec, bw_mult: float,
+                    lat_mult: float) -> ClusterSpec:
+    """A copy of ``cluster`` with both links scaled by the slowest-
+    worker link multipliers of a heterogeneity profile (the per-worker
+    vectors reduce to ``min bw`` / ``max lat`` first — see
+    :func:`repro_torch.core.analytical.worker_bottleneck`).  Identity
+    multipliers return the cluster untouched, keeping homogeneous
+    scenarios bit-identical."""
+    if bw_mult == 1.0 and lat_mult == 1.0:
+        return cluster
+    return dataclasses.replace(
+        cluster,
+        intra=cluster.intra.scaled(bw_mult, lat_mult),
+        inter=cluster.inter.scaled(bw_mult, lat_mult))
+
+
+def resolve_cluster(scenario: Scenario) -> ClusterSpec:
+    """Concrete :class:`ClusterSpec` for a scenario: the named base
+    cluster resized to hold ``n_workers`` devices (whole nodes of
+    ``gpus_per_node``, like the paper's 1/2/4-node testbeds) with the
+    interconnect preset applied, and — when the scenario carries a
+    heterogeneity profile — the links derated to the slowest worker's
+    multipliers."""
+    base = CLUSTERS[scenario.cluster]
+    n_nodes = max(1, math.ceil(scenario.n_workers / base.gpus_per_node))
+    cluster = base.with_workers(n_nodes=n_nodes)
+    cluster = apply_interconnect_preset(cluster, scenario.interconnect)
+    profile = het_mod.parse_het_profile(scenario.het)
+    if profile is not None:
+        _, bw, lat = het_mod.worker_vectors(profile, scenario.n_workers)
+        cluster = apply_het_links(cluster, float(bw.min()), float(lat.max()))
+    return cluster
+
+
+def resolve_policy(scenario: Scenario) -> Policy:
+    return get_policy(scenario.policy)
+
+
 @dataclass(frozen=True)
 class ScenarioGrid:
     """Cross product of sweep axes; ``expand()`` yields the scenarios.
@@ -226,6 +264,30 @@ class ScenarioGrid:
                     self.het_profiles, self.stragglers, self.sync_ks,
                     self.faults)]
 
+    def scenario_at(self, i: int) -> Scenario:
+        """Materialize the scenario at flat ``expand()`` index ``i``
+        (rightmost axis fastest) without expanding the grid — how the
+        batched/parallel paths recover the few simulator-fallback
+        scenarios of an otherwise fully batched grid."""
+        codes = []
+        for axis in (self.faults, self.sync_ks, self.stragglers,
+                     self.het_profiles, self.interconnects,
+                     self.collectives, self.policies, self.worker_counts,
+                     self.clusters, self.workloads):
+            i, c = divmod(i, len(axis))
+            codes.append(c)
+        fi, qi, sti, hi, ii, ai, pi, ki, ci, wi = codes
+        return Scenario(workload=self.workloads[wi],
+                        cluster=self.clusters[ci],
+                        n_workers=int(self.worker_counts[ki]),
+                        policy=self.policies[pi],
+                        collective=self.collectives[ai],
+                        interconnect=self.interconnects[ii],
+                        het=self.het_profiles[hi],
+                        straggler=self.stragglers[sti],
+                        sync_k=self.sync_ks[qi],
+                        faults=self.faults[fi],
+                        batch_per_gpu=self.batch_per_gpu)
 
 def default_grid() -> ScenarioGrid:
     """The out-of-the-box study: every paper workload and cluster, six
@@ -307,9 +369,11 @@ def _spec_synck(k):
 
 def grid_from_spec(spec: dict) -> ScenarioGrid:
     """A validated :class:`ScenarioGrid` from a declarative spec dict —
-    the parser behind the sweep CLI's axis flags
-    (:func:`repro_torch.sweep.grid_from_args`), as in the reference, where
-    it also parses the sweep service's JSON query documents.
+    the **one** parser behind both front doors: the sweep CLI's axis
+    flags (:func:`repro_torch.sweep.grid_from_args`) and the sweep
+    service's JSON query documents
+    (:func:`repro_torch.core.service.parse_query`), so a spec the CLI exits 2
+    on is exactly one the server rejects with a structured error.
 
     Keys: ``"grid"`` names a base grid (:data:`BASE_GRIDS`, default
     ``"default"``); each :data:`GRID_SPEC_KEYS` entry overrides one

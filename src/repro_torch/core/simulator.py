@@ -1,38 +1,43 @@
 """Event-driven list scheduler for the S-SGD DAG.
 
 A copy of :mod:`repro.core.simulator`.  It executes a
-:class:`repro_torch.core.dag.DAG` under *resource constraints*: each
-channel (GPU stream per worker, disk, PCIe, collective network) runs one
-task at a time.  This is what turns the paper's Fig. 1 precedence graph
-into an iteration-time prediction.
+:class:`repro_torch.core.dag.DAG` under *resource constraints*:
+each channel (GPU stream per worker, disk, PCIe, collective network)
+runs one task at a time.  This is what turns the paper's Fig. 1
+precedence graph into an iteration-time prediction — and it reproduces
+Eqs. (2), (3) and (5) exactly when given the matching policy (verified
+by property tests).
 
 The scheduler is a **global event heap** over per-channel candidates:
 each channel keeps its ready queue, and whenever the queue or the
 channel's free time changes, its current best candidate (start time,
 queue key) is pushed onto one shared heap with a per-channel version
-stamp; stale entries are discarded on pop.
+stamp — stale entries are discarded on pop (lazy invalidation).  This
+replaces the historical rescan of every channel per event (O(events x
+channels)) with O(events x log) work, which matters once the oracle is
+property-tested against the batched kernels on real grids.
 
 :class:`Simulation` is incremental: tasks appended to the DAG after a
 completed :meth:`~Simulation.run` are picked up by
-:meth:`~Simulation.extend`, which lets :func:`simulate_policy` grow the
-DAG one iteration at a time and stop once the steady state is reached.
-
-Left out, as in :mod:`repro_torch.core.dag`: the heterogeneous and
-failure arguments of ``simulate_policy`` / ``simulate_steady`` and the
-schedule views ``SimResult.tasks_on`` / ``timeline``.
+:meth:`~Simulation.extend`, which is what lets
+:func:`simulate_steady` grow the DAG one iteration at a time and stop
+as soon as the steady state is reached instead of always paying the
+full warm-up cap.
 """
 from __future__ import annotations
 
 import heapq
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 from repro_torch.core.dag import (DAG, NET_CHANNEL, IterationCosts, SSGDDagBuilder,
-                                  Task)
+                            Task, TaskKind)
 
 #: Relative tolerance for steady-state detection: two consecutive
 #: update-delta pairs must agree this tightly before the warm-up loop
-#: stops early.
+#: stops early.  Steady pipelines are exactly periodic, so the deltas
+#: typically repeat bit-for-bit — the tolerance only absorbs float
+#: noise in the accumulated finish times.
 STEADY_RTOL = 1e-9
 
 
@@ -48,15 +53,30 @@ class SimResult:
     makespan: float
     schedule: dict[int, ScheduledTask]
     channel_busy: dict[str, float]
-    #: Iterations actually simulated by :func:`simulate_policy` (where an
-    #: ``auto_steady`` warm-up converged); ``None`` for :func:`simulate`.
+    #: Iterations actually simulated when the schedule came from
+    #: :func:`simulate_policy` / :func:`simulate_steady` — with
+    #: ``auto_steady`` this is where the warm-up converged (<= the
+    #: requested cap).  ``None`` for raw :func:`simulate` calls.
     n_iterations_used: int | None = None
 
     def utilization(self, channel: str) -> float:
         return self.channel_busy.get(channel, 0.0) / self.makespan if self.makespan else 0.0
 
+    def tasks_on(self, channel: str) -> list[ScheduledTask]:
+        return sorted((s for s in self.schedule.values() if s.task.channel == channel),
+                      key=lambda s: s.start)
+
+    def timeline(self) -> list[ScheduledTask]:
+        return sorted(self.schedule.values(), key=lambda s: (s.start, s.task.channel))
+
     def iteration_times(self) -> list[float]:
-        """Finish time of each iteration's update task (cumulative)."""
+        """Finish time of each iteration's update task (cumulative).
+
+        Empty when the DAG has no ``update`` task (``n_iterations=0``
+        or a custom graph) — callers that need at least one iteration
+        (:meth:`steady_iteration_time`) raise a clear error instead of
+        indexing into nothing.
+        """
         ups = sorted((s for s in self.schedule.values() if s.task.name == "update"),
                      key=lambda s: s.task.iteration)
         return [s.finish for s in ups]
@@ -65,7 +85,8 @@ class SimResult:
         """Per-iteration time once the pipeline is warm (last iter delta).
 
         Raises ``ValueError`` when the schedule contains no ``update``
-        task.
+        task — e.g. a DAG built with ``n_iterations=0`` or a custom
+        graph without an update node.
         """
         it = self.iteration_times()
         if not it:
@@ -83,10 +104,23 @@ class Simulation:
 
     Tasks become *ready* when all predecessors finished; each channel
     executes ready tasks one at a time.  Ready tasks on the same channel
-    are ordered by (ready_time, priority, tid) unless the channel is in
-    ``priority_channels``, in which case the channel takes, each time it
+    are ordered by (ready_time, priority, tid) — FIFO with the task's
+    ``priority`` as a tie-break — unless the channel is in
+    ``priority_channels`` in which case the channel takes, each time it
     frees up, the smallest-``priority`` task among those already ready
-    (work-conserving priority queueing).
+    (ByteScheduler-style preemption-free priority queueing).  Priority
+    scheduling is *work-conserving*: the channel never idles waiting
+    for a higher-priority task that has not been released yet.
+
+    After :meth:`run` completes, more tasks may be appended to the DAG
+    (their predecessors must all be already-scheduled tasks or fellow
+    new tasks — exactly what :class:`repro_torch.core.dag.SSGDDagBuilder`
+    produces); :meth:`extend` ingests them and :meth:`run` continues.
+    Committed start/finish times never change, and the combined
+    schedule is identical to simulating the full DAG in one shot: every
+    channel's earlier-iteration tasks transitively precede its
+    later-iteration ones, so nothing committed early could have been
+    preempted by work that arrives later.
     """
 
     def __init__(self, dag: DAG,
@@ -105,6 +139,7 @@ class Simulation:
         self._n_done = 0
         self.extend()
 
+    # -- task intake ----------------------------------------------------
     def _push(self, tid: int, at: float) -> None:
         ch = self.dag.tasks[tid].channel
         prio = self.dag.tasks[tid].priority
@@ -141,9 +176,14 @@ class Simulation:
             self._push_candidate(ch)
         return len(new)
 
+    # -- the event heap -------------------------------------------------
     def _push_candidate(self, ch: str) -> None:
-        """(Re)announce ``ch``'s best next task on the global heap,
-        stamped with the channel's version."""
+        """(Re)announce ``ch``'s best next task on the global heap.
+
+        The entry is stamped with the channel's version; any change to
+        the channel's queue or free time bumps the version, so stale
+        heap entries are recognized and skipped on pop.
+        """
         q = self._queues.get(ch)
         self._version[ch] = self._version.get(ch, 0) + 1
         if not q:
@@ -209,7 +249,8 @@ def simulate(dag: DAG, priority_channels: frozenset[str] | None = None) -> SimRe
 
 def _steady_converged(finishes: list[float], rtol: float) -> bool:
     """True once the last two update-interval deltas agree (pairwise,
-    within ``rtol`` of their magnitude)."""
+    within ``rtol`` of their magnitude) — i.e. three consecutive
+    iterations have taken the same time, the pipeline is periodic."""
     if len(finishes) < 4:
         return False
     d = [finishes[-1] - finishes[-2], finishes[-2] - finishes[-3],
@@ -229,14 +270,33 @@ def simulate_policy(
     comm_scale: Callable[[float, float], float] | None = None,
     auto_steady: bool = False,
     rtol: float = STEADY_RTOL,
+    worker_scale=None,
+    sync_k: int | None = None,
+    crashed: tuple = (),
+    restart_s: float = 0.0,
 ) -> SimResult:
-    """Build the Fig.-1 S-SGD DAG for ``policy`` and list-schedule it;
-    ``policy.priority_comm`` puts the collective channel in
-    priority-scheduling mode.  With ``auto_steady=True`` the DAG grows one
-    iteration at a time and the warm-up stops once the update-task deltas
-    converge (``rtol``), capped at ``n_iterations``;
-    :attr:`SimResult.n_iterations_used` records where it stopped."""
-    builder = SSGDDagBuilder(costs, n_workers, policy, comm_scale=comm_scale)
+    """Build the Fig.-1 S-SGD DAG for ``policy`` and list-schedule it.
+
+    One-stop entry point shared by the predictor, the sweep engine's
+    simulator fallback, and the property tests; honors
+    ``policy.priority_comm`` by putting the collective channel in
+    priority-scheduling mode.
+
+    With ``auto_steady=True`` the DAG is grown and simulated one
+    iteration at a time and the warm-up stops as soon as the
+    update-task deltas converge (``rtol``), capped at ``n_iterations``
+    — :attr:`SimResult.n_iterations_used` records where it stopped.
+
+    ``worker_scale`` (per-worker compute-time multipliers) makes this
+    the per-worker oracle for the heterogeneous/straggler engine — see
+    :class:`repro_torch.core.dag.SSGDDagBuilder`.  ``sync_k`` / ``crashed`` /
+    ``restart_s`` add the failure model: K-of-N partial sync and
+    per-iteration checkpoint-restore crash events.
+    """
+    builder = SSGDDagBuilder(costs, n_workers, policy,
+                             comm_scale=comm_scale,
+                             worker_scale=worker_scale, sync_k=sync_k,
+                             crashed=crashed, restart_s=restart_s)
     prio = frozenset([NET_CHANNEL]) if getattr(policy, "priority_comm", False) \
         else None
     sim = Simulation(builder.dag, priority_channels=prio)
@@ -259,9 +319,17 @@ def simulate_steady(
     policy,
     n_iterations: int = 6,
     comm_scale: Callable[[float, float], float] | None = None,
+    worker_scale=None,
+    sync_k: int | None = None,
+    crashed: tuple = (),
+    restart_s: float = 0.0,
 ) -> float:
-    """:func:`simulate_policy`, reduced to the warm per-iteration time in
-    seconds, with the steady state detected (``n_iterations`` the cap)."""
+    """:func:`simulate_policy`, reduced to the warm per-iteration time
+    in seconds.  Auto-detects the steady state: the warm-up stops as
+    soon as consecutive update deltas converge, with ``n_iterations``
+    as the cap (the historical fixed warm-up count)."""
     return simulate_policy(costs, n_workers, policy, n_iterations,
-                           comm_scale, auto_steady=True) \
+                           comm_scale, auto_steady=True,
+                           worker_scale=worker_scale, sync_k=sync_k,
+                           crashed=crashed, restart_s=restart_s) \
         .steady_iteration_time()

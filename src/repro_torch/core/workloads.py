@@ -445,6 +445,29 @@ def validate_workload(workload: str) -> None:
     resolve_workload(workload)
 
 
+def workload_cached(workload: str) -> bool:
+    """True when :func:`resolve_workload` would hit the table memo — a
+    pure probe (nothing is built or cached; unresolvable names are
+    simply "not cached").  The sweep service
+    (:mod:`repro_torch.core.service`) uses this for cache-hit accounting."""
+    scheme, _, spec = canonical_name(workload).partition(":")
+    provider = WORKLOAD_PROVIDERS.get(scheme)
+    if provider is None:
+        return False
+    key_fn = getattr(provider, "cache_key", None)
+    try:
+        key = f"{scheme}:{key_fn(spec) if key_fn else spec}"
+    except (ValueError, OSError):
+        return False
+    return key in _TABLES
+
+
+def clear_workload_cache() -> None:
+    """Drop memoized tables (tests; after registering a provider whose
+    scheme shadows cached names)."""
+    _TABLES.clear()
+
+
 def known_workloads() -> list[str]:
     """Every enumerable workload name, scheme-qualified and sorted."""
     return sorted(f"{scheme}:{spec}"

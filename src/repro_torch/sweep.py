@@ -1,10 +1,13 @@
 """Scenario-sweep CLI of the port: evaluate a grid of S-SGD what-if
 scenarios on the card and print the tidy results table (the counterpart
-of ``python -m repro.launch.sweep``, batched paths only).
+of ``python -m repro.launch.sweep``).
 
     PYTHONPATH=src python -m repro_torch.sweep                    # CUDA
     PYTHONPATH=src python -m repro_torch.sweep --device cpu
     PYTHONPATH=src python -m repro_torch.sweep --grid frontier --csv /tmp/f.csv
+    PYTHONPATH=src python -m repro_torch.sweep --backend numpy --force-simulator
+    PYTHONPATH=src python -m repro_torch.sweep --grid frontier --stream \
+        --csv /tmp/f.csv --chunk 16384
     PYTHONPATH=src python -m repro_torch.sweep \\
         --workloads torch:qwen1.5-4b,trace:alexnet-k80 \\
         --clusters v100-nvlink-ib --workers 2,8,32 \\
@@ -16,10 +19,14 @@ CNN names or ``cnn:<name>``, ``trace:<bundled-name-or-file-path>``,
 traces from ``python -m repro_torch.measure`` (``--list-workloads``).
 Axis values are comma-separated; ``--interconnects`` accepts the presets,
 scaled what-ifs (``ib-100g@bw2@lat0.25``) and ``default``.  ``--backend
-torch`` (the default) evaluates on ``--device`` (CUDA unless ``cpu``; no
-GPU is an error), ``--backend numpy`` on the host.  Policies with neither
-a closed nor a bucket-timeline form are refused: the port runs no
-event-driven simulator.
+torch`` (the default) evaluates the batched kernel on ``--device`` (CUDA
+unless ``cpu``; no GPU is an error), ``--backend numpy`` on the host, where
+policies with neither a closed nor a bucket-timeline form go through the
+event-driven simulator, ``--force-simulator`` sends every scenario there
+(the agreement oracle), ``--per-scenario`` pins the per-scenario reference
+paths and ``--jobs N`` shards the grid over N worker processes.
+``--stream`` writes ``--csv`` / ``--json`` chunk by chunk (``--chunk``
+scenarios at a time) on either backend.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import sys
 from repro_torch.core.hardware import (COLLECTIVE_ALGORITHMS,
                                        INTERCONNECT_PRESETS)
 from repro_torch.core.scenarios import grid_from_spec
-from repro_torch.core.sweep import BACKENDS, COLUMNS, sweep
+from repro_torch.core.sweep import (BACKENDS, COLUMNS, DEFAULT_CHUNK, stream,
+                                    sweep)
 from repro_torch.core.workloads import known_workloads
 from repro_torch.device import resolve_device
 
@@ -87,12 +95,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default 0; the same draws on both backends)")
     p.add_argument("--batch-per-gpu", type=int, default=None,
                    help="override the workload's per-GPU batch size")
+    p.add_argument("--force-simulator", action="store_true",
+                   help="run every scenario through the event-driven "
+                        "simulator (slow; for validation; --backend numpy)")
+    p.add_argument("--per-scenario", action="store_true",
+                   help="pin closed-form scenarios to the per-scenario "
+                        "reference path instead of the batched kernel "
+                        "(slow; the agreement oracle; --backend numpy)")
     p.add_argument("--backend", choices=BACKENDS, default="torch",
-                   help="'torch' (default: the two tiers on --device) or "
-                        "'numpy' (the port's NumPy engine, on the host)")
+                   help="'torch' (default: the two tiers on --device; "
+                        "incompatible with --per-scenario and "
+                        "--force-simulator) or 'numpy' (the port's NumPy "
+                        "engine with its simulator, on the host)")
     p.add_argument("--device", default=None,
                    help="device of --backend torch: cuda (default; an error "
                         "without a GPU) or cpu")
+    p.add_argument("--jobs", type=int, default=None, metavar="N",
+                   help="shard a grid sweep across N worker processes "
+                        "(-1 = one per core; output is bit-identical to "
+                        "serial, in the same order); a no-op with "
+                        "--backend torch")
+    p.add_argument("--chunk", type=int, default=None, metavar="N",
+                   help="scenarios per evaluation chunk (default "
+                        f"{DEFAULT_CHUNK}): the streaming buffer unit, "
+                        "and the minimum shard size under --jobs")
+    p.add_argument("--stream", action="store_true",
+                   help="stream rows straight to --csv/--json without "
+                        "buffering the table (huge grids); skips the "
+                        "printed table")
     p.add_argument("--sort", default="samples_per_sec",
                    help="result column to sort by (descending)")
     p.add_argument("--top", type=int, default=20,
@@ -133,12 +163,27 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     try:
         grid = grid_from_args(args)
+        grid.validate_axes()           # validate axis values up front
     except (ValueError, KeyError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.sort and args.sort not in COLUMNS:
         print(f"error: unknown --sort column {args.sort!r}; "
               f"one of {', '.join(COLUMNS)}", file=sys.stderr)
+        return 2
+    if args.stream and not (args.csv or args.json):
+        print("error: --stream requires --csv and/or --json",
+              file=sys.stderr)
+        return 2
+    if args.backend == "torch" and args.per_scenario:
+        print("error: --backend torch is the batched kernel; --per-scenario "
+              "pins the per-scenario NumPy reference paths (drop one)",
+              file=sys.stderr)
+        return 2
+    if args.backend == "torch" and args.force_simulator:
+        print("error: --backend torch has no event-driven simulator; "
+              "--force-simulator needs --backend numpy",
+              file=sys.stderr)
         return 2
     if args.backend == "numpy":
         if args.device is not None:
@@ -160,12 +205,27 @@ def main(argv: list[str] | None = None) -> int:
           f"x {len(grid.het_profiles)} het x {len(grid.stragglers)} "
           f"stragglers x {len(grid.sync_ks)} sync-k "
           f"x {len(grid.faults)} faults)")
+    kw = dict(force_simulator=args.force_simulator,
+              batched=not args.per_scenario, backend=args.backend,
+              device=args.device, jobs=args.jobs, seed=args.seed)
     try:
-        result = sweep(grid, backend=args.backend, device=args.device,
-                       seed=args.seed)
+        if args.stream:
+            summary = stream(grid, csv_path=args.csv, json_path=args.json,
+                             chunk=args.chunk or DEFAULT_CHUNK, **kw)
+        else:
+            result = sweep(grid, chunk=args.chunk, **kw)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.stream:
+        dests = ", ".join(p for p in (args.csv, args.json) if p)
+        print(f"streamed {summary['n_scenarios']} rows to {dests} on {where} "
+              f"({args.backend}) in {summary['elapsed_s']:.2f}s "
+              f"({summary['scenarios_per_sec']:,.0f}/s; "
+              f"{summary['n_analytical']} analytical, "
+              f"{summary['n_timeline']} timeline, "
+              f"{summary['n_simulated']} simulated)")
+        return 0
     print(f"evaluated on {where} ({args.backend}) in {result.elapsed_s:.2f}s "
           f"({result.scenarios_per_sec:,.0f}/s; "
           f"{result.n_analytical} analytical, "

@@ -50,7 +50,9 @@ def test_every_port_module_is_found():
                  "repro_torch.launch.train", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint.ckpt", "repro_torch.examples.quickstart",
                  "repro_torch.models.encdec", "repro_torch.configs.whisper_tiny",
-                 "repro_torch.configs.llama32_vision_90b"):
+                 "repro_torch.configs.llama32_vision_90b",
+                 "repro_torch.core.parallel", "repro_torch.core.service",
+                 "repro_torch.core.agreement", "repro_torch.launch.serve_sweep"):
         assert must in names
 
 

@@ -570,6 +570,45 @@ class TestSweepOnCard:
             np.testing.assert_allclose(v.cpu().numpy(), cpu[k], rtol=1e-12, atol=1e-15,
                                        err_msg=k)
 
+    def test_service_on_cuda(self):
+        """The sweep service on the card (its default device) over HTTP: a
+        coalesced group of torch queries, each within 1e-12 of a direct
+        sweep on the card and 1e-6 of the NumPy engine; a simulator-only
+        grid is refused on torch and served on NumPy."""
+        import threading
+
+        from repro_torch.core import agreement as A
+        from repro_torch.launch import serve_sweep
+
+        specs = [{"grid": "frontier", "workloads": ["resnet50"], "seed": 7},
+                 {"grid": "mixed", "workloads": ["resnet50"], "workers": [8], "seed": 7},
+                 {"workloads": ["resnet50"], "workers": [16], "sync_k": ["none", "3"],
+                  "het": ["none", "het:1x0.5+3x1.0"], "stragglers": ["none", "lognormal:0.2x16"],
+                  "faults": ["none", "fail:0.1x16"], "seed": 7}]
+        srv = serve_sweep.make_server(port=0, window_s=0.5)
+        assert srv.service.device.type == "cuda"
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            out = [None] * len(specs)
+            threads = [threading.Thread(target=lambda i, s: out.__setitem__(
+                i, A.http_query(srv.server_address[1], s)), args=(i, s))
+                for i, s in enumerate(specs)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            for spec, lines in zip(specs, out):
+                got = serve_sweep.table_from_wire(lines)
+                assert lines[-1]["backend"] == "torch"
+                A.assert_tables_agree(got, A.direct_table(spec, "torch", "cuda"),
+                                      A.COALESCED_RTOL)
+                A.assert_tables_agree(got, A.direct_table(spec, "numpy"), A.BATCHED_RTOL)
+            assert A.http_get(srv.server_address[1], "/stats")["kernel_calls"] >= 1
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.service.close()
+
 
 class TestCNNOnCard:
     @staticmethod

@@ -313,9 +313,12 @@ class TestBackendRouting:
                                 clusters=("v100-nvlink-ib",),
                                 worker_counts=(2,),
                                 policies=("caffe-mpi", "_simonly"))
-            for backend, device in (("torch", CPU), ("numpy", None)):
-                with pytest.raises(ValueError, match="_simonly"):
-                    sweep(grid, backend=backend, device=device)
+            with pytest.raises(ValueError, match="_simonly"):
+                sweep(grid, backend="torch", device=CPU)
+            # the NumPy backend sends them to the event-driven simulator
+            res = sweep(grid, backend="numpy")
+            assert (res.n_analytical, res.n_simulated) == (1, 1)
+            assert res.columns["method"].tolist() == ["analytical", "simulated"]
             with pytest.raises(ValueError, match="_simonly"):
                 BT.eval_scenarios_table_torch(grid.expand(), device=CPU)
             with pytest.raises(ValueError, match="_simonly"):
