@@ -58,7 +58,7 @@ Phases, in order; any failure ends the script with a non-zero code:
    and cross shapes; timed here only and never called by the port; none
    for the RG-LRU and wkv6 scans), each with L2 refilled before every call,
    at the main paths' shapes and the encoder-decoder path's, and compute
-   each kernel's bound; print the CUDA
+   each kernel's bound (``repro_torch.kernels.cost``); print the CUDA
    kernels of each RG-LRU and wkv6 wrapper call with their device times
    (``torch.profiler``);
 5. profile one unit's forward and backward on each main path at its
@@ -160,9 +160,19 @@ Phases, in order; any failure ends the script with a non-zero code:
    (6.53 G parameters): one bfloat16 ``make_train_step`` step (SGD) at 1 x
    4096 tokens and 1601 image tokens, ms and peak memory, and a float32
    decode of 32 tokens against ``forward`` within 2e-4;
-17. print the ``kernels`` line (launches: the six measurements', the
-   validation's, the float32 decode's, the training launcher's and the
-   encoder-decoder phase's), then the ``ok`` line last.
+17. the dry run against the card: qwen1.5-4b (1 unit), recurrentgemma-2b
+   (one RRL unit) and rwkv6-1.6b (1 unit) at their published widths,
+   bfloat16, batch 2 x 1024, SGD with momentum 0.9, remat on: one real
+   single-rank ``make_train_step`` step, then ``repro_torch.launch.dryrun``
+   's lowering of the same step on fake CUDA tensors and on the meta device
+   (the two records equal); the real ``max_memory_allocated`` beside the
+   dry run's arguments + temporaries (within 10 %), the FLOP totals
+   (``FlopCounterMode``, equal) and each kernel operator's calls (equal),
+   after the roofline's data-sheet constants and the card's line;
+18. print the ``kernels`` line (launches: the six measurements', the
+   validation's, the float32 decode's, the training launcher's, the
+   encoder-decoder phase's and the dry-run phase's real steps), then the
+   ``ok`` line last.
 
 A failing phase prints ``== <phase>: FAILED`` and its traceback on stdout
 before the script exits non-zero.
@@ -189,17 +199,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # the port first: without it (the script alone) the import fails, nothing is printed
+# the card's data-sheet peaks and the kernels' bounds (repro_torch.kernels.cost)
+from repro_torch.kernels.cost import (  # noqa: E402
+    NVLINK_BYTES_PER_S, PEAK_BYTES_PER_S, PEAK_FLOPS, bounds, rglru_bounds, wkv6_bounds)
 from repro_torch.kernels.bench import (  # noqa: E402
     CROSS_DECODE, FORWARD_ONLY, GEMMA3_G, GEMMA3_L, INTERNLM2_G, L_BLOCK, LLAMA_CROSS, LLAMA_G,
     QWEN2MOE_G, QWEN32_G, RGLRU_SLICE, SLICE, WHISPER_CROSS, WHISPER_DEC, WHISPER_ENC,
     WKV6_SLICE, attn_shape, card_line, device_times, make_inputs, print_profile, rglru_inputs, time_ms,
     wkv6_inputs)
-
-# Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
-# sheet): HBM bytes/s and FLOP/s by input type (bf16 on the tensor cores,
-# float32 on the CUDA cores).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 #: Element-wise limits (rtol, atol): |got - want| <= rtol * |want| + atol *
 #: rms(want), by the output's dtype.  Kernel and plain version both compute
@@ -831,89 +838,6 @@ def check_model() -> None:
 # ----------------------------------------------------------------------
 # 4. timing at the slice shape
 # ----------------------------------------------------------------------
-def bounds(B, S, Skv, H, K, hd, window, causal, dtype, train=True, **_) -> dict:
-    """Least time per kernel at this shape: max(bytes / HBM rate, FLOPs /
-    peak rate for the input type).  FLOPs count only the matrix products
-    over the (query, key) pairs the mask lets through (exp and the
-    elementwise work are left out); bytes count each input read once and
-    each output written once (q-side tensors of S rows, k and v of Skv).
-    ``train``: the calls as training makes them, where in bfloat16 the
-    forward also writes its float32 output (o32) and delta reads that."""
-    qp, kp = torch.arange(S)[:, None], torch.arange(Skv)[None, :]
-    vis = torch.ones(S, Skv, dtype=torch.bool)
-    if causal:
-        vis &= kp <= qp
-    if window is not None:
-        vis &= kp > qp - window
-    pairs = float(vis.sum()) * B * H
-    es = torch.finfo(dtype).bits // 8
-    qb, kb, stat = B * S * H * hd * es, B * Skv * K * hd * es, B * H * S * 4
-    o32 = B * S * H * hd * 4 if train and dtype == torch.bfloat16 else 0
-    work = {  # name: (matmul FLOPs, bytes)
-        "flash_fwd": (4 * pairs * hd, qb + 2 * kb + qb + stat + o32),
-        "flash_bwd_delta": (2 * B * S * H * hd, qb + (o32 or qb) + stat),
-        "flash_bwd_dq": (6 * pairs * hd, 2 * qb + 2 * kb + 2 * stat + qb),
-        "flash_bwd_dkdv": (8 * pairs * hd, 2 * qb + 2 * kb + 2 * stat + 2 * kb),
-    }
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
-        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
-    return out
-
-
-def rglru_bounds(B, S, W, dtype, h0=False, save=True, **_) -> dict:
-    """Least time per RG-LRU kernel at this shape, as on the training path
-    (no h0; the forward saves the f32 states; autograd hands the backward
-    a zero dh_last) or, with ``h0`` and not ``save``, as in decode (reads
-    h0, saves nothing): bytes count each input read once and each output
-    written once; operations are the scan's float32 arithmetic per element
-    and step (21 forward, 38 backward, counted from the kernels) at the
-    CUDA cores' float32 rate."""
-    n, es = B * S * W, torch.finfo(dtype).bits // 8
-    work = {  # name: (float32 operations, bytes)
-        "rglru_fwd": (21 * n, 3 * n * es + W * 4 + n * es + B * W * 4 + n * 4 * save
-                      + B * W * 4 * h0),
-        "rglru_bwd": (38 * n, 4 * n * es + W * 4 + n * 4 + B * W * 4 + 3 * n * es + W * 4
-                      + B * W * 4),
-    }
-    out = {}
-    for name, (ops, nbytes) in work.items():
-        t_ops, t_bytes = ops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
-        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
-    return out
-
-
-def wkv6_bounds(B, S, H, hd, dtype, state=False, save=True, **_) -> dict:
-    """Least time per wkv6 kernel at this shape, as on the training path (no
-    initial state; the forward saves the checkpoints; autograd hands the
-    backward a zero final-state cotangent) or, with ``state`` and not
-    ``save``, as in decode (reads the state, keeps no checkpoint): bytes
-    count each input read
-    once and each output written once; operations are the float32
-    arithmetic the function needs, at the CUDA cores' float32 rate.
-    Forward: 5 per state entry and step (the r^T S FMA, the decay multiply,
-    the k v FMA) plus 5 per channel and step for the u bonus, taken as
-    (r . (u * k)) v_t. Backward: 14 per state entry and step (dr, dk and dw
-    FMAs, the dv product and its sum, the cotangent update, and rebuilding
-    S_{t-1} once)."""
-    from repro_torch.kernels.wkv6 import num_checkpoints
-
-    n, es = B * S * H * hd, torch.finfo(dtype).bits // 8
-    state_b, u = B * H * hd * hd * 4, H * hd * 4
-    ckpt, entries = num_checkpoints(S) * state_b, B * H * S * hd * hd
-    work = {  # name: (float32 operations, bytes)
-        "wkv6_fwd": (5 * entries + 5 * n,
-                     4 * n * es + u + n * es + state_b + ckpt * save + state_b * state),
-        "wkv6_bwd": (14 * entries, 5 * n * es + u + ckpt + state_b + 4 * n * es + u + state_b),
-    }
-    out = {}
-    for name, (ops, nbytes) in work.items():
-        t_ops, t_bytes = ops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
-        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
-    return out
-
-
 def library_times(q, k, v, o, do, window, causal=True) -> dict:
     """scaled_dot_product_attention forward, its backward (one call giving
     dq, dk, dv), and ``torch.linalg.vecdot`` for delta (rowsum(dO * O),
@@ -2412,6 +2336,102 @@ def encdec_on_card(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# 17. the dry run against the card
+# ----------------------------------------------------------------------
+#: arch -> layers: one unit of each at its published widths
+DRYRUN_ARCHS = {"qwen1.5-4b": 1, "recurrentgemma-2b": 3, "rwkv6-1.6b": 1}
+DRYRUN_BATCH, DRYRUN_SEQ = 2, 1024
+#: the real step's peak against the dry run's arguments + temporaries
+DRYRUN_PEAK_RTOL = 0.10
+
+
+def real_train_step(cfg, batch: int, seq: int) -> dict:
+    """One bfloat16 ``make_train_step`` step (SGD, momentum 0.9, remat) on
+    the card from seed 0: its peak above what was allocated before its
+    arguments were made, its FLOPs (``FlopCounterMode``), the port kernel
+    launches (counted from 0) and the loss."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.launch.steps import init_params, make_train_step
+    from repro_torch.optim.sgd import sgd
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=0, device="cuda")
+    opt = sgd(lr=1e-2, momentum=0.9)
+    opt_state = opt.init(params)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    data = {k: torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device="cuda",
+                             dtype=torch.int32) for k in ("tokens", "labels")}
+    step = make_train_step(cfg, opt, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        _, _, metrics = step(params, opt_state, data)
+    torch.cuda.synchronize()
+    out = {"peak": torch.cuda.max_memory_allocated() - base, "flops": fc.get_total_flops(),
+           "calls": {k: n for k, n in kernels.all_launches().items() if n},
+           "loss": float(metrics["loss"])}
+    del params, opt_state, data, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+@phase("dry run against the card")
+def dryrun_vs_card(card: str) -> dict:
+    """``DRYRUN_ARCHS`` at one unit of their published widths, bfloat16,
+    batch 2 x 1024, SGD with momentum 0.9, remat on: one real single-rank
+    train step (:func:`real_train_step`), then the dry run of the same
+    config and shapes (``repro_torch.launch.dryrun.lower``) on fake CUDA
+    tensors and on the meta device, which must give the same record.  Fails
+    if the real peak and the dry run's arguments + temporaries differ by
+    more than ``DRYRUN_PEAK_RTOL``, or the FLOP totals or the kernel call
+    counts differ at all.  Returns the real steps' launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import lower
+
+    print(f"  roofline constants, data-sheet peaks of an NVIDIA H100 80GB HBM3 at 700 W "
+          f"(not measured): {PEAK_FLOPS[torch.bfloat16]:.3e} bf16 FLOP/s, "
+          f"{PEAK_BYTES_PER_S:.3e} HBM B/s, {NVLINK_BYTES_PER_S:.3e} NVLink B/s a direction; "
+          f"this card: {card}", flush=True)
+    shape = InputShape("card_check", DRYRUN_SEQ, DRYRUN_BATCH, "train")
+    launches: dict[str, int] = {}
+    failed = []
+    for arch, layers in DRYRUN_ARCHS.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers).validate()
+        real = real_train_step(cfg, DRYRUN_BATCH, DRYRUN_SEQ)
+        dry = {dev: lower(cfg, shape, device=dev) for dev in ("cuda", "meta")}
+        same = all(dry["cuda"][k] == dry["meta"][k]
+                   for k in ("memory", "cost_analysis", "kernel_calls"))
+        d = dry["cuda"]
+        mem = d["memory"]
+        predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        ratio = real["peak"] / predicted
+        print(f"  {arch:18s} ({layers} layers, bf16, {DRYRUN_BATCH} x {DRYRUN_SEQ}, SGD 0.9, "
+              f"remat): peak on the card {real['peak']} B, dry run {mem['argument_bytes']} "
+              f"arguments + {mem['temp_bytes']} temporaries = {predicted} B, ratio "
+              f"{ratio:.4f}; FLOPs card {real['flops']}, dry run "
+              f"{d['cost_analysis']['flops']}; kernel calls card {real['calls']}, dry run "
+              f"{d['kernel_calls']}; lowered in {d['lower_s']} s (cuda) / "
+              f"{dry['meta']['lower_s']} s (meta), the two records "
+              f"{'equal' if same else 'DIFFER'}; loss {real['loss']:.4f}", flush=True)
+        if not (abs(ratio - 1) <= DRYRUN_PEAK_RTOL and real["flops"] ==
+                d["cost_analysis"]["flops"] and real["calls"] == d["kernel_calls"] and same
+                and real["calls"] and math.isfinite(real["loss"])):
+            failed.append(arch)
+        for name, n in real["calls"].items():
+            launches[name] = launches.get(name, 0) + n
+    if failed:
+        raise SystemExit(f"the dry run disagrees with the card for {failed}")
+    return launches
+
+
 def check_measurement(doc: dict, trace_text: str) -> None:
     """The repository's own checks on a measured run: finite positive
     times, the trace's layer rows, the counted all-reduce bytes equal to
@@ -2501,8 +2521,9 @@ def main() -> int:
         for name, n in path_launches.items():
             launches[name] = launches.get(name, 0) + n
     remat_and_accumulation()
-    for name, n in encdec_on_card(card).items():
-        launches[name] = launches.get(name, 0) + n
+    for phase_launches in (encdec_on_card(card), dryrun_vs_card(card)):
+        for name, n in phase_launches.items():
+            launches[name] = launches.get(name, 0) + n
     line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),
              "replaces": REPLACES[mod.__name__.rsplit(".", 1)[1]], "launches": launches[name],
              "max_abs_err": worst[name], **timing[name]}

@@ -5,8 +5,15 @@ source in ``repro_torch/csrc/`` behind a plain C interface whose entry
 points take the stream last and return ``cudaGetLastError()``, and loads
 the library with ``ctypes`` (:func:`load`); :func:`check_same`,
 :func:`check_aligned`, :func:`check_f32` and :func:`ptr` are the wrappers' shared input
-checks.  :func:`build` compiles sources for
-``sm_90a`` into ``build/kernels/<name>-<source digest>.so`` at the
+checks.  :class:`Operators` binds each entry point as a PyTorch operator
+(``torch.ops.repro_torch.<kernel>``): its CUDA implementation launches the
+kernel, its shape function (``register_fake``) allocates the same outputs and
+scratch and launches nothing, and its FLOP formula lets
+:class:`torch.utils.flop_counter.FlopCounterMode` count it.  A shape-only
+lowering (:mod:`repro_torch.launch.dryrun`) runs the kernels through their
+shape functions: :func:`on_kernel_path` sends CUDA tensors, and tensors on
+the meta device (shapes only, no data), to the operators.  :func:`build`
+compiles sources for ``sm_90a`` into ``build/kernels/<name>-<source digest>.so`` at the
 checkout root (listed in ``.gitignore``), from the repository's sources
 only, at first use.
 The library is written under a temporary name and renamed, so a stale or
@@ -18,11 +25,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 #: The entry points' dtype argument: 0 float32, 1 bfloat16.
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -135,3 +144,40 @@ def check_same(*ts: torch.Tensor) -> None:
             raise ValueError("inputs must share one dtype and one device")
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
+
+
+def on_kernel_path(t: torch.Tensor) -> bool:
+    """Whether a wrapper sends ``t`` to its kernel's operator: a CUDA tensor
+    (the kernel launches, or the call raises), or a tensor on the meta
+    device, real or fake (the operator's shape function runs: a shape-only
+    lowering of the card's path).  Every other tensor takes the plain
+    version."""
+    return t.is_cuda or t.is_meta
+
+
+class Operators:
+    """The kernels of one kernel module as PyTorch operators.
+
+    The namespace is ``repro_torch`` for the package's own module; a copy of
+    the module loaded under another name (``kernels.compare`` loads two
+    checkouts' modules side by side) defines its operators in a namespace of
+    its own, so that each copy launches through its own library."""
+
+    def __init__(self, module_name: str):
+        self.namespace = "repro_torch" if module_name.startswith("repro_torch.") else \
+            "repro_torch_" + re.sub(r"\W", "_", module_name)
+        self.library = torch.library.Library(self.namespace, "FRAGMENT")
+
+    def define(self, schema: str, cuda, fake, flops):
+        """``torch.ops.<namespace>.<name>`` from ``schema``: ``cuda`` its CUDA
+        implementation (the launch), ``fake`` its shape function (the
+        outputs and scratch of a launch, allocated alike, nothing launched
+        and no device queried; also the meta device's implementation),
+        ``flops`` its FLOP formula over the arguments' shapes."""
+        name = schema.split("(", 1)[0]
+        self.library.define(schema)
+        self.library.impl(name, cuda, "CUDA")
+        torch.library.register_fake(f"{self.namespace}::{name}", fake, lib=self.library)
+        op = getattr(getattr(torch.ops, self.namespace), name)
+        register_flop_formula(op)(flops)
+        return op

@@ -39,6 +39,16 @@ with a CUDA card::
 
     PYTHONPATH=src python -m repro_torch.kernels.compare --other build/parent
 
+With ``--decode`` it times bfloat16 decode instead, each checkout whole in
+a process of its own (:data:`DECODE_PROGRAM`, run with that checkout's
+``src`` first on the path), in the order other, this, this, other, twice:
+qwen1.5-4b (2 layers), recurrentgemma-2b (one RRL unit), rwkv6-1.6b (2
+layers) and gemma3-1b (one LLLLLG unit) at their published widths, batch
+4, 64 prompt tokens through ``prefill_via_decode``, 2 warm-up steps, then
+32 greedy ``make_serve_step`` steps: the host ms a step (the time the step
+takes to return, the device queue never full) and the step ms (synchronised
+at the end), each checkout's median and the pairs this one was faster in.
+
 It prints the card's name and power limit, one line per (shape, kernel,
 build) and run, the median of each build's runs with the number of ABBA
 pairs in which this build was faster, each build's CUDA kernels per call
@@ -228,14 +238,93 @@ def unit_cases(mods, memory: dict):
         torch.cuda.empty_cache()
 
 
+#: the decode timing one checkout runs in its own process (``--decode``);
+#: it uses only what every checkout since decode was ported has
+DECODE_PROGRAM = r"""
+import dataclasses, json, time
+import torch
+from repro_torch import kernels
+from repro_torch.configs import get_config
+from repro_torch.launch.steps import init_params, make_serve_step
+from repro_torch.models import transformer as T
+
+kernels.load_libraries()
+out = {}
+for arch, depth in (("qwen1.5-4b", 2), ("recurrentgemma-2b", 3), ("rwkv6-1.6b", 2),
+                    ("gemma3-1b", 6)):
+    cfg = dataclasses.replace(get_config(arch), num_layers=depth,
+                              dtype=torch.bfloat16).validate()
+    params = init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device="cuda")
+    logits, cache = T.prefill_via_decode(cfg, params, prompt, 64 + 2 + 32)
+    serve = make_serve_step(cfg)
+    state = {"token": logits[:, -1].argmax(dim=-1), "pos": 64}
+
+    def step():
+        lg, _ = serve(params, {"cache": cache, **state})
+        state["token"], state["pos"] = lg.argmax(dim=-1), state["pos"] + 1
+
+    step(); step()
+    torch.cuda.synchronize()
+    host, t0 = 0.0, time.perf_counter()
+    for _ in range(32):
+        h0 = time.perf_counter()
+        step()
+        host += time.perf_counter() - h0
+    torch.cuda.synchronize()
+    out[arch] = {"host_ms": host / 32 * 1e3, "step_ms": (time.perf_counter() - t0) / 32 * 1e3}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
+def decode_main(other: Path) -> int:
+    """``--decode``: the module docstring's decode timing, ABBA."""
+    import os
+    import subprocess
+
+    roots = {"this": Path(__file__).resolve().parents[3], "other": other.resolve()}
+    runs: dict = {}
+    for build in ("other", "this", "this", "other") * 2:
+        root = roots[build]
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        r = subprocess.run([sys.executable, "-c", DECODE_PROGRAM], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            print(r.stdout[-3000:], r.stderr[-3000:], flush=True)
+            return 1
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        for arch, t in res.items():
+            print(f"  decode {arch:18s} {build:5s} host {t['host_ms']:.4f} ms a step, "
+                  f"step {t['step_ms']:.4f} ms", flush=True)
+            for key, ms in t.items():
+                runs.setdefault(arch, {}).setdefault(key, {}).setdefault(build, []).append(ms)
+    for arch, keys in runs.items():
+        for key, builds in keys.items():
+            wins = sum(a < b for a, b in zip(builds["this"], builds["other"]))
+            print(f"  decode {arch:18s} {key:7s} median this "
+                  f"{statistics.median(builds['this']):.4f} other "
+                  f"{statistics.median(builds['other']):.4f} ms; this faster in {wins} of "
+                  f"{len(builds['this'])} pairs", flush=True)
+    print(bench.card_line(), flush=True)
+    print(json.dumps({"decode": runs}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", type=Path, required=True, help="root of the other checkout")
+    ap.add_argument("--decode", action="store_true",
+                    help="time bfloat16 decode of each checkout in its own process")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     print(bench.card_line(), flush=True)
+    if args.decode:
+        return decode_main(args.other)
     mods = {"this": {name: importlib.import_module(f"repro_torch.kernels.{name}")
                      for name in MODULES},
             "other": {name: load_module(args.other.resolve(), name) for name in MODULES}}

@@ -41,9 +41,16 @@ raise on one.  The reference sends such calls, and the encoder's
 bidirectional ones, to ``ref.attention``; the port computes the same
 function with these kernels.
 
-A wrapper given CPU tensors computes its plain version; given CUDA tensors
-it launches its kernel or raises (no fallback).  :func:`flash_attention` is
-the differentiable entry point (:class:`FlashAttention`).
+Each kernel is a PyTorch operator, ``torch.ops.repro_torch.<kernel>``
+(:class:`repro_torch.kernels.build.Operators`): its CUDA implementation
+launches the kernel and counts the launch; its shape function allocates the
+same outputs (lse, o32, dk/dv's float32 partials), launches nothing and
+counts nothing; its FLOP formula is :func:`repro_torch.kernels.cost.
+flash_flops`.  A wrapper given CPU tensors computes its plain version; given
+CUDA tensors it launches its kernel or raises (no fallback); given fake
+tensors (``FakeTensorMode``, on CUDA or the meta device) or meta tensors, a
+shape-only lowering, it runs the shape function.  :func:`flash_attention`
+is the differentiable entry point (:class:`FlashAttention`).
 """
 from __future__ import annotations
 
@@ -54,8 +61,9 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import (DTYPE_CODE, check_aligned, check_same, load,
-                                       raise_on, stream)
+from repro_torch.kernels import cost
+from repro_torch.kernels.build import (DTYPE_CODE, Operators, check_aligned, check_same, load,
+                                       on_kernel_path, ptr, raise_on, stream)
 from repro_torch.kernels.ref import NEG_INF, repeat_kv
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
@@ -120,7 +128,6 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
     if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
     check_same(q, k, v)
-    check_aligned("q, k and v", q, k, v)
 
 
 def _window_arg(window: int | None) -> int:
@@ -228,30 +235,127 @@ def plain_bwd(q, k, v, do, lse, delta, causal=True, window=None, rounding="f32")
 
 
 # ----------------------------------------------------------------------
+# The kernels as operators (``torch.ops.repro_torch.flash_*``): the CUDA
+# implementation launches, the shape function allocates the same outputs
+# ----------------------------------------------------------------------
+def _fwd_outputs(q, out_f32):
+    """o, lse (B, H, S) f32, and o32: q's shape in float32 where a bfloat16
+    forward keeps it, else empty (a float32 o is its own o32)."""
+    B, S, H, _ = q.shape
+    keep = out_f32 and q.dtype != torch.float32
+    return (torch.empty_like(q), q.new_empty((B, H, S), dtype=torch.float32),
+            q.new_empty(q.shape if keep else (0,), dtype=torch.float32))
+
+
+def _fwd_cuda(q, k, v, causal, window, out_f32):
+    check_aligned("q, k and v", q, k, v)
+    o, lse, o32 = _fwd_outputs(q, out_f32)
+    B, S, H, hd = q.shape
+    err = load_library().flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        ptr(o32) if o32.numel() else None, B, S, k.shape[1], H, k.shape[2], hd, int(causal),
+        window, 1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
+    LAUNCHES["flash_fwd"] += 1
+    raise_on(err, "flash_fwd")
+    return o, lse, o32
+
+
+def _delta_cuda(o32, do):
+    check_aligned("o32 and dO", o32, do)
+    B, S, H, hd = o32.shape
+    delta = o32.new_empty((B, H, S))
+    err = load_library().flash_bwd_delta(o32.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                                         B, S, H, hd, DTYPE_CODE[do.dtype], stream())
+    LAUNCHES["flash_bwd_delta"] += 1
+    raise_on(err, "flash_bwd_delta")
+    return delta
+
+
+def _delta_fake(o32, do):
+    B, S, H, _ = o32.shape
+    return o32.new_empty((B, H, S))
+
+
+def _dq_cuda(q, k, v, do, lse, delta, causal, window):
+    check_aligned("q, k, v and dO", q, k, v, do)
+    B, S, H, hd = q.shape
+    dq = torch.empty_like(q)
+    err = load_library().flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), B, S, k.shape[1], H, k.shape[2], hd, int(causal),
+        window, 1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
+    LAUNCHES["flash_bwd_dq"] += 1
+    raise_on(err, "flash_bwd_dq")
+    return dq
+
+
+def _dkdv_outputs(q, k):
+    """dk, dv: k's shape and dtype, or, for bfloat16 with G = H / K > 1,
+    float32 partials (B, Skv, H, hd), one CTA per query head (no atomics),
+    which :func:`bwd_dkdv` sums over each group."""
+    if q.dtype == torch.bfloat16 and q.shape[2] != k.shape[2]:
+        dk = k.new_empty((k.shape[0], k.shape[1], q.shape[2], k.shape[3]), dtype=torch.float32)
+        return dk, torch.empty_like(dk)
+    return torch.empty_like(k), torch.empty_like(k)
+
+
+def _dkdv_cuda(q, k, v, do, lse, delta, causal, window):
+    check_aligned("q, k, v and dO", q, k, v, do)
+    B, S, H, hd = q.shape
+    dk, dv = _dkdv_outputs(q, k)
+    err = load_library().flash_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, k.shape[1], H, k.shape[2], hd,
+        int(causal), window, 1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
+    LAUNCHES["flash_bwd_dkdv"] += 1
+    raise_on(err, "flash_bwd_dkdv")
+    return dk, dv
+
+
+def _flops(name):
+    """The FLOP formula of kernel ``name`` (:func:`repro_torch.kernels.cost.
+    flash_flops`) over its arguments, tensors given as shapes."""
+    def formula(*args, out_shape=None, **_):
+        if name == "flash_bwd_delta":   # (o32, dO)
+            B, S, H, hd = args[0]
+            return int(cost.flash_flops(B, S, S, H, hd, False, None)[name])
+        (B, S, H, hd), k = args[:2]
+        causal, window = args[3:5] if name == "flash_fwd" else args[6:8]
+        return int(cost.flash_flops(B, S, k[1], H, hd, causal, window or None)[name])
+    return formula
+
+
+_OPS = Operators(__name__)
+_MASK = "bool causal, int window"
+_fwd_op = _OPS.define(f"flash_fwd(Tensor q, Tensor k, Tensor v, {_MASK}, bool out_f32) "
+                      "-> (Tensor, Tensor, Tensor)", _fwd_cuda,
+                      lambda q, k, v, causal, window, out_f32: _fwd_outputs(q, out_f32),
+                      _flops("flash_fwd"))
+_delta_op = _OPS.define("flash_bwd_delta(Tensor o32, Tensor do) -> Tensor", _delta_cuda,
+                        _delta_fake, _flops("flash_bwd_delta"))
+_BWD = f"Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor delta, {_MASK}"
+_dq_op = _OPS.define(f"flash_bwd_dq({_BWD}) -> Tensor", _dq_cuda,
+                     lambda q, *_: torch.empty_like(q), _flops("flash_bwd_dq"))
+_dkdv_op = _OPS.define(f"flash_bwd_dkdv({_BWD}) -> (Tensor, Tensor)", _dkdv_cuda,
+                       lambda q, k, *_: _dkdv_outputs(q, k), _flops("flash_bwd_dkdv"))
+
+
+# ----------------------------------------------------------------------
 # Wrappers: one per kernel
 # ----------------------------------------------------------------------
 def fwd(q, k, v, causal=True, window=None, out_f32=False):
     """(o, lse), with ``out_f32`` (o, lse, o32): o32 is the output in
     float32 before its rounding to q's dtype, which the backward's delta
-    reads (for float32 inputs, o itself).  ``flash_fwd`` on CUDA tensors,
-    :func:`plain_fwd` on CPU."""
+    reads (for float32 inputs, o itself).  ``flash_fwd`` on CUDA tensors
+    (its shape function on meta ones), :func:`plain_fwd` on CPU."""
     check_inputs(q, k, v, causal, window)
     w = _window_arg(window)
-    if not q.is_cuda:
+    if not on_kernel_path(q):
         return plain_fwd(q, k, v, causal, window, out_f32=out_f32)
-    B, S, H, hd = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
-    o32 = o if q.dtype == torch.float32 else \
-        torch.empty(q.shape, dtype=torch.float32, device=q.device) if out_f32 else None
-    err = load_library().flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        None if o32 is None or o32 is o else o32.data_ptr(),
-        B, S, k.shape[1], H, k.shape[2], hd, int(causal), w, 1.0 / math.sqrt(hd),
-        DTYPE_CODE[q.dtype], stream())
-    LAUNCHES["flash_fwd"] += 1
-    raise_on(err, "flash_fwd")
-    return (o, lse, o32) if out_f32 else (o, lse)
+    o, lse, o32 = _fwd_op(q, k, v, bool(causal), w, out_f32)
+    if not out_f32:
+        return o, lse
+    return o, lse, (o if q.dtype == torch.float32 else o32)
 
 
 def bwd_delta(o32, do):
@@ -269,16 +373,9 @@ def bwd_delta(o32, do):
     check_same(do)
     if o32.device != do.device:
         raise ValueError("inputs must share one device")
-    check_aligned("o32 and dO", o32, do)
-    if not o32.is_cuda:
+    if not on_kernel_path(o32):
         return plain_bwd_delta(o32, do)
-    B, S, H, hd = o32.shape
-    delta = torch.empty(B, H, S, dtype=torch.float32, device=o32.device)
-    err = load_library().flash_bwd_delta(o32.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                                         B, S, H, hd, DTYPE_CODE[do.dtype], stream())
-    LAUNCHES["flash_bwd_delta"] += 1
-    raise_on(err, "flash_bwd_delta")
-    return delta
+    return _delta_op(o32, do)
 
 
 def _check_bwd(q, k, v, do, lse, delta, causal, window):
@@ -286,7 +383,6 @@ def _check_bwd(q, k, v, do, lse, delta, causal, window):
     check_same(q, do)
     if do.shape != q.shape:
         raise ValueError("dO must have q's shape")
-    check_aligned("dO", do)
     B, S, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (B, H, S) or t.dtype != torch.float32 or t.device != q.device \
@@ -298,42 +394,20 @@ def bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
     """dq.  ``flash_bwd_dq`` on CUDA tensors."""
     _check_bwd(q, k, v, do, lse, delta, causal, window)
     w = _window_arg(window)
-    if not q.is_cuda:
+    if not on_kernel_path(q):
         return plain_bwd(q, k, v, do, lse, delta, causal, window)[0]
-    B, S, H, hd = q.shape
-    dq = torch.empty_like(q)
-    err = load_library().flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), B, S, k.shape[1], H, k.shape[2], hd, int(causal), w,
-        1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
-    LAUNCHES["flash_bwd_dq"] += 1
-    raise_on(err, "flash_bwd_dq")
-    return dq
+    return _dq_op(q, k, v, do, lse, delta, bool(causal), w)
 
 
 def bwd_dkdv(q, k, v, do, lse, delta, causal=True, window=None):
     """(dk, dv).  ``flash_bwd_dkdv`` on CUDA tensors."""
     _check_bwd(q, k, v, do, lse, delta, causal, window)
     w = _window_arg(window)
-    if not q.is_cuda:
+    if not on_kernel_path(q):
         return plain_bwd(q, k, v, do, lse, delta, causal, window)[1:]
-    B, S, H, hd = q.shape
-    Skv, K = k.shape[1], k.shape[2]
-    # bf16 with G = H / K > 1: one CTA per query head writes float32
-    # partials (B, Skv, H, hd), summed here over the group (no atomics)
-    partial = q.dtype == torch.bfloat16 and H != K
-    if partial:
-        dk = torch.empty(B, Skv, H, hd, dtype=torch.float32, device=q.device)
-        dv = torch.empty_like(dk)
-    else:
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = load_library().flash_bwd_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, Skv, H, K, hd,
-        int(causal), w, 1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream())
-    LAUNCHES["flash_bwd_dkdv"] += 1
-    raise_on(err, "flash_bwd_dkdv")
-    if partial:
+    dk, dv = _dkdv_op(q, k, v, do, lse, delta, bool(causal), w)
+    if dk.dtype != k.dtype:   # the bf16 per-query-head partials
+        K = k.shape[2]
         dk, dv = sum_groups(dk, K).to(k.dtype), sum_groups(dv, K).to(v.dtype)
     return dk, dv
 

@@ -5,7 +5,10 @@ Counterpart of :mod:`repro.kernels.ops`.  ``impl``:
   * ``"kernel"`` — the Hopper kernels (:mod:`repro_torch.kernels.
     flash_attention`, :mod:`repro_torch.kernels.rglru`,
     :mod:`repro_torch.kernels.wkv6`); on CPU tensors their plain versions
-  * ``"auto"``   — ``kernel`` for CUDA tensors, ``ref`` for CPU tensors
+  * ``"auto"``   — ``kernel`` for CUDA tensors and for tensors on the meta
+    device (a shape-only lowering runs the kernels' shape functions,
+    :func:`repro_torch.kernels.build.on_kernel_path`), ``ref`` for CPU
+    tensors
 
 ``decode_attention`` and ``decode_attention_partials`` are plain torch
 (:mod:`repro_torch.kernels.ref`) on every device and for every ``impl``:
@@ -28,6 +31,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import wkv6 as wk
+from repro_torch.kernels.build import on_kernel_path
 
 IMPLS = ("auto", "ref", "kernel")
 
@@ -36,7 +40,7 @@ def _resolve(impl: str, t) -> str:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
     if impl == "auto":
-        return "kernel" if t.is_cuda else "ref"
+        return "kernel" if on_kernel_path(t) else "ref"
     return impl
 
 

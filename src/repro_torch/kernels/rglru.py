@@ -51,9 +51,16 @@ wrapper         kernel          plain version
                                 scan in torch, vectorised over (b, w))
 ==============  ==============  ============================================
 
-A wrapper given CPU tensors computes its plain version; given CUDA tensors
-it launches its kernels or raises (no fallback).  :func:`rglru` is the
-differentiable entry point (:class:`RGLRU`).  dlam is reduced over each
+Each wrapper's kernel is a PyTorch operator, ``torch.ops.repro_torch.
+rglru_fwd`` / ``rglru_bwd`` (:class:`repro_torch.kernels.build.Operators`):
+its CUDA implementation launches and counts; its shape function allocates
+the same outputs and scratch (the states, the chunk buffer, dlam's
+partials) and launches nothing; its FLOP formula is :func:`repro_torch.
+kernels.cost.rglru_flops`.  A wrapper given CPU tensors computes its plain
+version; given CUDA tensors it launches its kernels or raises (no
+fallback); given fake or meta tensors (a shape-only lowering) it runs the
+shape function.  :func:`rglru` is the differentiable entry point
+(:class:`RGLRU`).  dlam is reduced over each
 chunk's steps in the thread and over the chunks and the batch by one
 ``sum`` of the kernel's (NC, B, W) partials, so no atomics are used and the
 result is deterministic.
@@ -66,9 +73,9 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.build import (DTYPE_CODE, check_f32, check_same, load, ptr,
-                                       raise_on, stream)
+from repro_torch.kernels import cost, ref
+from repro_torch.kernels.build import (DTYPE_CODE, Operators, check_f32, check_same, load,
+                                       on_kernel_path, ptr, raise_on, stream)
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rglru.cu"
 #: steps per chunk (``CK`` in the source)
@@ -276,34 +283,91 @@ def chunked_bwd(x, r_gate, i_gate, lam, h0, states, dout, dh_last=None):
 
 
 # ----------------------------------------------------------------------
-# Wrappers: one per kernel
+# The kernels as operators (``torch.ops.repro_torch.rglru_*``): the CUDA
+# implementation launches, the shape function allocates the same outputs
+# and scratch
 # ----------------------------------------------------------------------
-def _scratch(B, S, W, device):
+def _scratch(B, S, W, like):
     """The kernels' (2, NC - 1, B, W) f32 buffer of chunk products and local
-    values, or None for a single chunk."""
+    values (empty for a single chunk).  The operators return it, so that a
+    shape-only lowering counts it while the launch holds it."""
     nc = num_chunks(S)
-    return torch.empty(2, nc - 1, B, W, dtype=torch.float32, device=device) if nc > 1 else None
+    return like.new_empty((2, nc - 1, B, W) if nc > 1 else (0,), dtype=torch.float32)
 
 
-def fwd(x, r_gate, i_gate, lam, h0=None, save_states=False):
-    """(out, h_last, states or None).  ``rglru_fwd`` on CUDA tensors,
-    :func:`plain_fwd` on CPU tensors."""
-    check_inputs(x, r_gate, i_gate, lam, h0)
-    if not x.is_cuda:
-        return plain_fwd(x, r_gate, i_gate, lam, h0, save_states)
+def _fwd_outputs(x, save_states):
+    """out, h_last (B, W) f32, the f32 states (B, S, W) (empty unless
+    saved), and the scratch."""
     B, S, W = x.shape
-    out = torch.empty_like(x)
-    h_last = torch.empty(B, W, dtype=torch.float32, device=x.device)
-    states = torch.empty(B, S, W, dtype=torch.float32, device=x.device) \
-        if save_states else None
-    scratch = _scratch(B, S, W, x.device)
+    f32 = torch.float32
+    return (torch.empty_like(x), x.new_empty((B, W), dtype=f32),
+            x.new_empty((B, S, W) if save_states else (0,), dtype=f32), _scratch(B, S, W, x))
+
+
+def _fwd_cuda(x, r_gate, i_gate, lam, h0, save_states):
+    out, h_last, states, scratch = _fwd_outputs(x, save_states)
+    B, S, W = x.shape
     err = load_library().rglru_fwd(
         x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(), lam.data_ptr(), ptr(h0),
-        out.data_ptr(), h_last.data_ptr(), ptr(states), ptr(scratch), B, S, W,
-        DTYPE_CODE[x.dtype], stream())
+        out.data_ptr(), h_last.data_ptr(), ptr(states) if save_states else None,
+        ptr(scratch) if scratch.numel() else None, B, S, W, DTYPE_CODE[x.dtype], stream())
     LAUNCHES["rglru_fwd"] += 1
     raise_on(err, "rglru_fwd")
-    return out, h_last, states
+    return out, h_last, states, scratch
+
+
+def _bwd_outputs(x):
+    """dx, dr, di, dlam's (NC, B, W) f32 partials, dh0 (B, W) f32, and the
+    scratch."""
+    B, S, W = x.shape
+    f32 = torch.float32
+    return (torch.empty_like(x), torch.empty_like(x), torch.empty_like(x),
+            x.new_empty((num_chunks(S), B, W), dtype=f32), x.new_empty((B, W), dtype=f32),
+            _scratch(B, S, W, x))
+
+
+def _bwd_cuda(x, r_gate, i_gate, lam, h0, states, dout, dh_last):
+    dx, dr, di, dlam_part, dh0, scratch = _bwd_outputs(x)
+    B, S, W = x.shape
+    err = load_library().rglru_bwd(
+        x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(), lam.data_ptr(), ptr(h0),
+        states.data_ptr(), dout.data_ptr(), ptr(dh_last), dx.data_ptr(), dr.data_ptr(),
+        di.data_ptr(), dlam_part.data_ptr(), dh0.data_ptr(),
+        ptr(scratch) if scratch.numel() else None, B, S, W, DTYPE_CODE[x.dtype], stream())
+    LAUNCHES["rglru_bwd"] += 1
+    raise_on(err, "rglru_bwd")
+    return dx, dr, di, dlam_part, dh0, scratch
+
+
+def _flops(name):
+    """The FLOP formula of kernel ``name`` (:func:`repro_torch.kernels.cost.
+    rglru_flops`) over its arguments, tensors given as shapes."""
+    def formula(x, *_, out_shape=None, **__):
+        return int(cost.rglru_flops(*x)[name])
+    return formula
+
+
+_OPS = Operators(__name__)
+_GATES = "Tensor x, Tensor r_gate, Tensor i_gate, Tensor lam, Tensor? h0"
+_fwd_op = _OPS.define(f"rglru_fwd({_GATES}, bool save_states) "
+                      "-> (Tensor, Tensor, Tensor, Tensor)", _fwd_cuda,
+                      lambda x, *a: _fwd_outputs(x, a[-1]), _flops("rglru_fwd"))
+_bwd_op = _OPS.define(f"rglru_bwd({_GATES}, Tensor states, Tensor dout, Tensor? dh_last) "
+                      "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)", _bwd_cuda,
+                      lambda x, *_: _bwd_outputs(x), _flops("rglru_bwd"))
+
+
+# ----------------------------------------------------------------------
+# Wrappers: one per kernel
+# ----------------------------------------------------------------------
+def fwd(x, r_gate, i_gate, lam, h0=None, save_states=False):
+    """(out, h_last, states or None).  ``rglru_fwd`` on CUDA tensors (its
+    shape function on meta ones), :func:`plain_fwd` on CPU tensors."""
+    check_inputs(x, r_gate, i_gate, lam, h0)
+    if not on_kernel_path(x):
+        return plain_fwd(x, r_gate, i_gate, lam, h0, save_states)
+    out, h_last, states, _ = _fwd_op(x, r_gate, i_gate, lam, h0, save_states)
+    return out, h_last, (states if save_states else None)
 
 
 def bwd(x, r_gate, i_gate, lam, h0, states, dout, dh_last=None):
@@ -318,19 +382,9 @@ def bwd(x, r_gate, i_gate, lam, h0, states, dout, dh_last=None):
     check_f32("dh_last", dh_last, (B, W), x.device)
     if states is None:
         raise ValueError("the backward needs the forward's f32 states")
-    if not x.is_cuda:
+    if not on_kernel_path(x):
         return plain_bwd(x, r_gate, i_gate, lam, h0, states, dout, dh_last)
-    dx, dr, di = (torch.empty_like(x) for _ in range(3))
-    dlam_part = torch.empty(num_chunks(S), B, W, dtype=torch.float32, device=x.device)
-    dh0 = torch.empty(B, W, dtype=torch.float32, device=x.device)
-    scratch = _scratch(B, S, W, x.device)
-    err = load_library().rglru_bwd(
-        x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(), lam.data_ptr(), ptr(h0),
-        states.data_ptr(), dout.data_ptr(), ptr(dh_last), dx.data_ptr(), dr.data_ptr(),
-        di.data_ptr(), dlam_part.data_ptr(), dh0.data_ptr(), ptr(scratch), B, S, W,
-        DTYPE_CODE[x.dtype], stream())
-    LAUNCHES["rglru_bwd"] += 1
-    raise_on(err, "rglru_bwd")
+    dx, dr, di, dlam_part, dh0, _ = _bwd_op(x, r_gate, i_gate, lam, h0, states, dout, dh_last)
     return dx, dr, di, dlam_part.sum((0, 1)), dh0
 
 

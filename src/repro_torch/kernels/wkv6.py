@@ -54,9 +54,16 @@ wrapper         kernel          plain version
                                 scan in torch, vectorised over (b, h))
 ==============  ==============  ============================================
 
-A wrapper given CPU tensors computes its plain version; given CUDA tensors
-it launches its kernels or raises (no fallback).  :func:`wkv6` is the
-differentiable entry point (:class:`WKV6`).  No atomics: the results are
+Each wrapper's kernel is a PyTorch operator, ``torch.ops.repro_torch.
+wkv6_fwd`` / ``wkv6_bwd`` (:class:`repro_torch.kernels.build.Operators`):
+its CUDA implementation launches and counts; its shape function allocates
+the same outputs and scratch (the checkpoints, ``gbuf``, ``dbuf``, du's
+partials) and launches nothing; its FLOP formula is :func:`repro_torch.
+kernels.cost.wkv6_flops`.  A wrapper given CPU tensors computes its plain
+version; given CUDA tensors it launches its kernels or raises (no
+fallback); given fake or meta tensors (a shape-only lowering) it runs the
+shape function.  :func:`wkv6` is the differentiable entry point
+(:class:`WKV6`).  No atomics: the results are
 deterministic.
 """
 from __future__ import annotations
@@ -67,9 +74,9 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.build import (DTYPE_CODE, check_aligned, check_f32, check_same,
-                                       load, ptr, raise_on, stream)
+from repro_torch.kernels import cost, ref
+from repro_torch.kernels.build import (DTYPE_CODE, Operators, check_aligned, check_f32,
+                                       check_same, load, on_kernel_path, ptr, raise_on, stream)
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "wkv6.cu"
 #: head dims the kernels are instantiated for
@@ -265,27 +272,87 @@ def chunked_bwd(r, k, v, w, u, ckpt, dout, ds_last=None):
 
 
 # ----------------------------------------------------------------------
-# Wrappers: one per kernel
+# The kernels as operators (``torch.ops.repro_torch.wkv6_*``): the CUDA
+# implementation launches, the shape function allocates the same outputs
+# and scratch
 # ----------------------------------------------------------------------
-def fwd(r, k, v, w, u, state=None, save_ckpt=False):
-    """(out, s_last, checkpoints or None).  ``wkv6_fwd`` on CUDA tensors,
-    :func:`plain_fwd` on CPU tensors.  The kernels always write the
-    checkpoints (the chunk-start states their last phase starts from)."""
-    check_inputs(r, k, v, w, u, state)
-    if not r.is_cuda:
-        return plain_fwd(r, k, v, w, u, state, save_ckpt)
+def _fwd_outputs(r):
+    """out, s_last (B, H, hd, hd) f32, the checkpoints (B, H, NC, hd, hd)
+    f32 (always written), and the scratch dbuf (B, H, NC, hd) f32.  The
+    operators return their scratch, so that a shape-only lowering counts it
+    while the launch holds it."""
     B, S, H, hd = r.shape
-    nc = num_checkpoints(S)
-    out = torch.empty_like(r)
-    s_last = torch.empty(B, H, hd, hd, dtype=torch.float32, device=r.device)
-    ckpt = torch.empty(B, H, nc, hd, hd, dtype=torch.float32, device=r.device)
-    dbuf = torch.empty(B, H, nc, hd, dtype=torch.float32, device=r.device)
+    nc, f32 = num_checkpoints(S), torch.float32
+    return (torch.empty_like(r), r.new_empty((B, H, hd, hd), dtype=f32),
+            r.new_empty((B, H, nc, hd, hd), dtype=f32), r.new_empty((B, H, nc, hd), dtype=f32))
+
+
+def _fwd_cuda(r, k, v, w, u, state):
+    out, s_last, ckpt, dbuf = _fwd_outputs(r)
+    B, S, H, hd = r.shape
     err = load_library().wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), ptr(state),
         out.data_ptr(), s_last.data_ptr(), ckpt.data_ptr(), dbuf.data_ptr(), B, S, H, hd,
         DTYPE_CODE[r.dtype], stream())
     LAUNCHES["wkv6_fwd"] += 1
     raise_on(err, "wkv6_fwd")
+    return out, s_last, ckpt, dbuf
+
+
+def _bwd_outputs(r):
+    """dr, dk, dv, dw, du's (B, NC, H, hd) f32 partials, ds0 (B, H, hd, hd)
+    f32, and the scratch gbuf (B, H, NC, hd, hd) and dbuf (B, H, NC, hd)
+    f32."""
+    B, S, H, hd = r.shape
+    nc, f32 = num_checkpoints(S), torch.float32
+    return (*(torch.empty_like(r) for _ in range(4)), r.new_empty((B, nc, H, hd), dtype=f32),
+            r.new_empty((B, H, hd, hd), dtype=f32), r.new_empty((B, H, nc, hd, hd), dtype=f32),
+            r.new_empty((B, H, nc, hd), dtype=f32))
+
+
+def _bwd_cuda(r, k, v, w, u, ckpt, dout, ds_last):
+    check_aligned("ckpt", ckpt)
+    dr, dk, dv, dw, du_part, ds0, gbuf, dbuf = _bwd_outputs(r)
+    B, S, H, hd = r.shape
+    err = load_library().wkv6_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), ckpt.data_ptr(),
+        dout.data_ptr(), ptr(ds_last), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dw.data_ptr(), du_part.data_ptr(), ds0.data_ptr(), gbuf.data_ptr(), dbuf.data_ptr(),
+        B, S, H, hd, DTYPE_CODE[r.dtype], stream())
+    LAUNCHES["wkv6_bwd"] += 1
+    raise_on(err, "wkv6_bwd")
+    return dr, dk, dv, dw, du_part, ds0, gbuf, dbuf
+
+
+def _flops(name):
+    """The FLOP formula of kernel ``name`` (:func:`repro_torch.kernels.cost.
+    wkv6_flops`) over its arguments, tensors given as shapes."""
+    def formula(r, *_, out_shape=None, **__):
+        return int(cost.wkv6_flops(*r)[name])
+    return formula
+
+
+_OPS = Operators(__name__)
+_RKVWU = "Tensor r, Tensor k, Tensor v, Tensor w, Tensor u"
+_fwd_op = _OPS.define(f"wkv6_fwd({_RKVWU}, Tensor? state) -> (Tensor, Tensor, Tensor, Tensor)",
+                      _fwd_cuda, lambda r, *_: _fwd_outputs(r), _flops("wkv6_fwd"))
+_bwd_op = _OPS.define(f"wkv6_bwd({_RKVWU}, Tensor ckpt, Tensor dout, Tensor? ds_last) "
+                      "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+                      _bwd_cuda, lambda r, *_: _bwd_outputs(r), _flops("wkv6_bwd"))
+
+
+# ----------------------------------------------------------------------
+# Wrappers: one per kernel
+# ----------------------------------------------------------------------
+def fwd(r, k, v, w, u, state=None, save_ckpt=False):
+    """(out, s_last, checkpoints or None).  ``wkv6_fwd`` on CUDA tensors (its
+    shape function on meta ones), :func:`plain_fwd` on CPU tensors.  The
+    kernels always write the checkpoints (the chunk-start states their last
+    phase starts from)."""
+    check_inputs(r, k, v, w, u, state)
+    if not on_kernel_path(r):
+        return plain_fwd(r, k, v, w, u, state, save_ckpt)
+    out, s_last, ckpt, _ = _fwd_op(r, k, v, w, u, state)
     return out, s_last, ckpt if save_ckpt else None
 
 
@@ -301,22 +368,10 @@ def bwd(r, k, v, w, u, ckpt, dout, ds_last=None):
     B, S, H, hd = r.shape
     nc = num_checkpoints(S)
     check_f32("ckpt", ckpt, (B, H, nc, hd, hd), r.device)
-    check_aligned("ckpt", ckpt)
     check_f32("ds_last", ds_last, (B, H, hd, hd), r.device)
-    if not r.is_cuda:
+    if not on_kernel_path(r):
         return plain_bwd(r, k, v, w, u, ckpt, dout, ds_last)
-    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
-    du_part = torch.empty(B, nc, H, hd, dtype=torch.float32, device=r.device)
-    ds0 = torch.empty(B, H, hd, hd, dtype=torch.float32, device=r.device)
-    gbuf = torch.empty(B, H, nc, hd, hd, dtype=torch.float32, device=r.device)
-    dbuf = torch.empty(B, H, nc, hd, dtype=torch.float32, device=r.device)
-    err = load_library().wkv6_bwd(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), ckpt.data_ptr(),
-        dout.data_ptr(), ptr(ds_last), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dw.data_ptr(), du_part.data_ptr(), ds0.data_ptr(), gbuf.data_ptr(), dbuf.data_ptr(),
-        B, S, H, hd, DTYPE_CODE[r.dtype], stream())
-    LAUNCHES["wkv6_bwd"] += 1
-    raise_on(err, "wkv6_bwd")
+    dr, dk, dv, dw, du_part, ds0, *_ = _bwd_op(r, k, v, w, u, ckpt, dout, ds_last)
     return dr, dk, dv, dw, du_part.sum((0, 1)), ds0
 
 

@@ -6,17 +6,21 @@ reference's branches: an ``audio`` arch (whisper-tiny) is the
 encoder-decoder of :mod:`repro_torch.models.encdec`, fed ``frames`` in
 training and prefill and ``encoder_states`` in decode; a ``vlm`` arch
 (llama-3.2-vision-90b) is the LM with ``images`` (stub patch embeddings)
-as its ``C`` blocks' ``encoder_out``.  The dry-run's shape-only pieces,
-``params_shape`` and ``input_specs``, wait for the shape-only lowering
-(``ROADMAP.md`` queue 1, item 9).  A step updates the parameters and
+as its ``C`` blocks' ``encoder_out``.  The dry run's shape-only pieces,
+:func:`params_shape` and :func:`input_specs`, give fake tensors
+(``FakeTensorMode``: shapes and dtypes, no storage) with the reference's
+tree, key paths, shapes and dtypes.  A step updates the parameters and
 optimizer state in place (:mod:`repro_torch.optim.sgd`) and returns them.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch.configs.shapes import InputShape
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
@@ -38,6 +42,51 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu"):
     if cfg.arch_type == "audio":
         return ED.init_encdec(cfg, seed=seed, device=device)
     return T.init_lm(cfg, seed=seed, device=device)
+
+
+def params_shape(cfg: ModelConfig, device="cuda", mode: FakeTensorMode | None = None):
+    """The tree :func:`init_params` gives, as fake tensors on ``device``
+    under ``mode`` (a new ``FakeTensorMode`` when None): built on the meta
+    device (no generator, no draw), each leaf then made a fake tensor of
+    its shape and dtype."""
+    mode = mode or FakeTensorMode()
+    shapes = init_params(cfg, device="meta")
+    with mode:
+        return T.map_leaves(lambda _, t: torch.empty(t.shape, dtype=t.dtype, device=device),
+                            shapes)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, device="cuda",
+                mode: FakeTensorMode | None = None, batch: int | None = None) -> dict[str, Any]:
+    """The step's batch for ``shape`` as fake tensors on ``device`` under
+    ``mode`` (a new ``FakeTensorMode`` when None), keyed as the reference's
+    ``input_specs``: ``tokens`` and ``labels`` (train), ``tokens``
+    (prefill), ``token``, ``pos`` (an int32 scalar, as the reference's;
+    :func:`make_serve_step` takes a Python int there) and ``cache``
+    (decode); ``frames`` (audio) or ``images`` (vlm) beside them, and for
+    an audio arch's decode ``encoder_states``.  ``batch`` overrides the
+    shape's global batch (a rank's share)."""
+    mode = mode or FakeTensorMode()
+    B, S = batch or shape.global_batch, shape.seq_len
+    with mode:
+        def sds(dims, dtype):
+            return torch.empty(dims, dtype=dtype, device=device)
+
+        enc = {}
+        if cfg.arch_type == "audio":
+            enc = {"frames" if shape.kind != "decode" else "encoder_states":
+                   sds((B, cfg.encoder_seq, cfg.d_model), cfg.dtype)}
+        if cfg.arch_type == "vlm":
+            enc = {"images": sds((B, cfg.num_image_tokens, cfg.d_model), cfg.dtype)}
+        if shape.kind == "train":
+            return {"tokens": sds((B, S), torch.int32), "labels": sds((B, S), torch.int32),
+                    **enc}
+        if shape.kind == "prefill":
+            return {"tokens": sds((B, S), torch.int32), **enc}
+        if shape.kind == "decode":
+            return {"token": sds((B,), torch.int32), "pos": sds((), torch.int32),
+                    "cache": T.init_cache(cfg, B, S, device=device), **enc}
+    raise ValueError(shape.kind)
 
 
 #: the batch key of each encoder-fed arch type's encoder input
@@ -87,7 +136,8 @@ def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = False
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = True,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1,
+                    grad_sync: Callable[[Any], Any] | None = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: loss -> gradients -> optimizer update; ``batch`` holds
     ``tokens`` and ``labels`` (B, S), and ``frames`` (audio) or ``images``
@@ -97,7 +147,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
     microbatches and sums their gradients in float32, then scales by 1 /
     ``accum_steps``; the metrics are the microbatches' means, as in the
     reference.  ``metrics``: ``total_loss``, ``loss``, ``moe_aux`` (0
-    without experts) and ``grad_norm``."""
+    without experts) and ``grad_norm``.  ``grad_sync``, if given, takes the
+    gradients before the update and returns them synchronized (for example
+    :func:`repro_torch.comm.sync.sync_gradients` over a process group)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
@@ -129,6 +181,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
             for _, acc in T.leaf_order(grads):
                 acc.mul_(inv)
             total, loss, aux = total * inv, loss * inv, aux * inv
+        if grad_sync is not None:
+            grads = grad_sync(grads)
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"total_loss": total, "loss": loss, "moe_aux": aux,
                                    "grad_norm": global_norm(grads)}

@@ -98,8 +98,11 @@ def _rank_entry(rank: int, world: int, init_file: str, device: str, fn, args: tu
         dev = torch.device("cuda", dev.index or 0)
         torch.cuda.set_device(dev)
     else:
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # one thread a rank: the CPU path runs small models (the smoke
+        # preset, the tests), whose many small operators, split over several
+        # threads, stall at every parallel region's barrier whenever other
+        # processes hold the host's cores
+        torch.set_num_threads(1)
     dist.init_process_group(BACKEND, init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:

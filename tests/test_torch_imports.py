@@ -52,7 +52,10 @@ def test_every_port_module_is_found():
                  "repro_torch.models.encdec", "repro_torch.configs.whisper_tiny",
                  "repro_torch.configs.llama32_vision_90b",
                  "repro_torch.core.parallel", "repro_torch.core.service",
-                 "repro_torch.core.agreement", "repro_torch.launch.serve_sweep"):
+                 "repro_torch.core.agreement", "repro_torch.launch.serve_sweep",
+                 "repro_torch.configs.shapes", "repro_torch.kernels.cost",
+                 "repro_torch.models.sharding", "repro_torch.launch.mesh",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline"):
         assert must in names
 
 

@@ -176,6 +176,21 @@ class TestRunner:
     def test_smoke_geometry_is_the_reference_preset(self):
         assert dataclasses.asdict(trun.SMOKE_GEOMETRY) == dataclasses.asdict(jrun.SMOKE_GEOMETRY)
 
+    def test_a_cpu_rank_runs_one_thread(self, tmp_path):
+        """A CPU rank computes on one thread: with several, the smoke
+        measurement's small operators stall at each parallel region's barrier
+        when other processes hold the cores, and a few smoke runs side by side
+        outlast the smoke fixture's timeout."""
+        seen = {}
+        before = torch.get_num_threads()
+        try:
+            trun._rank_entry(0, 1, str(tmp_path / "rendezvous"), "cpu",
+                             lambda rank, dev: seen.update(threads=torch.get_num_threads(),
+                                                           dev=dev), ())
+        finally:
+            torch.set_num_threads(before)
+        assert seen == {"threads": 1, "dev": torch.device("cpu")}
+
     @pytest.mark.parametrize("arch,widths", [
         ("qwen1.5-4b", (2560, 20, 6912, 151_936)),
         ("recurrentgemma-2b", (2560, 10, 7680, 256_000)),
