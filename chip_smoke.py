@@ -169,10 +169,32 @@ Phases, in order; any failure ends the script with a non-zero code:
    dry run's arguments + temporaries (within 10 %), the FLOP totals
    (``FlopCounterMode``, equal) and each kernel operator's calls (equal),
    after the roofline's data-sheet constants and the card's line;
-18. print the ``kernels`` line (launches: the six measurements', the
+18. train_e2e (deliverable b): ``repro_torch.examples.train_e2e --preset
+   full --steps 300 --ckpt-every 100`` (the reference's presets: 12 layers,
+   d 512, f32, one kv head of 64, window 64; 8 x 256 tokens): its
+   ``report.json``, peak memory, loss curve and kernel launches; fails
+   unless the flash forward and dk/dv kernels launched, every loss is
+   finite and the reference's own check (the last ten losses' mean below
+   the first) holds; then the flash kernels timed at its ``L`` shape
+   (``bench.E2E_L``) beside their bounds, plain versions and SDPA with the
+   band mask;
+19. the sequence-sharded decode: ``repro_torch.launch.seq_decode`` on 2
+   gloo ranks at gemma3-1b's and recurrentgemma-2b's published widths and
+   full depth, bfloat16, batch 1, a cache of 524 288 tokens (``long_500k``)
+   filled from a seeded generator, 4 tokens at positions 524 284-524 287:
+   each rank's logits and cache against the one-rank decode on the same
+   cache, and each attention layer's combine on the one-rank decode's
+   inputs against that layer's one-rank output, within 3e-2 of each one's
+   own scale (the bf16 ``_tol``); the control, a combine that drops the
+   other rank's partials, must exceed that limit on some rank at every
+   token; host ms a token, and the bytes and calls its ``Comm`` counted a
+   token, which must equal the dry run's ``long_500k`` / ``dp8`` record for
+   the arch; recurrentgemma-2b's sharded decodes must launch ``rglru_fwd``
+   at one token;
+20. print the ``kernels`` line (launches: the six measurements', the
    validation's, the float32 decode's, the training launcher's, the
-   encoder-decoder phase's and the dry-run phase's real steps), then the
-   ``ok`` line last.
+   encoder-decoder phase's, the dry-run phase's real steps, train_e2e's and
+   the sequence-sharded decode's), then the ``ok`` line last.
 
 A failing phase prints ``== <phase>: FAILED`` and its traceback on stdout
 before the script exits non-zero.
@@ -203,7 +225,7 @@ import torch  # noqa: E402
 from repro_torch.kernels.cost import (  # noqa: E402
     NVLINK_BYTES_PER_S, PEAK_BYTES_PER_S, PEAK_FLOPS, bounds, rglru_bounds, wkv6_bounds)
 from repro_torch.kernels.bench import (  # noqa: E402
-    CROSS_DECODE, FORWARD_ONLY, GEMMA3_G, GEMMA3_L, INTERNLM2_G, L_BLOCK, LLAMA_CROSS, LLAMA_G,
+    CROSS_DECODE, E2E_L, FORWARD_ONLY, GEMMA3_G, GEMMA3_L, INTERNLM2_G, L_BLOCK, LLAMA_CROSS, LLAMA_G,
     QWEN2MOE_G, QWEN32_G, RGLRU_SLICE, SLICE, WHISPER_CROSS, WHISPER_DEC, WHISPER_ENC,
     WKV6_SLICE, attn_shape, card_line, device_times, make_inputs, print_profile, rglru_inputs, time_ms,
     wkv6_inputs)
@@ -256,6 +278,9 @@ CHECK_SHAPES = [
     ("f32_hd64", attn_shape(B=2, S=512, H=4, K=2, hd=64, window=100, dtype=torch.float32)),
     ("f32_hd32_ragged", attn_shape(B=1, S=300, H=2, K=1, hd=32, window=32,
                                    dtype=torch.float32)),
+    # train_e2e's L and G blocks: float32, hd 64, a GQA group of 8
+    ("e2e_l", E2E_L),
+    ("e2e_g", dict(E2E_L, window=None)),
     # the bfloat16 backward's tensor-core instantiations the shapes above
     # leave out: hd 64, hd 32 ragged, hd 256 ragged with two kv heads
     ("hd64", attn_shape(B=2, S=512, H=4, K=2, hd=64, window=100)),
@@ -286,7 +311,7 @@ CHECK_SHAPES = [
 #: shapes also held through autograd against ``ref.attention``
 AUTOGRAD_SHAPES = ("slice", "l_block", "gqa_window", "f32_slice", "f32_l_block",
                    "f32_gqa_window", "whisper_enc", "whisper_dec", "whisper_cross", "llama_g",
-                   "llama_cross", "f32_cross_ragged", "f32_noncausal")
+                   "llama_cross", "f32_cross_ragged", "f32_noncausal", "e2e_l", "e2e_g")
 # The scans in decode: one token with a carried state, batch 4, at
 # recurrentgemma-2b's width and rwkv6-1.6b's heads.
 RGLRU_DECODE = dict(B=4, S=1, W=2560, dtype=torch.bfloat16, h0=True)
@@ -2432,6 +2457,107 @@ def dryrun_vs_card(card: str) -> dict:
     return launches
 
 
+#: the train_e2e twin as the reference's docstring runs it at full size
+E2E_ARGS = ["--preset", "full", "--steps", "300", "--ckpt-every", "100"]
+
+
+@phase("train_e2e (deliverable b)")
+def train_e2e_on_card(card: str) -> dict:
+    """``repro_torch.examples.train_e2e`` at ``E2E_ARGS`` into a temporary
+    directory, the launch counters set to 0 just before; then its flash
+    kernels timed at its ``L`` shape.  Returns the run's launches."""
+    from repro_torch import kernels
+    from repro_torch.examples import train_e2e
+
+    print(f"  {card}", flush=True)
+    losses: list[float] = []
+    with tempfile.TemporaryDirectory() as out:
+        args = train_e2e.parser().parse_args([*E2E_ARGS, "--out-dir", out])
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = train_e2e.run(args, "cuda", losses=losses)
+        wall = time.perf_counter() - t0
+        launches = {name: n for name, n in kernels.all_launches().items() if n}
+        peak = torch.cuda.max_memory_allocated()
+        files = sorted(p.name for p in Path(out).iterdir())
+    print(f"  report.json {json.dumps(report)}", flush=True)
+    print(f"  {len(losses)} steps in {wall:.1f} s, peak memory {peak} B; loss every 25 steps "
+          f"{[round(x, 4) for x in losses[::25]]}, last {losses[-1]:.4f}; files {files}; "
+          f"launches {launches}", flush=True)
+    missing = [name for name in ("flash_fwd", "flash_bwd_dkdv") if not launches.get(name)]
+    if missing or not all(math.isfinite(x) for x in losses) or len(losses) != 300:
+        raise SystemExit(f"train_e2e: kernels not launched {missing} or a loss not finite")
+    if files != ["ckpt_100.npz", "ckpt_200.npz", "ckpt_final.npz", "report.json"]:
+        raise SystemExit(f"train_e2e wrote {files}")
+    time_flash(E2E_L, "e2e_l")
+    return launches
+
+
+#: ``long_500k``: batch 1 at 524 288 tokens, the last four positions decoded
+SEQ_DECODE_LEN = 524_288
+SEQ_DECODE_ARCHS = ("gemma3-1b", "recurrentgemma-2b")
+#: the bf16 kernel tolerance of ``tests/test_kernels.py`` (``_tol``)
+SEQ_DECODE_TOL = 3e-2
+
+
+@phase("sequence-sharded decode")
+def seq_decode_on_card(card: str) -> dict:
+    """``repro_torch.launch.seq_decode`` on 2 gloo ranks of this card for
+    ``SEQ_DECODE_ARCHS`` at published widths and full depth, bf16, each
+    rank's launch counters set to 0 before each sharded decode; each
+    token's logits, cache and attention layers' combines against the
+    one-rank decode, the control's combine beyond the limit, its ``Comm``
+    counts against the dry run's ``long_500k`` / ``dp8`` record.  Returns
+    the sharded decodes' launches of both ranks."""
+    from repro_torch.launch import dryrun, seq_decode
+
+    positions = list(range(SEQ_DECODE_LEN - 4, SEQ_DECODE_LEN))
+    jobs = [{"arch": arch, "seq_len": SEQ_DECODE_LEN, "positions": positions}
+            for arch in SEQ_DECODE_ARCHS]
+    with tempfile.TemporaryDirectory() as out:
+        results = seq_decode.run(jobs, 2, "cuda", out)
+    print(f"  {card}", flush=True)
+    launches: dict[str, int] = {}
+    failed = []
+    for i, arch in enumerate(SEQ_DECODE_ARCHS):
+        rec = dryrun.dryrun_one(arch, "long_500k", ranks=8)
+        col = rec["collectives"]
+        print(f"  {arch}: dry run long_500k dp8 {rec['status']}, {col['total_count']} "
+              f"all-reduces, {col['total_bytes']} B a token", flush=True)
+        for rank, res in enumerate(r[i] for r in results):
+            for st in res["steps"]:
+                ok = (st["logits_err"] <= SEQ_DECODE_TOL and st["cache_err"] <= SEQ_DECODE_TOL
+                      and st["attn_err"] <= SEQ_DECODE_TOL
+                      and st["comm_bytes"] == col["total_bytes"]
+                      and st["comm_calls"] == col["total_count"])
+                print(f"  {arch:18s} rank {rank} pos {st['pos']}: logits {st['logits_err']:.3e}"
+                      f" and cache {st['cache_err']:.3e} of scale from the one-rank decode; "
+                      f"combine {st['attn_err']:.3e} of its layer's scale (worst at "
+                      f"{st['attn_where']}), control {st['control_err']:.3e}; "
+                      f"host {st['ms']:.3f} ms a token (one rank, whole cache: "
+                      f"{st['one_rank_ms']:.3f}); Comm {st['comm_calls']} calls, "
+                      f"{st['comm_bytes']} B{'' if ok else '  FAIL'}", flush=True)
+                if not ok:
+                    failed.append((arch, rank, st["pos"]))
+            print(f"  {arch:18s} rank {rank} ({res['num_layers']} layers, {res['dtype']}): "
+                  f"launches of the sharded decodes {res['launches']}", flush=True)
+            if arch == "recurrentgemma-2b" and not res["launches"].get("rglru_fwd"):
+                failed.append((arch, rank, "rglru_fwd not launched"))
+            for name, n in res["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+        for t, pos in enumerate(positions):
+            control = max(r[i]["steps"][t]["control_err"] for r in results)
+            if not control > SEQ_DECODE_TOL:
+                failed.append((arch, pos, f"control {control:.3e} within the limit: the "
+                               "combine check cannot see a dropped rank"))
+        if rec["status"] != "ok":
+            failed.append((arch, "dry run", rec.get("error")))
+    if failed:
+        raise SystemExit(f"sequence-sharded decode: {failed}")
+    return launches
+
+
 def check_measurement(doc: dict, trace_text: str) -> None:
     """The repository's own checks on a measured run: finite positive
     times, the trace's layer rows, the counted all-reduce bytes equal to
@@ -2521,7 +2647,8 @@ def main() -> int:
         for name, n in path_launches.items():
             launches[name] = launches.get(name, 0) + n
     remat_and_accumulation()
-    for phase_launches in (encdec_on_card(card), dryrun_vs_card(card)):
+    for phase_launches in (encdec_on_card(card), dryrun_vs_card(card),
+                           train_e2e_on_card(card), seq_decode_on_card(card)):
         for name, n in phase_launches.items():
             launches[name] = launches.get(name, 0) + n
     line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),

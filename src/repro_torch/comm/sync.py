@@ -48,15 +48,21 @@ class Comm:
     def world(self) -> int:
         return dist.get_world_size(self.group)
 
+    @property
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
     def reset(self) -> None:
         self.bytes = 0
         self.calls = 0
 
-    def all_reduce(self, t: torch.Tensor, async_op: bool = False):
-        """Sum ``t`` in place over the group; counts its bytes."""
+    def all_reduce(self, t: torch.Tensor, async_op: bool = False,
+                   op=dist.ReduceOp.SUM):
+        """Reduce ``t`` in place over the group (a sum unless ``op`` says
+        otherwise); counts its bytes."""
         self.bytes += t.numel() * t.element_size()
         self.calls += 1
-        return dist.all_reduce(t, group=self.group, async_op=async_op)
+        return dist.all_reduce(t, op=op, group=self.group, async_op=async_op)
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """Mean of ``t`` over the group (a new tensor)."""

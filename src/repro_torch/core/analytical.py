@@ -1,10 +1,7 @@
-"""Closed-form iteration-time model — Eqs. (2), (3) and (5) of the paper.
+"""Closed-form iteration-time model — Eqs. (1)–(6) of the paper.
 
-A copy of :mod:`repro.core.analytical` as far as the batched sweep
-needs it (left out, since no port path calls them yet: Eq. (1), the
-Eq. (6) speedup and the per-policy ``iteration_time`` helper); the
-batched reductions (:func:`non_overlapped_comm_batch`,
-:func:`worker_bottleneck`,
+A copy of :mod:`repro.core.analytical`; the batched reductions
+(:func:`non_overlapped_comm_batch`, :func:`worker_bottleneck`,
 :func:`effective_sync_k`, :func:`kth_order_statistic`,
 :func:`worker_bottleneck_k`) are polymorphic over NumPy and torch
 (:mod:`repro_torch.core.xputil`).
@@ -20,6 +17,11 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.core.dag import IterationCosts
+
+
+def eq1_sgd_iteration(costs: IterationCosts) -> float:
+    """Single-GPU mini-batch SGD: t_io + t_h2d + sum t_f + sum t_b + t_u."""
+    return costs.t_io + costs.t_h2d + sum(costs.t_f) + sum(costs.t_b) + costs.t_u
 
 
 def eq2_naive_ssgd(costs: IterationCosts) -> float:
@@ -242,6 +244,22 @@ def eq5_late_h2d(costs: IterationCosts) -> float:
                costs.t_h2d + sum(costs.t_f) + sum(costs.t_b) + tc_no + costs.t_u)
 
 
+def eq6_speedup(costs_1gpu: IterationCosts, costs_n: IterationCosts,
+                n_gpus: int) -> float:
+    """Weak-scaling speedup of N_g GPUs over one GPU (Eq. 6).
+
+    ``costs_1gpu`` carries the single-GPU I/O time ``t_io_1`` and zero
+    comm; ``costs_n`` carries the per-layer comm of the N_g-GPU run and
+    the (possibly larger) I/O time ``t_io_Ng``.
+    """
+    t1 = max(costs_1gpu.t_io + costs_1gpu.t_h2d,
+             sum(costs_1gpu.t_f) + sum(costs_1gpu.t_b))
+    tc_no = non_overlapped_comm(costs_n.t_b, costs_n.t_c)
+    tn = max(costs_n.t_io + costs_n.t_h2d,
+             sum(costs_n.t_f) + sum(costs_n.t_b) + tc_no)
+    return n_gpus * t1 / tn if tn > 0 else float(n_gpus)
+
+
 def has_closed_form(policy) -> bool:
     """True when ``policy``'s steady state has an exact *per-layer*
     closed form — Eqs. (2)/(3)/(5) or a late-H2D variant.
@@ -304,3 +322,20 @@ def closed_form(costs: IterationCosts, policy) -> float | None:
     if policy.overlap_comm:
         return eq5_wfbp(costs) if policy.h2d_early else eq5_late_h2d(costs)
     return eq3_io_overlap(costs) if policy.h2d_early else eq3_late_h2d(costs)
+
+
+def iteration_time(costs: IterationCosts, policy_name: str) -> float:
+    """Dispatch the closed form matching a named policy.
+
+    Raises ``ValueError`` for policies without an exact closed form
+    (bucketed / priority) — use the DAG simulator for those.
+    """
+    from repro_torch.core.policies import get_policy
+
+    p = get_policy(policy_name)
+    t = closed_form(costs, p)
+    if t is None:
+        raise ValueError(
+            f"policy {policy_name!r} has no exact closed form; "
+            "use repro_torch.core.simulator")
+    return t

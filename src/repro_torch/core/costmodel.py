@@ -1,7 +1,8 @@
 """Per-layer cost model of the paper's own CNN workloads (Table IV:
-AlexNet, GoogleNet, ResNet-50): a copy of the layer tables,
-:data:`CNN_WORKLOADS`, :func:`total_params`, :func:`update_time` and
-:func:`comm_scale_fn` of :mod:`repro.core.costmodel`.
+AlexNet, GoogleNet, ResNet-50): a copy of :mod:`repro.core.costmodel`
+(the layer tables, :data:`CNN_WORKLOADS`, :func:`total_params`,
+:func:`total_flops`, :func:`make_iteration_costs`, :func:`update_time` and
+:func:`comm_scale_fn`).
 
 Layer tables are generated from the published architectures and populate
 the DAG's communication and computation nodes when no measured trace is
@@ -13,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Sequence
 
+from repro_torch.core.dag import IterationCosts
 from repro_torch.core.hardware import ClusterSpec
 
 
@@ -152,6 +154,76 @@ CNN_WORKLOADS = {
 def total_params(layers: Sequence[LayerSpec]) -> int:
     """Total learnable parameter count (multiply by 4 for f32 bytes)."""
     return sum(l.params for l in layers)
+
+
+def total_flops(layers: Sequence[LayerSpec]) -> float:
+    """Total forward flop/sample across the layer table."""
+    return sum(l.flops_fwd for l in layers)
+
+
+# ----------------------------------------------------------------------
+# LayerSpec list -> IterationCosts on a concrete cluster.
+# ----------------------------------------------------------------------
+def make_iteration_costs(
+    layers: Sequence[LayerSpec] | str,
+    cluster: ClusterSpec,
+    batch_per_gpu: int,
+    n_workers: int,
+    bytes_per_sample: float | None = None,
+    bwd_fwd_ratio: float | None = None,
+    decode_seconds_per_byte: float = 0.0,
+    collective: str = "ring",
+) -> IterationCosts:
+    """Build the paper's Table-I cost vocabulary (all entries in
+    **seconds**) from a layer table.
+
+    ``layers`` may also be a workload *name* (``"resnet50"``,
+    ``"cnn:alexnet"``, ``"trace:alexnet-k80"``, ``"llm:gemma3-1b"`` —
+    anything :func:`repro_torch.core.workloads.resolve_workload` accepts), in
+    which case the memoized registry table supplies the per-layer
+    costs; ``bytes_per_sample`` ``None`` then means the workload's own
+    value (and 110e3, the Table-IV ImageNet figure, for a layer table).
+
+    From a layer table:
+
+    * ``t_f``/``t_b`` per layer from per-sample forward FLOPs at the
+      device's achieved flop/s (backward = ``bwd_fwd_ratio`` x forward);
+    * ``t_c`` per layer from the cluster's all-reduce model for
+      ``collective`` (one of
+      :data:`repro_torch.core.hardware.COLLECTIVE_ALGORITHMS`);
+    * ``t_io``/``t_h2d`` from ``batch_per_gpu * bytes_per_sample`` bytes
+      over the disk and PCIe links (Eq. 1's input pipeline terms);
+    * ``t_u`` as one read-modify-write sweep over all parameter bytes at
+      HBM bandwidth.
+
+    ``decode_seconds_per_byte`` models host-side JPEG decode in
+    **seconds per input byte** — achieved host decode rate, inverted
+    (the paper attributes CNTK/TF's poor AlexNet scaling to CPU-side
+    decoding of 4096 images/iter); it inflates ``t_io``.
+    """
+    if isinstance(layers, str):
+        from repro_torch.core.workloads import resolve_workload  # circular-safe
+
+        return resolve_workload(layers).iteration_costs(
+            cluster, batch_per_gpu, n_workers, collective,
+            bwd_fwd_ratio=bwd_fwd_ratio,
+            bytes_per_sample=bytes_per_sample,
+            decode_seconds_per_byte=decode_seconds_per_byte)
+    if bytes_per_sample is None:
+        bytes_per_sample = 110e3
+    if bwd_fwd_ratio is None:
+        bwd_fwd_ratio = 2.0
+    t_f = [cluster.compute_time(l.flops_fwd * batch_per_gpu) for l in layers]
+    t_b = [bwd_fwd_ratio * tf for tf in t_f]
+    t_c = [cluster.allreduce_time(l.grad_bytes, n_workers, collective)
+           if l.params else 0.0 for l in layers]
+    grad_bytes = [l.grad_bytes for l in layers]
+    nbytes_in = batch_per_gpu * bytes_per_sample
+    t_io = cluster.io_time(nbytes_in) + decode_seconds_per_byte * nbytes_in
+    t_h2d = cluster.h2d_time(nbytes_in)
+    t_u = update_time(4.0 * total_params(layers), cluster)
+    return IterationCosts(t_f=t_f, t_b=t_b, t_c=t_c, t_io=t_io, t_h2d=t_h2d,
+                          t_u=t_u, grad_bytes=grad_bytes)
 
 
 def update_time(param_bytes: float, cluster: ClusterSpec) -> float:

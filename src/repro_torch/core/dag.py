@@ -10,10 +10,6 @@ layers, workers and iterations under an overlap
 :class:`~repro_torch.core.policies.Policy`, with the heterogeneous and
 failure axes (``worker_scale``, ``sync_k``, ``crashed``, ``restart_s``)
 that make the event-driven simulator the sweep's agreement oracle.
-
-Left out, since no port path calls them yet: the graph queries
-(``topo_order``, ``critical_path``, ``sources``, ``sinks``,
-``total_work``, ``len``).
 """
 from __future__ import annotations
 
@@ -99,6 +95,56 @@ class DAG:
     def add_edges(self, srcs: Iterable[int], dst: int) -> None:
         for s in srcs:
             self.add_edge(s, dst)
+
+    # -- queries ----------------------------------------------------------
+    def __len__(self) -> int:
+        return len(self.tasks)
+
+    def sources(self) -> list[int]:
+        return [t for t in self.tasks if not self.preds[t]]
+
+    def sinks(self) -> list[int]:
+        return [t for t in self.tasks if not self.succs[t]]
+
+    def topo_order(self) -> list[int]:
+        """Kahn topological order; raises if the graph has a cycle."""
+        indeg = {t: len(p) for t, p in self.preds.items()}
+        ready = sorted([t for t, d in indeg.items() if d == 0])
+        order: list[int] = []
+        import heapq
+
+        heapq.heapify(ready)
+        while ready:
+            t = heapq.heappop(ready)
+            order.append(t)
+            for s in self.succs[t]:
+                indeg[s] -= 1
+                if indeg[s] == 0:
+                    heapq.heappush(ready, s)
+        if len(order) != len(self.tasks):
+            raise ValueError("DAG contains a cycle")
+        return order
+
+    def critical_path(self) -> tuple[float, list[int]]:
+        """Makespan with infinite resources (longest path)."""
+        finish: dict[int, float] = {}
+        best_pred: dict[int, int | None] = {}
+        for t in self.topo_order():
+            start = 0.0
+            bp = None
+            for p in self.preds[t]:
+                if finish[p] > start:
+                    start, bp = finish[p], p
+            finish[t] = start + self.tasks[t].duration
+            best_pred[t] = bp
+        end = max(finish, key=lambda t: finish[t])
+        path = [end]
+        while best_pred[path[-1]] is not None:
+            path.append(best_pred[path[-1]])  # type: ignore[arg-type]
+        return finish[end], list(reversed(path))
+
+    def total_work(self) -> float:
+        return sum(t.duration for t in self.tasks.values())
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,6 @@
 """Hardware models for the DAG performance model: a copy of
-:mod:`repro.core.hardware` (left out, since no port path calls them yet:
-the TPU v5e roofline constants and :class:`ClusterSpec`'s reduce-scatter,
-all-gather and all-to-all times).
+:mod:`repro.core.hardware` (left out, since no port path calls them: the
+TPU v5e roofline constants).
 
 The clusters (:data:`CLUSTERS`: the paper's Table II K80+PCIe+10GbE and
 V100+NVLink+100Gb InfiniBand, and the reference's TPU v5e pods) and the
@@ -366,6 +365,30 @@ class ClusterSpec:
             nbytes, n, self.gpus_per_node,
             self.intra.effective_bandwidth, self.intra.latency,
             self.inter.effective_bandwidth, self.inter.latency)
+
+    def reduce_scatter_time(self, nbytes: float, n_workers: int | None = None) -> float:
+        """Ring reduce-scatter of ``nbytes`` bytes per rank, in seconds:
+        ``(n-1)/n * M/B + (n-1) alpha`` on the bottleneck link."""
+        n = self.total_devices if n_workers is None else n_workers
+        if n <= 1:
+            return 0.0
+        link = self._bottleneck(n)
+        return (n - 1) / n * nbytes / link.effective_bandwidth \
+            + (n - 1) * link.latency
+
+    def allgather_time(self, nbytes: float, n_workers: int | None = None) -> float:
+        """Ring all-gather — same alpha-beta cost as reduce-scatter."""
+        return self.reduce_scatter_time(nbytes, n_workers)
+
+    def alltoall_time(self, nbytes: float, n_workers: int | None = None) -> float:
+        """All-to-all of ``nbytes`` bytes held per device (MoE dispatch),
+        in seconds."""
+        n = self.total_devices if n_workers is None else n_workers
+        if n <= 1:
+            return 0.0
+        link = self._bottleneck(n)
+        return (n - 1) / n * nbytes / link.effective_bandwidth \
+            + (n - 1) * link.latency
 
     # ------------------------------------------------------------------
     # Elementary task models (the paper's Table I vocabulary)

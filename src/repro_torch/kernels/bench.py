@@ -26,6 +26,8 @@ def attn_shape(B, S, H, K, hd, window=None, dtype=torch.bfloat16, causal=True, S
 # G blocks, recurrentgemma-2b's L blocks (window 2048 >= S: causal only),
 # gemma3-1b's L blocks (window 512 < S: the window masks) and G blocks.
 SLICE = attn_shape(B=2, S=1024, H=20, K=20, hd=128)
+# the train_e2e twin's L blocks at its full preset (8 x 256 tokens, f32)
+E2E_L = attn_shape(B=8, S=256, H=8, K=1, hd=64, window=64, dtype=torch.float32)
 L_BLOCK = attn_shape(B=2, S=1024, H=10, K=1, hd=256, window=2048)
 GEMMA3_L = attn_shape(B=2, S=1024, H=4, K=1, hd=256, window=512)
 GEMMA3_G = dict(GEMMA3_L, window=None)

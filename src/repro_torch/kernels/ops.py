@@ -5,10 +5,16 @@ Counterpart of :mod:`repro.kernels.ops`.  ``impl``:
   * ``"kernel"`` — the Hopper kernels (:mod:`repro_torch.kernels.
     flash_attention`, :mod:`repro_torch.kernels.rglru`,
     :mod:`repro_torch.kernels.wkv6`); on CPU tensors their plain versions
+  * ``"chunked"`` — for attention, the FlashAttention-2 schedule in plain
+    torch (:mod:`repro_torch.kernels.chunked_attention`) where the call is
+    an aligned causal self-attention at S >= ``CHUNKED_ATTENTION_MIN_SEQ``,
+    ``ref`` otherwise, on any device; the other entry points take it as
+    ``ref``, as the reference's do
   * ``"auto"``   — ``kernel`` for CUDA tensors and for tensors on the meta
     device (a shape-only lowering runs the kernels' shape functions,
-    :func:`repro_torch.kernels.build.on_kernel_path`), ``ref`` for CPU
-    tensors
+    :func:`repro_torch.kernels.build.on_kernel_path`); for CPU tensors
+    ``ref``, but for attention as ``chunked``, as the reference routes
+    its CPU (``ref``) path
 
 ``decode_attention`` and ``decode_attention_partials`` are plain torch
 (:mod:`repro_torch.kernels.ref`) on every device and for every ``impl``:
@@ -27,13 +33,19 @@ causal or windowed one.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import chunked_attention as ca
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.kernels.build import on_kernel_path
 
-IMPLS = ("auto", "ref", "kernel")
+IMPLS = ("auto", "ref", "kernel", "chunked")
+
+# Self-attention sequences at or above this length route to the chunked
+# (flash-schedule) implementation off the kernel path: the plain path
+# materialises (B, H, S, S) scores (reference ``repro.kernels.ops``).
+CHUNKED_ATTENTION_MIN_SEQ = 2048
 
 
 def _resolve(impl: str, t) -> str:
@@ -41,12 +53,28 @@ def _resolve(impl: str, t) -> str:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
     if impl == "auto":
         return "kernel" if on_kernel_path(t) else "ref"
+    if impl == "chunked":
+        return "ref"
     return impl
+
+
+def _chunked_block(S: int) -> int:
+    """512 where it divides S, else the first of 256, 128, 64 and 1 that
+    does (the reference's choice)."""
+    return 512 if S % 512 == 0 else next(b for b in (256, 128, 64, 1) if S % b == 0)
 
 
 def attention(q, k, v, *, q_positions=None, kv_positions=None, causal=True,
               window=None, impl: str = "auto"):
-    if _resolve(impl, q) == "ref":
+    path = _resolve(impl, q)
+    S = q.shape[1]
+    aligned_self = (S == k.shape[1] and causal and q_positions is None
+                    and kv_positions is None)
+    if (impl in ("auto", "chunked") and path == "ref" and aligned_self
+            and S >= CHUNKED_ATTENTION_MIN_SEQ):
+        block = _chunked_block(S)
+        return ca.chunked_attention(q, k, v, causal, window, block, block)
+    if path == "ref":
         return ref.attention(q, k, v, q_positions=q_positions,
                              kv_positions=kv_positions, causal=causal,
                              window=window)

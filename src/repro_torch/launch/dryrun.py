@@ -30,10 +30,14 @@ stays replicated: ``prefill_32k``'s 32 rows on 256 ranks), so the lowered
 program is one rank's.  The reference's 2-D meshes (``16x16``,
 ``2x16x16``) and its ``fsdp`` / ``fsdp2d`` / ``zero3`` modes need a model
 axis (tensor or expert parallelism) or a per-layer parameter gather, which
-the port does not run: they raise ``NotImplementedError``.  A decode cache
-whose sequence axis the rules shard (``long_500k`` on more than one rank)
-needs the sequence-sharded decode, which the port does not have either: it
-is recorded with ``status: "error"`` and that reason.  At N > 1 ranks a
+the port does not run: they raise ``NotImplementedError``.  Where the
+rules shard a decode cache's sequence axis (``long_500k``, batch 1, on more
+than one rank), a rank's ``G`` and ``L`` cache leaves are its local slices
+(sequence length S / N) and the serve step runs the sequence-sharded decode
+(:func:`repro_torch.models.attention.decode_attention_seq_sharded`) with a
+:class:`repro_torch.comm.sync.Comm` on the fake process group, so the
+record's ``collectives`` count its combine: three all-reduces a sharded
+layer.  At N > 1 ranks a
 train step's gradients go through
 :func:`repro_torch.comm.sync.sync_gradients` on a ``"fake"`` process group
 of N ranks (:func:`repro_torch.launch.mesh.fake_process_group`).
@@ -238,18 +242,25 @@ def lower(cfg, shape: InputShape, *, ranks: int = 1, policy: str = "at_end",
     arg_bytes = _spec_bytes(gparams, pspecs, sizes) + _spec_bytes(gbatch, bspecs, sizes)
     if shape.kind == "train":   # the f32 momentum has the parameters' specs
         arg_bytes += _spec_bytes(T.map_leaves(lambda _, t: t.float(), gparams), pspecs, sizes)
-    if shape.kind == "decode" and _seq_sharded(bspecs["cache"]):
+    sharded = _seq_sharded(bspecs["cache"]) if shape.kind == "decode" else []
+    kv_leaves = [p for p, _ in T.leaf_order(gbatch.get("cache", {})) if p[-1] in ("k", "v")]
+    if sharded and len(sharded) != len(kv_leaves):
         raise NotImplementedError(
-            f"the rules shard the decode cache's sequence axis over {ranks} ranks "
-            f"({', '.join(_seq_sharded(bspecs['cache']))}): that needs the "
-            "sequence-sharded decode, which the port does not have (ROADMAP queue 1, "
-            "item 6)")
+            f"the rules shard the sequence axis of some decode cache leaves over {ranks} "
+            f"ranks ({', '.join(sharded)}) and not of others: the sequence-sharded decode "
+            "takes every G and L cache sharded")
     lead = bspecs["token" if shape.kind == "decode" else "tokens"][0]
     batch = shape.global_batch // (ranks if lead is not None else 1)
 
     mode = FakeTensorMode()
     params = steps_mod.params_shape(cfg, device, mode)
     data = steps_mod.input_specs(cfg, shape, device, mode, batch=batch)
+    if sharded:     # this rank's slice of every cache leaf, by its spec
+        with mode:
+            data["cache"] = T.map_leaves(
+                lambda path, t: torch.empty(
+                    shd.shard_shape(t.shape, T.get_path(bspecs["cache"], path), sizes),
+                    dtype=t.dtype, device=device), gbatch["cache"])
     with mode:
         opt = sgd(lr=1e-2, momentum=0.9)
         opt_state = opt.init(params) if shape.kind == "train" else None
@@ -273,7 +284,8 @@ def lower(cfg, shape: InputShape, *, ranks: int = 1, policy: str = "at_end",
             elif shape.kind == "prefill":
                 out = steps_mod.make_prefill_step(cfg)(params, data)
             else:
-                out = steps_mod.make_serve_step(cfg)(params, data)
+                out = steps_mod.make_serve_step(cfg, seq_axis=comm if sharded else None)(
+                    params, data)
         lower_s = time.time() - t0
     arg_ids = _storage_ids(args)
     outs = {id(st): st for st in (t.untyped_storage() for t in tree_leaves(out)

@@ -204,13 +204,16 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, *, seq_axis: str | None = None):
+def make_serve_step(cfg: ModelConfig, *, seq_axis=None):
     """``serve_step(params, batch) -> (logits (B, V), cache)``: one-token
     decode; ``batch`` holds ``cache`` (:func:`repro_torch.models.transformer.
     init_cache`), ``token`` (B,) and ``pos`` (a Python int), and for an
     ``audio`` arch ``encoder_states`` (:func:`repro_torch.models.encdec.
     encode` of the frames, computed once a request), for a ``vlm`` arch
-    ``images``.  The cache is updated in place."""
+    ``images``.  The cache is updated in place.  ``seq_axis``: a
+    :class:`repro_torch.comm.sync.Comm` whose group shards the ``G`` and
+    ``L`` caches' sequence axis (:func:`repro_torch.models.transformer.
+    decode_step`)."""
 
     def serve_step(params, batch):
         cache, token, pos = batch["cache"], batch["token"], batch["pos"]

@@ -2,17 +2,20 @@
 full-sequence forward (self-attention, or cross-attention from ``kv_src``),
 and the KV-cache decode.
 
-Counterpart of :mod:`repro.models.attention` lines 24-148.  The inner
-attention math is :func:`repro_torch.kernels.ops.attention` (the Hopper
-kernels on CUDA, the plain oracle on the CPU) and, in decode,
-:func:`repro_torch.kernels.ops.decode_attention` (plain torch everywhere,
-as in the reference).  The sequence-sharded decode
-(``_decode_attention_seq_sharded``) needs a mesh and is not ported:
-``seq_axis`` raises.
+Counterpart of :mod:`repro.models.attention`.  The inner attention math
+is :func:`repro_torch.kernels.ops.attention` (the Hopper kernels on CUDA,
+the chunked or plain attention on the CPU) and, in decode,
+:func:`repro_torch.kernels.ops.decode_attention` and
+``decode_attention_partials`` (plain torch everywhere, as in the
+reference).  The sequence-sharded decode (the reference's
+``_decode_attention_seq_sharded``, its distributed flash-decode) runs over
+a process group: ``seq_axis`` is a :class:`repro_torch.comm.sync.Comm`
+(:func:`decode_attention_seq_sharded`).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ModelConfig, Params, apply_rope, dense_init
@@ -86,34 +89,87 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, window: int | None
 
 def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Params, pos: int,
                      *, window: int | None = None,
-                     seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
+                     seq_axis=None) -> tuple[torch.Tensor, Params]:
     """One decode step: x (B, 1, d) at position ``pos`` (a Python int, so
     that the slot and the mask are computed on the host) -> ((B, 1, d),
     cache).  The new token's k and v, rotated first, are written into the
     cache in place, at ``pos`` or, in a ring buffer (``window``), at ``pos
     % cache_len``; the returned cache is the one passed in.  Its contents
-    equal the reference's one-hot write slot for slot."""
-    if seq_axis is not None:
-        raise NotImplementedError("the sequence-sharded decode needs a mesh "
-                                  "(ROADMAP.md queue 1, item 1.4)")
+    equal the reference's one-hot write slot for slot.  Given ``seq_axis``
+    (a :class:`repro_torch.comm.sync.Comm`), ``cache`` is this rank's slice
+    of a sequence-sharded cache (:func:`decode_attention_seq_sharded`)."""
+    if isinstance(seq_axis, str):
+        raise TypeError(f"seq_axis takes a repro_torch.comm.sync.Comm whose group spans the "
+                        f"cache's shards, not the mesh axis name {seq_axis!r}: the port has "
+                        "no mesh to resolve a name in")
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(cfg, p, x, x)
     posb = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q = apply_rope(q, posb, cfg.rope_theta)
     k_new = apply_rope(k_new, posb, cfg.rope_theta)
-    cache_len = cache["k"].shape[-3]
-    if window:
-        # the ring buffer holds the last cache_len tokens; once it has
-        # wrapped, every slot is valid
-        slot = pos % cache_len
-        last = cache_len - 1 if pos >= cache_len else slot
+    if seq_axis is None:
+        out = _decode_local(q, k_new, v_new, cache, pos, window)
     else:
-        if not 0 <= pos < cache_len:
-            raise ValueError(f"position {pos} outside the cache of {cache_len}")
-        slot = last = pos
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    valid = torch.arange(cache_len, device=x.device) <= last
-    out = kops.decode_attention(q, cache["k"], cache["v"], valid)
+        out = decode_attention_seq_sharded(q, k_new, v_new, cache, pos, seq_axis,
+                                           window=window)
     H, hd, d = p["wo"].shape
     return out.reshape(B, 1, H * hd) @ p["wo"].reshape(H * hd, d), cache
+
+
+def _slot_and_last(pos: int, cache_len: int, window) -> tuple[int, int]:
+    """The slot the token at ``pos`` is written to and the last valid slot
+    of a cache of ``cache_len`` slots: a ring buffer (``window``) holds the
+    last ``cache_len`` tokens, and once it has wrapped every slot is
+    valid; a full cache indexes the absolute position."""
+    if window:
+        slot = pos % cache_len
+        return slot, (cache_len - 1 if pos >= cache_len else slot)
+    if not 0 <= pos < cache_len:
+        raise ValueError(f"position {pos} outside the cache of {cache_len}")
+    return pos, pos
+
+
+def _decode_local(q, k_new, v_new, cache: Params, pos: int, window) -> torch.Tensor:
+    cache_len = cache["k"].shape[-3]
+    slot, last = _slot_and_last(pos, cache_len, window)
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    valid = torch.arange(cache_len, device=q.device) <= last
+    return kops.decode_attention(q, cache["k"], cache["v"], valid)
+
+
+def decode_attention_seq_sharded(q, k_new, v_new, cache: Params, pos: int, comm, *,
+                                 window: int | None = None) -> torch.Tensor:
+    """The distributed flash-decode (reference
+    ``_decode_attention_seq_sharded``): rank r of ``comm``'s group holds
+    slots [r·S_loc, (r+1)·S_loc) of the cache, S_loc = ``cache["k"]``'s
+    sequence length.  The owning rank writes the new k and v; each rank
+    takes its local flash partials (o, m, l) over its valid slots; they are
+    combined with an all-reduce MAX of m, then SUMs of ``o·exp(m - m_glob)``
+    and ``l·exp(m - m_glob)``: three all-reduces of B·H·(hd + 2)·4 bytes.
+    Returns ``o / max(l, 1e-30)`` (B, 1, H, hd) in q's dtype.
+
+    The reference passes ``seq_axis`` to ``G`` blocks only and leaves a
+    sequence-sharded ring buffer (the rules shard every (B, S, K, hd)
+    cache leaf at batch 1) to XLA's partitioner.  The port has no
+    partitioner, so an ``L`` block's ring buffer (``window``) takes the same
+    combine: the slot is ``pos % cache_len`` in the whole ring's
+    coordinates (cache_len = world·S_loc), and a slot is valid up to the
+    one-rank path's ``last``.  This is where the port departs from the
+    reference's code; the result is the one-rank decode's."""
+    S_loc = cache["k"].shape[-3]
+    offset = comm.rank * S_loc
+    slot, last = _slot_and_last(pos, comm.world * S_loc, window)
+    if offset <= slot < offset + S_loc:
+        cache["k"][:, slot - offset] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot - offset] = v_new[:, 0].to(cache["v"].dtype)
+    valid = torch.arange(offset, offset + S_loc, device=q.device) <= last
+    o, m, l = kops.decode_attention_partials(q, cache["k"], cache["v"], valid)
+    m_glob = m.clone()
+    comm.all_reduce(m_glob, op=dist.ReduceOp.MAX)
+    scale = torch.exp(m - m_glob)
+    o = o * scale[..., None]
+    l = l * scale
+    comm.all_reduce(o)
+    comm.all_reduce(l)
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

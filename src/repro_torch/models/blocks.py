@@ -152,8 +152,12 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int, devi
 
 def decode_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, cache: Params,
                  pos: int, encoder_out: torch.Tensor | None = None,
-                 seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
-    """x: (B, 1, d) at position ``pos`` -> (x, new cache).  An attention
+                 seq_axis=None) -> tuple[torch.Tensor, Params]:
+    """x: (B, 1, d) at position ``pos`` -> (x, new cache).  ``seq_axis``
+    (a :class:`repro_torch.comm.sync.Comm`) makes the ``G`` and ``L``
+    caches this rank's slices of sequence-sharded ones (the reference
+    shards ``G`` only; :func:`repro_torch.models.attention.
+    decode_attention_seq_sharded` says why ``L`` too).  An attention
     block's new cache is ``cache`` itself, written in place; a recurrent
     block's holds new tensors.  A ``C`` block attends from the token to all
     of ``encoder_out``, recomputing that attention's k and v each call."""
@@ -173,7 +177,7 @@ def decode_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, cache:
     else:
         y, new_cache = attn.decode_attention(
             cfg, p["attn"], h, cache, pos, window=cfg.sliding_window if kind == "L" else None,
-            seq_axis=seq_axis if kind == "G" else None)
+            seq_axis=seq_axis if kind in ("G", "L") else None)
     x = x + y
     if kind == "C":
         x = _cross(cfg, p, x, encoder_out)

@@ -215,10 +215,12 @@ def _write_back(cache: Params, new: Params) -> None:
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Tensor,
                 pos: int, *, encoder_out: torch.Tensor | None = None,
-                seq_axis: str | None = None) -> tuple[torch.Tensor, Params]:
+                seq_axis=None) -> tuple[torch.Tensor, Params]:
     """One-token decode: token (B,) int at position ``pos`` (a Python int).
     Returns (logits (B, V) in logit_dtype, cache), the cache updated in
-    place."""
+    place.  ``seq_axis``, a :class:`repro_torch.comm.sync.Comm`, makes the
+    ``G`` and ``L`` caches this rank's slices of sequence-sharded ones
+    (:func:`repro_torch.models.attention.decode_attention_seq_sharded`)."""
     x = params["embedding"][token][:, None, :]                  # (B, 1, d)
     blocks = []
     for u in range(cfg.num_units):

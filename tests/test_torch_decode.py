@@ -120,13 +120,14 @@ class TestCaches:
             assert ring, "no ring buffer of the window's 8 slots"
 
     def test_seq_axis_and_c_blocks_raise(self):
-        """``seq_axis`` still raises; the ``C`` block's cache (ported with
-        the encoder-decoder slice) equals the reference's: its
-        self-attention kv cache only."""
+        """A mesh axis name as ``seq_axis`` raises ``TypeError``: the
+        sequence-sharded decode takes a ``Comm`` (``tests/test_torch_seq_decode.py``);
+        the ``C`` block's cache (ported with the encoder-decoder slice)
+        equals the reference's: its self-attention kv cache only."""
         jcfg, tcfg = _configs("qwen1.5-4b")
         params = TT.init_lm(tcfg, seed=0)
         cache = TT.init_cache(tcfg, 1, 4)
-        with pytest.raises(NotImplementedError, match="queue 1, item 1.4"):
+        with pytest.raises(TypeError, match="repro_torch.comm.sync.Comm"):
             TT.decode_step(tcfg, params, cache, torch.zeros(1, dtype=torch.long), 0,
                            seq_axis="data")
         jl = _jax_leaves(jblocks.init_block_cache(jcfg, "C", 1, 4))

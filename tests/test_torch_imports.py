@@ -55,7 +55,10 @@ def test_every_port_module_is_found():
                  "repro_torch.core.agreement", "repro_torch.launch.serve_sweep",
                  "repro_torch.configs.shapes", "repro_torch.kernels.cost",
                  "repro_torch.models.sharding", "repro_torch.launch.mesh",
-                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline"):
+                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                 "repro_torch.kernels.chunked_attention", "repro_torch.examples.train_e2e",
+                 "repro_torch.launch.seq_decode",
+                 "repro_torch.examples.framework_comparison"):
         assert must in names
 
 

@@ -1,6 +1,9 @@
 """The port's copies of the DAG model's sweep modules pinned ``==`` to the
 reference's (``repro.core.{hardware,analytical,bucketsim,het,costmodel,
-archcost,workloads,scenarios,batched}``, ``repro.traces.bundled``), their torch paths held to the NumPy ones, the
+archcost,workloads,scenarios,batched}``, ``repro.traces.bundled``, the
+DAG's graph queries), their torch paths held to the NumPy ones, the
+framework-comparison twin's rows and printout against
+``examples/framework_comparison.py``, the
 ``torch:`` workload provider against the reference's ``trace:`` on a trace
 the port's measurement wrote, and the torch twin of the WFBP prefix-max
 residual against both reference forms."""
@@ -476,3 +479,138 @@ class TestTorchProvider:
         os.utime(path, ns=(1, os.stat(path).st_mtime_ns + 10**9))
         second = tworkloads.resolve_workload("torch:qwen1.5-4b")
         assert second is not first and second.batch_default == 4
+
+
+class TestLastCopies:
+    """The copies that no port path called until the framework-comparison
+    twin: Eqs. (1) and (6), ``iteration_time``, the reduce-scatter /
+    all-gather / all-to-all times, ``total_flops``,
+    ``make_iteration_costs`` and the DAG's graph queries, each ``==`` the
+    original on seeded inputs."""
+
+    def _costs(self, rng):
+        L = int(rng.integers(1, 12))
+        return dict(t_f=list(rng.uniform(0, 1, L)), t_b=list(rng.uniform(0, 1, L)),
+                    t_c=list(rng.uniform(0, 1, L) * (rng.uniform(size=L) < 0.6)),
+                    t_io=float(rng.uniform(0, 3)), t_h2d=float(rng.uniform(0, 1)),
+                    t_u=float(rng.uniform(0, 1)))
+
+    @pytest.mark.parametrize("seed", range(3))
+    def test_eq1_eq6_and_iteration_time_equal_reference(self, seed):
+        rng = np.random.default_rng(100 + seed)
+        for _ in range(20):
+            kw, kw1 = self._costs(rng), self._costs(rng)
+            tc, jc = tdag.IterationCosts(**kw), jdag.IterationCosts(**kw)
+            assert tanalytical.eq1_sgd_iteration(tc) == janalytical.eq1_sgd_iteration(jc)
+            n = int(rng.integers(1, 65))
+            assert tanalytical.eq6_speedup(tdag.IterationCosts(**kw1), tc, n) == \
+                janalytical.eq6_speedup(jdag.IterationCosts(**kw1), jc, n)
+            for name, p in jpolicies.ALL_POLICIES.items():
+                if janalytical.closed_form(jc, p) is None:
+                    with pytest.raises(ValueError, match="no exact closed form"):
+                        tanalytical.iteration_time(tc, name)
+                    with pytest.raises(ValueError, match="no exact closed form"):
+                        janalytical.iteration_time(jc, name)
+                else:
+                    assert tanalytical.iteration_time(tc, name) == \
+                        janalytical.iteration_time(jc, name)
+
+    def test_eq6_with_no_time_gives_the_worker_count(self):
+        zero = dict(t_f=[0.0], t_b=[0.0], t_c=[0.0], t_io=0.0, t_h2d=0.0, t_u=0.0)
+        assert tanalytical.eq6_speedup(tdag.IterationCosts(**zero),
+                                       tdag.IterationCosts(**zero), 8) == \
+            janalytical.eq6_speedup(jdag.IterationCosts(**zero),
+                                    jdag.IterationCosts(**zero), 8) == 8.0
+
+    @pytest.mark.parametrize("cluster", sorted(jhw.CLUSTERS))
+    def test_collective_times_equal_reference(self, cluster):
+        rng = np.random.default_rng(len(cluster))
+        tcl, jcl = thw.CLUSTERS[cluster], jhw.CLUSTERS[cluster]
+        for fn in ("reduce_scatter_time", "allgather_time", "alltoall_time"):
+            for n in (None, 0, 1, 2, 3, 4, 8, 16, 64, 512):
+                nbytes = float(rng.uniform(1.0, 1e9))
+                assert getattr(tcl, fn)(nbytes, n) == getattr(jcl, fn)(nbytes, n), (fn, n)
+
+    @pytest.mark.parametrize("name", ["alexnet", "googlenet", "resnet50"])
+    def test_total_flops_and_make_iteration_costs_equal_reference(self, name):
+        tlayers = getattr(tcostmodel, f"{name}_layers")()
+        jlayers = getattr(jcostmodel, f"{name}_layers")()
+        assert tcostmodel.total_flops(tlayers) == jcostmodel.total_flops(jlayers)
+        rng = np.random.default_rng(7)
+        for cluster in sorted(jhw.CLUSTERS):
+            for collective in jhw.COLLECTIVE_ALGORITHMS:
+                n, batch = int(rng.integers(1, 33)), int(rng.integers(1, 129))
+                kw = dict(batch_per_gpu=batch, n_workers=n, collective=collective,
+                          decode_seconds_per_byte=float(rng.uniform(0, 1e-8)))
+                for extra in ({}, {"bytes_per_sample": 3e5, "bwd_fwd_ratio": 2.5}):
+                    got = tcostmodel.make_iteration_costs(tlayers, thw.CLUSTERS[cluster],
+                                                          **kw, **extra)
+                    want = jcostmodel.make_iteration_costs(jlayers, jhw.CLUSTERS[cluster],
+                                                           **kw, **extra)
+                    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+                got = tcostmodel.make_iteration_costs(f"cnn:{name}", thw.CLUSTERS[cluster],
+                                                      **kw)
+                want = jcostmodel.make_iteration_costs(f"cnn:{name}", jhw.CLUSTERS[cluster],
+                                                       **kw)
+                for f in dataclasses.fields(want):
+                    _equal(getattr(got, f.name), getattr(want, f.name))
+
+    @pytest.mark.parametrize("policy", ["cntk", "caffe-mpi", "bucketed-25mb", "priority"])
+    def test_dag_queries_equal_reference(self, policy):
+        rng = np.random.default_rng(3)
+        kw = self._costs(rng)
+        t = tdag.build_ssgd_dag(tdag.IterationCosts(**kw), 3,
+                                tpolicies.ALL_POLICIES[policy], n_iterations=3)
+        j = jdag.build_ssgd_dag(jdag.IterationCosts(**kw), 3,
+                                jpolicies.ALL_POLICIES[policy], n_iterations=3)
+        assert len(t) == len(j) > 0
+        assert t.sources() == j.sources() and t.sinks() == j.sinks()
+        assert t.topo_order() == j.topo_order()
+        assert t.critical_path() == j.critical_path()
+        assert t.total_work() == j.total_work()
+
+    def test_topo_order_refuses_a_cycle(self):
+        for mod in (tdag, jdag):
+            g = mod.DAG()
+            a = g.add_task("fwd", mod.TaskKind.COMPUTE, 1.0, "gpu0")
+            b = g.add_task("bwd", mod.TaskKind.COMPUTE, 1.0, "gpu0")
+            g.add_edge(a, b)
+            g.add_edge(b, a)
+            with pytest.raises(ValueError, match="cycle"):
+                g.topo_order()
+
+
+class TestFrameworkComparisonTwin:
+    def test_rows_and_printout_equal_reference(self, capsys):
+        """The twin's 150 rows (torch backend, ``device="cpu"``) against the
+        reference's ``sweep(grid)``: labels exact, numbers within 1e-6
+        relative / 1e-12 absolute (``tests/test_torch_sweep.py``); its
+        printed tables and findings line for line, but the timing line."""
+        import importlib.util
+
+        from repro_torch.examples import framework_comparison as twin
+
+        got = twin.run("cpu")
+        port_out = capsys.readouterr().out.splitlines()
+        spec = importlib.util.spec_from_file_location(
+            "reference_framework_comparison", ROOT / "examples" / "framework_comparison.py")
+        ref = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(ref)
+        ref.main()
+        ref_out = capsys.readouterr().out.splitlines()
+        want = jsweep.sweep(jscen.ScenarioGrid(
+            workloads=ref.WORKLOADS, clusters=ref.CLUSTERS,
+            worker_counts=(1, 2, 4, 8, 16), policies=ref.POLICIES))
+        assert len(got) == len(want) == 150
+        assert got.backend == "torch"
+        assert (got.n_analytical, got.n_timeline, got.n_simulated) == \
+            (want.n_analytical, want.n_timeline, want.n_simulated)
+        assert set(got.columns) == set(want.columns)
+        for key, col in want.columns.items():
+            a, b = np.asarray(got.columns[key]), np.asarray(col)
+            if b.dtype.kind == "f":
+                np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-12, err_msg=key)
+            else:
+                assert a.tolist() == b.tolist(), key
+        assert port_out[0].startswith("swept 150 scenarios in ")
+        assert port_out[1:] == ref_out[1:]
