@@ -191,10 +191,24 @@ Phases, in order; any failure ends the script with a non-zero code:
    token, which must equal the dry run's ``long_500k`` / ``dp8`` record for
    the arch; recurrentgemma-2b's sharded decodes must launch ``rglru_fwd``
    at one token;
-20. print the ``kernels`` line (launches: the six measurements', the
+20. the sharded step (zero3): ``repro_torch.launch.sharded_step`` on 2 gloo
+   ranks of this card on ``dp2`` under ``zero3``, bfloat16, 2 x 1024 tokens
+   a rank, SGD with momentum 0.9, remat, for recurrentgemma-2b at one
+   ``RRL`` unit of its published widths and rwkv6-1.6b at one layer: each
+   rank holds its shards of the parameters and momentum, gathers a unit's
+   when it runs and reduce-scatters its gradients; the gathered parameters
+   and momentum against the ``pure_dp`` step from the same parameters and
+   batch leaf by leaf within ``MOMENTUM_RTOL`` of each leaf's scale, the
+   loss and ``grad_norm`` too; the control, which skips the division by the
+   world size, beyond it; the collectives' calls and bytes by op equal to
+   the dry run's (``repro_torch.launch.dryrun.lower`` of the same config,
+   mesh and mode) and rank 0's peak within ``DRYRUN_PEAK_RTOL`` of its
+   arguments + temporaries; both archs' kernels launched;
+21. print the ``kernels`` line (launches: the six measurements', the
    validation's, the float32 decode's, the training launcher's, the
-   encoder-decoder phase's, the dry-run phase's real steps, train_e2e's and
-   the sequence-sharded decode's), then the ``ok`` line last.
+   encoder-decoder phase's, the dry-run phase's real steps, train_e2e's,
+   the sequence-sharded decode's and the sharded step's), then the ``ok``
+   line last.
 
 A failing phase prints ``== <phase>: FAILED`` and its traceback on stdout
 before the script exits non-zero.
@@ -2558,6 +2572,60 @@ def seq_decode_on_card(card: str) -> dict:
     return launches
 
 
+#: the sharded step's archs at the per-rank shapes of the dry-run phase, and
+#: the kernels each must launch
+SHARDED_ARCHS = {"recurrentgemma-2b": (3, ("rglru_fwd", "rglru_bwd", "flash_fwd",
+                                           "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
+                 "rwkv6-1.6b": (1, ("wkv6_fwd", "wkv6_bwd"))}
+
+
+@phase("sharded step (zero3)")
+def sharded_step_on_card(card: str) -> dict:
+    """``repro_torch.launch.sharded_step`` on 2 gloo ranks of this card for
+    ``SHARDED_ARCHS`` (module docstring, item 20).  Returns both ranks'
+    launches of the zero3 steps."""
+    from repro_torch.launch import sharded_step
+
+    jobs = [{"arch": arch, "num_layers": layers, "sizes": {"data": 2}, "mode": "zero3",
+             "global_batch": 2 * DRYRUN_BATCH, "seq_len": DRYRUN_SEQ, "accum_steps": 1,
+             "remat": True} for arch, (layers, _) in SHARDED_ARCHS.items()]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        results = sharded_step.run(jobs, 2, "cuda", out)
+    print(f"  {card}; 2 gloo ranks in {time.perf_counter() - t0:.1f} s (spawn, three steps "
+          "an arch, gathers, the dry runs)", flush=True)
+    launches: dict[str, int] = {}
+    failed = []
+    for job, (ranks, dry, bad) in zip(jobs, results):
+        arch = job["arch"]
+        mem = dry["memory"]
+        predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        print(f"  {arch:18s} dry run ({job['num_layers']} layers, dp2, zero3): "
+              f"{mem['argument_bytes']} B arguments + {mem['temp_bytes']} B temporaries = "
+              f"{predicted} B; collectives {dry['collectives']['count_by_op']} calls, "
+              f"{dry['collectives']['bytes_by_op']} B", flush=True)
+        for res in ranks:
+            print(f"  {arch:18s} rank {res['rank']} ({res['dtype']}): loss "
+                  f"{res['metrics']['loss']:.6f} (pure_dp {res['pure_dp_metrics']['loss']:.6f}), "
+                  f"grad_norm {res['metrics']['grad_norm']:.6f} (pure_dp "
+                  f"{res['pure_dp_metrics']['grad_norm']:.6f}, {res['norm_err']:.3e}); worst "
+                  f"parameter {res['params_err']:.3e} ({res['params_where']}), momentum "
+                  f"{res['mom_err']:.3e} ({res['mom_where']}), control "
+                  f"{res['control_mom_err']:.3e}; momentum bit for bit pure_dp's: "
+                  f"{res['bitwise']}; peak {res['peak']} B, ratio to the dry run "
+                  f"{res['peak'] / predicted:.4f}; collectives {res['count_by_op']} calls, "
+                  f"{res['bytes_by_op']} B; launches {res['launches']}", flush=True)
+            missing = [k for k in SHARDED_ARCHS[arch][1] if not res["launches"].get(k)]
+            if missing:
+                bad.append(f"rank {res['rank']}: kernels not launched {missing}")
+            for name, n in res["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+        failed += [f"{arch}: {b}" for b in bad]
+    if failed:
+        raise SystemExit(f"sharded step: {failed}")
+    return launches
+
+
 def check_measurement(doc: dict, trace_text: str) -> None:
     """The repository's own checks on a measured run: finite positive
     times, the trace's layer rows, the counted all-reduce bytes equal to
@@ -2648,7 +2716,8 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
     remat_and_accumulation()
     for phase_launches in (encdec_on_card(card), dryrun_vs_card(card),
-                           train_e2e_on_card(card), seq_decode_on_card(card)):
+                           train_e2e_on_card(card), seq_decode_on_card(card),
+                           sharded_step_on_card(card)):
         for name, n in phase_launches.items():
             launches[name] = launches.get(name, 0) + n
     line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),

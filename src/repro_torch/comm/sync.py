@@ -15,12 +15,13 @@ Counterpart of :mod:`repro.comm.sync`:
   ``bucket_bytes``, in :func:`repro_torch.models.transformer.leaf_order`
   (the reference's leaf order), one all-reduce per bucket.
 
-Every all-reduce of the port goes through :meth:`Comm.all_reduce`, which
-counts the bytes it hands over — the port's counterpart of the
-reference's HLO collective-bytes harvest (``launch/hlo.py``).
+Every collective of the port goes through :class:`Comm`, which counts the
+bytes of each op's result — the port's counterpart of the reference's HLO
+collective-bytes harvest (``launch/hlo.py``, which counts the result type).
 """
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass, field
 
 import torch
@@ -37,12 +38,23 @@ DEFAULT_BUCKET_BYTES = 25e6
 
 @dataclass
 class Comm:
-    """A process group plus a plain-integer count of the bytes (and calls)
-    handed to ``all_reduce`` through it."""
+    """A process group plus plain-integer counts, by op (``all-reduce``,
+    ``all-gather``, ``reduce-scatter``), of the calls made through it and of
+    their results' bytes: the reduced tensor, the gathered tensor, the
+    rank's shard.  :meth:`on` gives a ``Comm`` on another group that adds
+    to the same counts."""
 
     group: object = None
-    bytes: int = 0
-    calls: int = 0
+    bytes_by_op: Counter = field(default_factory=Counter)
+    count_by_op: Counter = field(default_factory=Counter)
+
+    @property
+    def bytes(self) -> int:
+        return sum(self.bytes_by_op.values())
+
+    @property
+    def calls(self) -> int:
+        return sum(self.count_by_op.values())
 
     @property
     def world(self) -> int:
@@ -52,17 +64,52 @@ class Comm:
     def rank(self) -> int:
         return dist.get_rank(self.group)
 
+    def on(self, group) -> "Comm":
+        return type(self)(group, self.bytes_by_op, self.count_by_op)
+
     def reset(self) -> None:
-        self.bytes = 0
-        self.calls = 0
+        self.bytes_by_op.clear()
+        self.count_by_op.clear()
+
+    def _count(self, op: str, result: torch.Tensor) -> None:
+        self.bytes_by_op[op] += result.numel() * result.element_size()
+        self.count_by_op[op] += 1
 
     def all_reduce(self, t: torch.Tensor, async_op: bool = False,
                    op=dist.ReduceOp.SUM):
         """Reduce ``t`` in place over the group (a sum unless ``op`` says
-        otherwise); counts its bytes."""
-        self.bytes += t.numel() * t.element_size()
-        self.calls += 1
+        otherwise)."""
+        self._count("all-reduce", t)
         return dist.all_reduce(t, op=op, group=self.group, async_op=async_op)
+
+    def all_gather(self, shard: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The group's shards concatenated along ``dim`` in group-rank order
+        (a new tensor)."""
+        n = self.world
+        out = shard.new_empty((n * shard.shape[0], *shard.shape[1:]))
+        self._count("all-gather", out)
+        dist.all_gather_into_tensor(out, shard.contiguous(), group=self.group)
+        if dim == 0:
+            return out
+        shape = list(shard.shape)
+        shape[dim] *= n
+        return out.view(n, *shard.shape).movedim(0, dim).reshape(shape)
+
+    def reduce_scatter(self, full: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of ``full`` over the
+        group (a new tensor)."""
+        n = self.world
+        if full.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split {n} ways")
+        shape = list(full.shape)
+        shape[dim] //= n
+        if dim:     # the blocks along dim made the leading blocks of dim 0
+            full = full.unflatten(dim, (n, shape[dim])).movedim(dim, 0).reshape(
+                n * shape[0], *shape[1:])
+        out = full.new_empty(shape)
+        self._count("reduce-scatter", out)
+        dist.reduce_scatter_tensor(out, full.contiguous(), group=self.group)
+        return out
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """Mean of ``t`` over the group (a new tensor)."""

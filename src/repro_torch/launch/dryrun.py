@@ -1,10 +1,11 @@
-"""Shape-only dry run: lower each (arch x input shape x data-parallel mesh)
-step on fake tensors and record its memory, FLOPs and collectives.
+"""Shape-only dry run: lower each (arch x input shape x mesh x mode) step on
+fake tensors and record its memory, FLOPs and collectives.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-4b \\
-        --shape train_4k [--ranks N] [--mode pure_dp] [--policy at_end] \\
-        [--no-remat] [--accum-steps K] [--out-dir results/dryrun_torch]
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--missing-only]
+        --shape train_4k [--ranks N | --mesh {16x16,2x16x16}] [--mode pure_dp] \\
+        [--policy at_end] [--no-remat] [--accum-steps K] [--out-dir results/dryrun_torch]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh production] \\
+        [--mode zero3] [--missing-only]
 
 Counterpart of :mod:`repro.launch.dryrun`, which lowers and compiles on 512
 placeholder host devices.  Here the port's own step (``make_train_step``,
@@ -21,26 +22,34 @@ device stream, and a torch without CUDA has no stream to give for a CUDA
 tensor.  Both take the kernel path
 (:func:`repro_torch.kernels.build.on_kernel_path`) and count alike.
 
-**Which mesh.** The port runs data parallelism only (the paper's S-SGD,
-:mod:`repro_torch.comm.sync`), on the 1-D ``("data",)`` mesh of
-:func:`repro_torch.launch.mesh.dp_mesh_sizes`.  There the reference's own
-rules (:mod:`repro_torch.models.sharding`, ``pure_dp``) replicate every
-parameter and split the batch over the ranks where it divides (else it
-stays replicated: ``prefill_32k``'s 32 rows on 256 ranks), so the lowered
-program is one rank's.  The reference's 2-D meshes (``16x16``,
-``2x16x16``) and its ``fsdp`` / ``fsdp2d`` / ``zero3`` modes need a model
-axis (tensor or expert parallelism) or a per-layer parameter gather, which
-the port does not run: they raise ``NotImplementedError``.  Where the
-rules shard a decode cache's sequence axis (``long_500k``, batch 1, on more
-than one rank), a rank's ``G`` and ``L`` cache leaves are its local slices
-(sequence length S / N) and the serve step runs the sequence-sharded decode
+**Which mesh and mode.** ``pure_dp`` runs on the 1-D ``("data",)`` mesh of
+:func:`repro_torch.launch.mesh.dp_mesh_sizes` (the paper's S-SGD,
+:mod:`repro_torch.comm.sync`): the reference's rules
+(:mod:`repro_torch.models.sharding`) replicate every parameter and split
+the batch over the ranks where it divides (else it stays replicated:
+``prefill_32k``'s 32 rows on 256 ranks); at N > 1 ranks a train step's
+gradients go through :func:`repro_torch.comm.sync.sync_gradients`.
+``zero3`` and ``fsdp2d`` run on ``dp<N>`` and on the reference's
+production meshes ``16x16`` and ``2x16x16`` (``--mesh``; ``--all --mesh
+production`` lowers every pair on both), with the sharded-parameter
+runtime of :mod:`repro_torch.comm.sharded`: the lowered rank, coordinate 0,
+holds its shards of the parameters and momentum by the rules, gathers each
+unit's when it runs and reduce-scatters the gradients.  A rank's batch is
+the global batch over the product of the mesh axes of the batch's spec
+(``zero3`` splits it over the whole mesh where it divides, ``fsdp2d`` over
+``pod`` and ``data``).  ``fsdp``, and ``pure_dp`` on a mesh with a ``model``
+axis, put tensor and expert parallelism on that axis, which the port does
+not run yet: they raise ``NotImplementedError`` (ROADMAP queue 1, item 15).
+Every collective goes to a ``"fake"`` process group of the mesh's ranks
+(:func:`repro_torch.launch.mesh.fake_process_group`, sub-groups from
+:func:`repro_torch.launch.mesh.mesh_groups`).  Where the rules shard a
+decode cache's sequence axis (``long_500k``, batch 1: over ``data``), a
+rank's ``G`` and ``L`` cache leaves are its local slices and the serve step
+runs the sequence-sharded decode
 (:func:`repro_torch.models.attention.decode_attention_seq_sharded`) with a
-:class:`repro_torch.comm.sync.Comm` on the fake process group, so the
+:class:`repro_torch.comm.sync.Comm` on the group of that axis, so the
 record's ``collectives`` count its combine: three all-reduces a sharded
-layer.  At N > 1 ranks a
-train step's gradients go through
-:func:`repro_torch.comm.sync.sync_gradients` on a ``"fake"`` process group
-of N ranks (:func:`repro_torch.launch.mesh.fake_process_group`).
+layer.
 
 **The record** keeps the reference's keys: ``memory`` (``argument_bytes``:
 the rank's parameters, optimizer state, batch and cache, from the
@@ -50,16 +59,17 @@ sharding specs and :func:`repro_torch.models.sharding.shard_shape`;
 ``generated_code_bytes`` null), ``cost_analysis`` (``flops`` from
 ``FlopCounterMode`` over the whole step, the kernels by their FLOP
 formulas, every layer counted: ``while_body_counted_once`` false;
-``bytes_accessed`` null), ``collectives`` (bytes and calls handed to
-:class:`repro_torch.comm.sync.Comm`, in the layout of the reference's
-``CollectiveStats.to_dict()``) and ``analytic``
+``bytes_accessed`` null), ``collectives`` (the calls and result bytes
+handed to :class:`repro_torch.comm.sync.Comm`, by op, in the layout of the
+reference's ``CollectiveStats.to_dict()``) and ``analytic``
 (:func:`repro_torch.core.archcost.step_cost`); ``compile_s`` is null.
 Beside them: ``kernel_calls`` (calls per kernel operator) and ``device``.
 
 The reference's ``launch/hlo.py`` has no counterpart (there is no HLO:
 the collectives are counted at ``Comm``), nor its ``donate`` (the port's
 optimizer updates in place).  Records go to ``results/dryrun_torch/``
-(``<arch>__<shape>__dp<N>.json``), never over the reference's
+(``<arch>__<shape>__<mesh>.json``, ``__<mode>`` before the suffix for a
+mode other than ``pure_dp``), never over the reference's
 ``results/dryrun/``.
 """
 from __future__ import annotations
@@ -68,6 +78,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -84,10 +95,12 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.comm import sync as S
+from repro_torch.comm.sharded import ShardedHook
 from repro_torch.configs import ARCH_IDS, SHAPES, InputShape, dryrun_matrix, get_config
 from repro_torch.core import archcost
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import dp_mesh_sizes, fake_process_group, mesh_label
+from repro_torch.launch.mesh import (PRODUCTION_MESHES, dp_mesh_sizes, fake_process_group,
+                                     mesh_groups, mesh_label)
 from repro_torch.models import sharding as shd
 from repro_torch.models import transformer as T
 from repro_torch.models.sharding import MODES
@@ -169,34 +182,51 @@ def _spec_bytes(tree, specs, sizes) -> int:
     return total
 
 
-def _seq_sharded(cache_specs) -> list[str]:
-    """Key paths of the k / v cache leaves whose sequence dim is sharded."""
-    return ["/".join(map(str, path)) for path, spec in T.leaf_order(cache_specs)
-            if path[-1] in ("k", "v") and spec[-3] is not None]
+def _seq_axes(cache_specs, sizes) -> tuple[str, ...]:
+    """The mesh axes the k / v cache leaves' sequence dim is split over
+    (``()`` where it is not).  Raises where some leaves are split and
+    others not, or over different axes: the sequence-sharded decode takes
+    every ``G`` and ``L`` cache split over one group."""
+    found = {path: shd.entry_axes(spec[-3]) for path, spec in T.leaf_order(cache_specs)
+             if path[-1] in ("k", "v")}
+    split = {a for a in found.values() if math.prod(sizes[x] for x in a) > 1}
+    if not split:
+        return ()
+    if len(split) > 1 or len(set(found.values())) > 1:
+        raise NotImplementedError(
+            "the rules split the sequence axis of some decode cache leaves and not of "
+            f"others, or over different axes ({found}): the sequence-sharded decode "
+            "takes every G and L cache split over one group")
+    return split.pop()
 
 
-def dryrun_one(arch: str, shape_name: str, *, ranks: int = 1, mode: str = "pure_dp",
+def dryrun_one(arch: str, shape_name: str, *, ranks: int = 1,
+               mesh: dict[str, int] | None = None, mode: str = "pure_dp",
                policy: str = "at_end", remat: bool = True, accum_steps: int = 1,
                device: str | None = None, num_layers: int | None = None) -> dict:
-    """The record of one lowering (module docstring).  ``num_layers`` cuts
-    the depth (the tests lower one unit); ``device`` defaults to
+    """The record of one lowering (module docstring) on ``mesh`` (``{axis:
+    size}``; default the ``dp<ranks>`` mesh).  ``num_layers`` cuts the depth
+    (the tests lower one unit); ``device`` defaults to
     :func:`lowering_device`.  Raises ``NotImplementedError`` for a mode the
-    port does not run."""
+    port does not run on that mesh (:func:`check_mode`)."""
     t_start = time.time()
-    check_mode(mode)
+    sizes = dict(mesh) if mesh is not None else dp_mesh_sizes(ranks)
+    check_mode(mode, sizes)
     cfg = get_config(arch)
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers).validate()
     shape = SHAPES[shape_name]
     device = device or lowering_device()
+    world = math.prod(sizes.values())
     record: dict = {
-        "arch": arch, "shape": shape_name, "mesh": mesh_label(dp_mesh_sizes(ranks)),
-        "mode": mode, "remat": remat, "accum_steps": accum_steps, "n_devices": ranks,
-        "status": "ok", "policy": policy if shape.kind == "train" and ranks > 1 else None,
+        "arch": arch, "shape": shape_name, "mesh": mesh_label(sizes),
+        "mode": mode, "remat": remat, "accum_steps": accum_steps, "n_devices": world,
+        "status": "ok",
+        "policy": policy if shape.kind == "train" and world > 1 and mode == "pure_dp" else None,
         "device": device, **({"num_layers": cfg.num_layers} if num_layers is not None else {}),
     }
     try:
-        record.update(lower(cfg, shape, ranks=ranks, policy=policy, remat=remat,
+        record.update(lower(cfg, shape, mesh=sizes, mode=mode, policy=policy, remat=remat,
                             accum_steps=accum_steps, device=device))
         cost = archcost.step_cost(cfg, shape)
         record["analytic"] = {
@@ -212,26 +242,41 @@ def dryrun_one(arch: str, shape_name: str, *, ranks: int = 1, mode: str = "pure_
     return record
 
 
-def check_mode(mode: str) -> None:
-    if mode != "pure_dp":
+def check_mode(mode: str, sizes: dict[str, int] | None = None) -> None:
+    """Raise ``NotImplementedError`` for ``fsdp``, and for ``pure_dp`` on a
+    mesh with a ``model`` axis: both put tensor and expert parallelism on
+    that axis.  ``zero3`` and ``fsdp2d`` run on every mesh, ``pure_dp`` on
+    ``dp<N>``."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+    if mode == "fsdp" or (mode == "pure_dp" and "model" in (sizes or {})):
+        where = f" on the {mesh_label(sizes)} mesh" if mode == "pure_dp" else ""
         raise NotImplementedError(
-            f"mode {mode!r} shards parameters or needs a model axis (tensor or expert "
-            "parallelism, a per-layer parameter gather); the port runs data parallelism "
-            "only: use pure_dp")
+            f"mode {mode!r}{where} puts tensor and expert parallelism on the model axis, "
+            "which the port does not run yet (ROADMAP queue 1, item 15): use zero3 or "
+            "fsdp2d, or pure_dp on dp<N>")
 
 
-def lower(cfg, shape: InputShape, *, ranks: int = 1, policy: str = "at_end",
-          remat: bool = True, accum_steps: int = 1, device: str | None = None) -> dict:
-    """One rank's step for ``cfg`` at ``shape`` on the ``dp<ranks>`` mesh
-    (``pure_dp``), lowered on fake tensors of ``device``: the record's
-    ``lower_s``, ``compile_s``, ``memory``, ``cost_analysis``, ``collectives``
-    and ``kernel_calls``.  The step is the train step with SGD (lr 1e-2,
-    momentum 0.9), the prefill step or the serve step, by ``shape.kind``."""
+def lower(cfg, shape: InputShape, *, ranks: int = 1, mesh: dict[str, int] | None = None,
+          mode: str = "pure_dp", policy: str = "at_end", remat: bool = True,
+          accum_steps: int = 1, device: str | None = None) -> dict:
+    """One rank's step for ``cfg`` at ``shape`` on ``mesh`` (default
+    ``dp<ranks>``) under ``mode``, lowered at coordinate 0 on fake tensors
+    of ``device`` holding that rank's shards: the record's ``lower_s``,
+    ``compile_s``, ``memory``, ``cost_analysis``, ``collectives`` and
+    ``kernel_calls``.  The step is the train step with SGD (lr 1e-2,
+    momentum 0.9), the prefill step or the serve step, by ``shape.kind``;
+    under ``zero3`` and ``fsdp2d`` it runs with the sharded-parameter
+    runtime (:class:`repro_torch.comm.sharded.ShardedHook`).  A rank's
+    batch is the global batch over the product of the mesh axes of the
+    batch's spec."""
     if policy not in POLICIES:
         raise ValueError(f"unknown gradient-sync policy {policy!r}; one of {POLICIES}")
     device = device or lowering_device()
-    sizes = dp_mesh_sizes(ranks)
-    sc = shd.ShardingConfig(mesh_axes=tuple(sizes), mode="pure_dp")
+    sizes = dict(mesh) if mesh is not None else dp_mesh_sizes(ranks)
+    check_mode(mode, sizes)
+    world = math.prod(sizes.values())
+    sc = shd.ShardingConfig(mesh_axes=tuple(sizes), mode=mode)
     # global shapes (meta, no storage) -> specs -> one rank's bytes
     gparams = steps_mod.init_params(cfg, device="meta")
     gbatch = steps_mod.input_specs(cfg, shape, device="meta")
@@ -242,26 +287,23 @@ def lower(cfg, shape: InputShape, *, ranks: int = 1, policy: str = "at_end",
     arg_bytes = _spec_bytes(gparams, pspecs, sizes) + _spec_bytes(gbatch, bspecs, sizes)
     if shape.kind == "train":   # the f32 momentum has the parameters' specs
         arg_bytes += _spec_bytes(T.map_leaves(lambda _, t: t.float(), gparams), pspecs, sizes)
-    sharded = _seq_sharded(bspecs["cache"]) if shape.kind == "decode" else []
-    kv_leaves = [p for p, _ in T.leaf_order(gbatch.get("cache", {})) if p[-1] in ("k", "v")]
-    if sharded and len(sharded) != len(kv_leaves):
-        raise NotImplementedError(
-            f"the rules shard the sequence axis of some decode cache leaves over {ranks} "
-            f"ranks ({', '.join(sharded)}) and not of others: the sequence-sharded decode "
-            "takes every G and L cache sharded")
-    lead = bspecs["token" if shape.kind == "decode" else "tokens"][0]
-    batch = shape.global_batch // (ranks if lead is not None else 1)
+    seq_axes = _seq_axes(bspecs["cache"], sizes) if shape.kind == "decode" else ()
+    batch_axes = shd.entry_axes(bspecs["token" if shape.kind == "decode" else "tokens"][0])
+    batch = shape.global_batch // math.prod(sizes[a] for a in batch_axes)
 
-    mode = FakeTensorMode()
-    params = steps_mod.params_shape(cfg, device, mode)
-    data = steps_mod.input_specs(cfg, shape, device, mode, batch=batch)
-    if sharded:     # this rank's slice of every cache leaf, by its spec
-        with mode:
-            data["cache"] = T.map_leaves(
-                lambda path, t: torch.empty(
-                    shd.shard_shape(t.shape, T.get_path(bspecs["cache"], path), sizes),
-                    dtype=t.dtype, device=device), gbatch["cache"])
-    with mode:
+    fake = FakeTensorMode()
+
+    def local(tree, specs):     # this rank's slice of every leaf, by its spec
+        with fake:
+            return T.map_leaves(lambda path, t: torch.empty(
+                shd.shard_shape(t.shape, T.get_path(specs, path), sizes), dtype=t.dtype,
+                device=device), tree)
+
+    params = local(gparams, pspecs)
+    data = steps_mod.input_specs(cfg, shape, device, fake, batch=batch)
+    if seq_axes:
+        data["cache"] = local(gbatch["cache"], bspecs["cache"])
+    with fake:
         opt = sgd(lr=1e-2, momentum=0.9)
         opt_state = opt.init(params) if shape.kind == "train" else None
     args = (params, opt_state, data)
@@ -271,20 +313,24 @@ def lower(cfg, shape: InputShape, *, ranks: int = 1, policy: str = "at_end",
     if shape.kind == "decode":
         data = {**data, "pos": shape.seq_len - 1}     # the step takes a Python int
     comm = S.Comm()
+    groups = mesh_groups(sizes, 0)
+    hook = None if mode == "pure_dp" else ShardedHook(pspecs, groups, batch_axes, comm)
     lowering = Lowering()
-    with fake_process_group(ranks) if ranks > 1 else contextlib.nullcontext(), mode:
+    with fake_process_group(world) if world > 1 else contextlib.nullcontext(), fake:
         lowering.own(args)
         t0 = time.time()
         with FlopCounterMode(display=False) as flops, lowering:
             if shape.kind == "train":
-                sync = (lambda g: S.sync_gradients(g, policy, comm)) if ranks > 1 else None
-                step = steps_mod.make_train_step(cfg, opt, remat=remat,
-                                                 accum_steps=accum_steps, grad_sync=sync)
+                sync = (lambda g: S.sync_gradients(g, policy, comm)) \
+                    if world > 1 and hook is None else None
+                step = steps_mod.make_train_step(cfg, opt, remat=remat, accum_steps=accum_steps,
+                                                 grad_sync=sync, sharded=hook)
                 out = step(params, opt_state, data)
             elif shape.kind == "prefill":
-                out = steps_mod.make_prefill_step(cfg)(params, data)
+                out = steps_mod.make_prefill_step(cfg, sharded=hook)(params, data)
             else:
-                out = steps_mod.make_serve_step(cfg, seq_axis=comm if sharded else None)(
+                seq_axis = comm.on(groups.group(seq_axes)) if seq_axes else None
+                out = steps_mod.make_serve_step(cfg, seq_axis=seq_axis, sharded=hook)(
                     params, data)
         lower_s = time.time() - t0
     arg_ids = _storage_ids(args)
@@ -299,14 +345,17 @@ def lower(cfg, shape: InputShape, *, ranks: int = 1, policy: str = "at_end",
         "cost_analysis": {"flops": flops.get_total_flops(), "bytes_accessed": None,
                           "while_body_counted_once": False},
         "collectives": {"total_bytes": comm.bytes, "total_count": comm.calls,
-                        "bytes_by_op": {"all-reduce": comm.bytes} if comm.calls else {},
-                        "count_by_op": {"all-reduce": comm.calls} if comm.calls else {}},
+                        "bytes_by_op": dict(sorted(comm.bytes_by_op.items())),
+                        "count_by_op": dict(sorted(comm.count_by_op.items()))},
         "kernel_calls": dict(sorted(lowering.kernel_calls.items())),
     }
 
 
-def result_path(arch: str, shape: str, ranks: int, out_dir: Path) -> Path:
-    return out_dir / f"{arch}__{shape}__dp{ranks}.json"
+def result_path(arch: str, shape: str, mesh: str, out_dir: Path,
+                mode: str = "pure_dp") -> Path:
+    """``<arch>__<shape>__<mesh>.json``, with ``__<mode>`` before the
+    suffix for a mode other than ``pure_dp``."""
+    return out_dir / f"{arch}__{shape}__{mesh}{'' if mode == 'pure_dp' else '__' + mode}.json"
 
 
 def main(argv=None) -> int:
@@ -316,6 +365,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", choices=tuple(SHAPES))
     ap.add_argument("--ranks", type=int, default=1,
                     help="data-parallel ranks (the mesh dp<N>); default 1, one card")
+    ap.add_argument("--mesh", choices=(*PRODUCTION_MESHES, "production"),
+                    help="one of the reference's production meshes instead of dp<N>; "
+                         "'production' (with --all): both")
     ap.add_argument("--all", action="store_true",
                     help="run the full matrix, each pair in a subprocess")
     ap.add_argument("--missing-only", action="store_true")
@@ -323,33 +375,41 @@ def main(argv=None) -> int:
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--mode", default="pure_dp", choices=MODES)
     ap.add_argument("--policy", default="at_end", choices=POLICIES,
-                    help="gradient sync at more than one rank")
+                    help="gradient sync of pure_dp at more than one rank")
     ap.add_argument("--out-dir", default=str(RESULTS_DIR))
     args = ap.parse_args(argv)
-    out_dir = Path(args.out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.mesh == "production" and not args.all:
+        ap.error("--mesh production runs both meshes: it needs --all")
+    meshes = (list(PRODUCTION_MESHES) if args.mesh == "production" else
+              [args.mesh] if args.mesh else [mesh_label(dp_mesh_sizes(args.ranks))])
+    sizes_of = {label: PRODUCTION_MESHES.get(label) or dp_mesh_sizes(args.ranks)
+                for label in meshes}
     try:
-        check_mode(args.mode)
+        for label in meshes:
+            check_mode(args.mode, sizes_of[label])
     except NotImplementedError as e:
         ap.error(f"--mode {args.mode}: {e}")
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
 
     if args.all:
-        combos = dryrun_matrix()
+        combos = [(a, s, label) for a, s in dryrun_matrix() for label in meshes]
         failures = 0
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [str(ROOT / "src"), *filter(None, [os.environ.get("PYTHONPATH")])]))
-        for i, (a, s) in enumerate(combos):
-            path = result_path(a, s, args.ranks, out_dir)
+        for i, (a, s, label) in enumerate(combos):
+            path = result_path(a, s, label, out_dir, args.mode)
             if args.missing_only and path.exists() \
                     and json.loads(path.read_text()).get("status") == "ok":
                 continue
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
-                   "--shape", s, "--ranks", str(args.ranks), "--mode", args.mode,
-                   "--policy", args.policy, "--accum-steps", str(args.accum_steps),
-                   "--out-dir", str(out_dir)]
+                   "--shape", s, "--mode", args.mode, "--policy", args.policy,
+                   "--accum-steps", str(args.accum_steps), "--out-dir", str(out_dir),
+                   *(["--mesh", label] if label in PRODUCTION_MESHES
+                     else ["--ranks", str(args.ranks)])]
             if args.no_remat:
                 cmd.append("--no-remat")
-            print(f"[{i + 1}/{len(combos)}] {a} x {s} x dp{args.ranks}", flush=True)
+            print(f"[{i + 1}/{len(combos)}] {a} x {s} x {label} ({args.mode})", flush=True)
             r = subprocess.run(cmd, capture_output=True, text=True, timeout=3600, env=env)
             if r.returncode != 0:
                 failures += 1
@@ -359,10 +419,11 @@ def main(argv=None) -> int:
 
     if not (args.arch and args.shape):
         ap.error("--arch and --shape required (or --all)")
-    rec = dryrun_one(args.arch, args.shape, ranks=args.ranks, mode=args.mode,
+    label = meshes[0]
+    rec = dryrun_one(args.arch, args.shape, mesh=sizes_of[label], mode=args.mode,
                      policy=args.policy, remat=not args.no_remat,
                      accum_steps=args.accum_steps)
-    path = result_path(args.arch, args.shape, args.ranks, out_dir)
+    path = result_path(args.arch, args.shape, label, out_dir, args.mode)
     path.write_text(json.dumps(rec, indent=2))
     print(json.dumps({k: v for k, v in rec.items() if k != "traceback"}, indent=2))
     return 0 if rec["status"] == "ok" else 1

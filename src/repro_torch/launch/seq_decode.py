@@ -68,7 +68,7 @@ def shard_cache(cache: T.Params, rank: int, world: int) -> T.Params:
     return T.map_leaves(piece, cache)
 
 
-def _scaled_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+def scaled_diff(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over the scale max |want|."""
     want = want.float()
     scale = max(float(want.abs().max()), 1e-6)
@@ -114,7 +114,7 @@ def _combine_err(calls: list, rank: int, world: int, comm: Comm) -> tuple[float,
         n = cache["k"].shape[-3] // world
         piece = {name: cache[name].narrow(-3, rank * n, n) for name in ("k", "v")}
         got = decode_attention_seq_sharded(q, k_new, v_new, piece, pos, comm, window=window)
-        err = _scaled_diff(got, want)
+        err = scaled_diff(got, want)
         if err >= worst:
             worst, where = err, f"layer {i}{' (ring)' if window else ''}"
     return worst, where
@@ -156,9 +156,9 @@ def compare_decodes(rank: int, dev: torch.device, cfg, seq_len: int, positions: 
         for name, n in kernels.all_launches().items():
             launches[name] = launches.get(name, 0) + n
         ref_local = shard_cache(full, rank, world)
-        cache_err = max(_scaled_diff(T.get_path(local, p), t)
+        cache_err = max(scaled_diff(T.get_path(local, p), t)
                         for p, t in T.leaf_order(ref_local))
-        steps.append({"pos": pos, "logits_err": _scaled_diff(got, want),
+        steps.append({"pos": pos, "logits_err": scaled_diff(got, want),
                       "cache_err": cache_err, "attn_err": attn_err, "attn_where": attn_where,
                       "control_err": control_err, "ms": ms, "one_rank_ms": one_ms,
                       "comm_bytes": comm.bytes, "comm_calls": comm.calls})

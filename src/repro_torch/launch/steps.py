@@ -20,10 +20,12 @@ from typing import Any, Callable
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch.comm.sharded import ShardedHook
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.moe import aux_over_batch
 from repro_torch.optim.sgd import Optimizer, global_norm
 
 
@@ -106,10 +108,8 @@ def model_loss(cfg: ModelConfig, params, tokens, labels, remat: bool = False,
     ``loss_fn`` for an ``audio`` arch (``encoder_in`` the frames), else the
     LM's (``encoder_in`` the images of a ``vlm`` arch, or None)."""
     if cfg.arch_type == "audio":
-        if param_hook is not None:
-            raise ValueError("the encoder-decoder takes no param_hook (nor does the "
-                             "reference's encdec.loss_fn)")
-        return ED.loss_fn(cfg, params, encoder_in, tokens, labels, remat=remat)
+        return ED.loss_fn(cfg, params, encoder_in, tokens, labels, remat=remat,
+                          param_hook=param_hook)
     return T.loss_fn(cfg, params, tokens, labels, encoder_out=encoder_in, remat=remat,
                      param_hook=param_hook)
 
@@ -137,7 +137,8 @@ def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = False
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = True,
                     accum_steps: int = 1,
-                    grad_sync: Callable[[Any], Any] | None = None):
+                    grad_sync: Callable[[Any], Any] | None = None,
+                    sharded: ShardedHook | None = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: loss -> gradients -> optimizer update; ``batch`` holds
     ``tokens`` and ``labels`` (B, S), and ``frames`` (audio) or ``images``
@@ -149,15 +150,30 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
     reference.  ``metrics``: ``total_loss``, ``loss``, ``moe_aux`` (0
     without experts) and ``grad_norm``.  ``grad_sync``, if given, takes the
     gradients before the update and returns them synchronized (for example
-    :func:`repro_torch.comm.sync.sync_gradients` over a process group)."""
+    :func:`repro_torch.comm.sync.sync_gradients` over a process group).
+    ``sharded`` (:class:`repro_torch.comm.sharded.ShardedHook`): the
+    parameters and optimizer state are this rank's shards, gathered per
+    unit; each microbatch's gradients are finished by it
+    (:meth:`~repro_torch.comm.sharded.ShardedHook.finish`) and the MoE aux
+    loss is taken over the batch of the ranks that split it; ``grad_norm``
+    is the whole gradient's."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if sharded is not None and grad_sync is not None:
+        raise ValueError("a sharded step synchronizes its own gradients: no grad_sync")
+
+    def grads_of(params, tokens, labels, enc_in):
+        if sharded is None:
+            return loss_and_grads(cfg, params, tokens, labels, remat, encoder_in=enc_in)
+        with aux_over_batch(sharded.batch_comm()):
+            total, metrics, grads = loss_and_grads(cfg, params, tokens, labels, remat,
+                                                   sharded, enc_in)
+        return total, metrics, sharded.finish(grads)
 
     def train_step(params, opt_state, batch):
         tokens, labels, enc_in = batch["tokens"], batch["labels"], encoder_input(cfg, batch)
         if accum_steps == 1:
-            total, metrics, grads = loss_and_grads(cfg, params, tokens, labels, remat,
-                                                   encoder_in=enc_in)
+            total, metrics, grads = grads_of(params, tokens, labels, enc_in)
             loss = metrics["loss"]
             aux = metrics.get("moe_aux", torch.zeros((), device=total.device))
         else:
@@ -170,7 +186,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
             encs = [None] * accum_steps if enc_in is None else enc_in.chunk(accum_steps)
             for tok, lab, enc in zip(tokens.chunk(accum_steps), labels.chunk(accum_steps),
                                      encs):
-                tot, m, g = loss_and_grads(cfg, params, tok, lab, remat, encoder_in=enc)
+                tot, m, g = grads_of(params, tok, lab, enc)
                 for path, acc in T.leaf_order(grads):
                     acc.add_(T.get_path(g, path).float())
                 total = total + tot
@@ -184,27 +200,31 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
         if grad_sync is not None:
             grads = grad_sync(grads)
         params, opt_state = optimizer.update(grads, opt_state, params)
+        norm = global_norm(grads) if sharded is None else sharded.global_norm(grads)
         return params, opt_state, {"total_loss": total, "loss": loss, "moe_aux": aux,
-                                   "grad_norm": global_norm(grads)}
+                                   "grad_norm": norm}
 
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, *, sharded: ShardedHook | None = None):
     """``prefill_step(params, batch) -> logits (B, S, V)``, no gradient;
     ``batch`` holds ``tokens``, and ``frames`` or ``images`` as in
-    training."""
+    training.  ``sharded``: the parameters are this rank's shards, gathered
+    per unit."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
         if cfg.arch_type == "audio":
-            return ED.forward(cfg, params, batch["frames"], batch["tokens"])
-        return T.forward(cfg, params, batch["tokens"], encoder_out=encoder_input(cfg, batch))
+            return ED.forward(cfg, params, batch["frames"], batch["tokens"],
+                              param_hook=sharded)
+        return T.forward(cfg, params, batch["tokens"], encoder_out=encoder_input(cfg, batch),
+                         param_hook=sharded)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, *, seq_axis=None):
+def make_serve_step(cfg: ModelConfig, *, seq_axis=None, sharded: ShardedHook | None = None):
     """``serve_step(params, batch) -> (logits (B, V), cache)``: one-token
     decode; ``batch`` holds ``cache`` (:func:`repro_torch.models.transformer.
     init_cache`), ``token`` (B,) and ``pos`` (a Python int), and for an
@@ -213,13 +233,16 @@ def make_serve_step(cfg: ModelConfig, *, seq_axis=None):
     ``images``.  The cache is updated in place.  ``seq_axis``: a
     :class:`repro_torch.comm.sync.Comm` whose group shards the ``G`` and
     ``L`` caches' sequence axis (:func:`repro_torch.models.transformer.
-    decode_step`)."""
+    decode_step`).  ``sharded``: the parameters are this rank's shards,
+    gathered per unit at each token."""
 
     def serve_step(params, batch):
         cache, token, pos = batch["cache"], batch["token"], batch["pos"]
         if cfg.arch_type == "audio":
-            return ED.decode_step(cfg, params, cache, batch["encoder_states"], token, pos)
+            return ED.decode_step(cfg, params, cache, batch["encoder_states"], token, pos,
+                                  param_hook=sharded)
         return T.decode_step(cfg, params, cache, token, pos,
-                             encoder_out=encoder_input(cfg, batch), seq_axis=seq_axis)
+                             encoder_out=encoder_input(cfg, batch), seq_axis=seq_axis,
+                             param_hook=sharded)
 
     return serve_step

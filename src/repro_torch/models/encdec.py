@@ -10,7 +10,10 @@ list, keyed as the reference keys them (``encoder/layers/<i>/...``); the
 decoder is :mod:`repro_torch.models.transformer`'s LM with ``encoder_out``.
 Its attention is the flash kernels on CUDA (``causal=False`` in the
 encoder, ``Sq != Skv`` in the decoder's cross-attention), the plain
-oracle on the CPU.
+oracle on the CPU.  ``param_hook`` (:data:`repro_torch.models.transformer.
+ParamHook`) is applied to each encoder layer when it runs, with its path
+``("encoder", "layers", i)``, and to the decoder's leaves under
+``("decoder", ...)``.
 """
 from __future__ import annotations
 
@@ -33,17 +36,31 @@ def init_encoder(cfg: ModelConfig, gen: torch.Generator | None, device) -> Param
     return {"layers": layers, "final_norm": init_norm(cfg, device)}
 
 
-def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
+def _no_hook(p, path, unit=None):
+    return p
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
+           param_hook: T.ParamHook | None = None) -> torch.Tensor:
     """frames: (B, S_enc, d) stub embeddings -> encoder states (B, S_enc, d).
     Each layer's attention is bidirectional, with RoPE at ``arange(S_enc)``
-    as in the reference."""
+    as in the reference.  ``params`` is the tree's ``encoder``."""
+    ph = param_hook or _no_hook
     x = frames
-    for lp in params["layers"]:
+    for i, layer in enumerate(params["layers"]):
+        lp = ph(layer, ("encoder", "layers", i), None)
         h = apply_norm(cfg, lp["norm1"], x)
         x = x + attn.attention_fwd(cfg, lp["attn"], h, causal=False)
         h = apply_norm(cfg, lp["norm2"], x)
         x = x + B.mlp_apply(cfg, lp["mlp"], h)
-    return apply_norm(cfg, params["final_norm"], x)
+    return apply_norm(cfg, ph(params["final_norm"], ("encoder", "final_norm"), None), x)
+
+
+def _decoder_hook(param_hook: T.ParamHook | None) -> T.ParamHook | None:
+    """``param_hook`` on the decoder's paths, under ``("decoder",)``."""
+    if param_hook is None:
+        return None
+    return lambda p, path, unit=None: param_hook(p, ("decoder",) + path, unit)
 
 
 def init_encdec(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
@@ -56,22 +73,26 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
 
 
 def forward(cfg: ModelConfig, params: Params, frames: torch.Tensor, tokens: torch.Tensor, *,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, param_hook: T.ParamHook | None = None) -> torch.Tensor:
     """(frames, decoder tokens) -> logits (B, S, V)."""
-    enc = encode(cfg, params["encoder"], frames)
-    return T.forward(cfg, params["decoder"], tokens, encoder_out=enc, remat=remat)
+    enc = encode(cfg, params["encoder"], frames, param_hook=param_hook)
+    return T.forward(cfg, params["decoder"], tokens, encoder_out=enc, remat=remat,
+                     param_hook=_decoder_hook(param_hook))
 
 
 def loss_fn(cfg: ModelConfig, params: Params, frames: torch.Tensor, tokens: torch.Tensor,
-            labels: torch.Tensor, *, remat: bool = False) -> tuple[torch.Tensor, dict]:
-    enc = encode(cfg, params["encoder"], frames)
-    return T.loss_fn(cfg, params["decoder"], tokens, labels, encoder_out=enc, remat=remat)
+            labels: torch.Tensor, *, remat: bool = False,
+            param_hook: T.ParamHook | None = None) -> tuple[torch.Tensor, dict]:
+    enc = encode(cfg, params["encoder"], frames, param_hook=param_hook)
+    return T.loss_fn(cfg, params["decoder"], tokens, labels, encoder_out=enc, remat=remat,
+                     param_hook=_decoder_hook(param_hook))
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 encoder_states: torch.Tensor, token: torch.Tensor,
-                pos: int) -> tuple[torch.Tensor, Params]:
+                pos: int, *, param_hook: T.ParamHook | None = None,
+                ) -> tuple[torch.Tensor, Params]:
     """Serve step: the encoder states are computed once, when the request
     is admitted (:func:`encode`), and passed to every decode step."""
     return T.decode_step(cfg, params["decoder"], cache, token, pos,
-                         encoder_out=encoder_states)
+                         encoder_out=encoder_states, param_hook=_decoder_hook(param_hook))

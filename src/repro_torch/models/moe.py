@@ -15,8 +15,23 @@ a tie, as on the zero padding tokens, whose probabilities are uniform),
 and the one-hot tensors are comparisons with an ``arange``, so that the
 capacity index ``C`` of a dropped choice gives an all-zero row as
 ``jax.nn.one_hot`` does (``torch.nn.functional.one_hot`` raises on it).
+
+**A batch split over ranks** (:func:`aux_over_batch`, which the sharded
+train step of :mod:`repro_torch.launch.steps` opens): the aux loss's two
+means, each expert's routed fraction and mean router probability, are
+taken over the whole batch of the ranks that split it, as the reference's
+SPMD step takes them over its global batch.  One all-reduce of the 2·E
+means a layer, whose backward all-reduces the probabilities' cotangent
+(the transpose of a sum over ranks is a sum over ranks).  The groups are
+the reference's only where every rank's tokens fill whole groups: it
+raises otherwise.  Without it (one rank; the paper's S-SGD of
+:mod:`repro_torch.comm.sync`, as the reference's ``comm.ddp``) each rank's
+aux is its own batch's.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +60,40 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator | None, device,
             "wo": dense_init(gen, (*lead, sf, d), cfg.dtype, device, in_axis_size=sf),
         }
     return p
+
+
+#: a :class:`repro_torch.comm.sync.Comm` over the ranks that split the
+#: batch, while :func:`aux_over_batch` is open
+_BATCH_COMM: contextvars.ContextVar = contextvars.ContextVar("moe_batch_comm", default=None)
+
+
+@contextlib.contextmanager
+def aux_over_batch(comm):
+    """Take the aux loss's means over the batch of ``comm``'s group (module
+    docstring) while open; ``comm`` None leaves each rank's own."""
+    token = _BATCH_COMM.set(comm)
+    try:
+        yield
+    finally:
+        _BATCH_COMM.reset(token)
+
+
+class _MeanOverRanks(torch.autograd.Function):
+    """The mean of ``t`` over ``comm``'s group; its backward is the mean of
+    the cotangent over the same group."""
+
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        out = t.detach().clone()
+        comm.all_reduce(out)
+        return out / comm.world
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        ctx.comm.all_reduce(g)
+        return g / ctx.comm.world, None
 
 
 def _capacity(cfg: ModelConfig, group: int) -> int:
@@ -82,7 +131,11 @@ def moe_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor,
     E, k = cfg.num_experts, cfg.experts_per_token
     tokens = x.reshape(-1, d)
     T = tokens.shape[0]
-    g = min(cfg.moe_group_size, T)
+    comm = _BATCH_COMM.get()
+    g = min(cfg.moe_group_size, T * (comm.world if comm is not None else 1))
+    if comm is not None and T % g:
+        raise ValueError(f"{T} tokens a rank do not fill groups of {g}: the groups would "
+                         "differ from those of the whole batch")
     pad = (-T) % g
     if pad:
         tokens = torch.cat([tokens, tokens.new_zeros(pad, d)])
@@ -109,6 +162,9 @@ def moe_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor,
     chosen = onehot[..., 0, :] if k == 1 else onehot.amax(dim=2)      # (G,g,E)
     frac = (chosen.sum(dim=1) / g).mean(dim=0)
     mean_prob = probs.mean(dim=(0, 1))
+    if comm is not None:
+        frac, mean_prob = _MeanOverRanks.apply(
+            torch.cat([frac.to(mean_prob.dtype), mean_prob]), comm).split(E)
     aux = E * (frac * mean_prob).sum()
 
     if "shared" in p:

@@ -19,8 +19,10 @@ single pod, ``("pod", "data", "model")`` multi-pod.  Logical roles:
 * ``expert`` -> ``model`` (expert parallelism for MoE)
 
 The reference's ``constrain`` (``with_sharding_constraint``) and
-``named_shardings`` have no counterpart: the port places no tensor by
-spec; it runs data parallelism only (:mod:`repro_torch.comm.sync`).
+``named_shardings`` have no counterpart: no tensor is placed by a spec.
+Under ``zero3`` and ``fsdp2d`` :mod:`repro_torch.comm.sharded` cuts each
+rank's slice of the parameters by these specs and gathers it per unit;
+``fsdp``'s tensor and expert parallelism is not run yet.
 """
 from __future__ import annotations
 
@@ -133,13 +135,17 @@ def resolve_spec(shape, dim_candidates, sc: ShardingConfig,
     return tuple(out)
 
 
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (None, an axis, or a tuple of them)."""
+    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+
 def shard_shape(shape, spec: Spec, sizes: dict[str, int]) -> tuple[int, ...]:
     """The per-device shape of a leaf of ``shape`` laid out by ``spec``:
     each dim divided by the product of its mesh axes' sizes."""
     out = []
     for dim, entry in zip(shape, spec):
-        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
-        n = math.prod(sizes[a] for a in axes)
+        n = math.prod(sizes[a] for a in entry_axes(entry))
         if dim % n:
             raise ValueError(f"dim {dim} does not split {n} ways ({entry})")
         out.append(dim // n)

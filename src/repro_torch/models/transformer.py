@@ -215,26 +215,34 @@ def _write_back(cache: Params, new: Params) -> None:
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Tensor,
                 pos: int, *, encoder_out: torch.Tensor | None = None,
-                seq_axis=None) -> tuple[torch.Tensor, Params]:
+                seq_axis=None, param_hook: ParamHook | None = None,
+                ) -> tuple[torch.Tensor, Params]:
     """One-token decode: token (B,) int at position ``pos`` (a Python int).
     Returns (logits (B, V) in logit_dtype, cache), the cache updated in
     place.  ``seq_axis``, a :class:`repro_torch.comm.sync.Comm`, makes the
     ``G`` and ``L`` caches this rank's slices of sequence-sharded ones
-    (:func:`repro_torch.models.attention.decode_attention_seq_sharded`)."""
-    x = params["embedding"][token][:, None, :]                  # (B, 1, d)
-    blocks = []
-    for u in range(cfg.num_units):
-        unit_params, unit_cache = unit_slice(params["units"], u), unit_slice(cache["units"], u)
-        blocks += [(unit_params[f"b{i}"], unit_cache[f"b{i}"], kind)
-                   for i, kind in enumerate(cfg.layer_pattern)]
-    blocks += [(params[f"rem{i}"], cache[f"rem{i}"], kind)
-               for i, kind in enumerate(cfg.remainder_pattern)]
-    for p, c, kind in blocks:
+    (:func:`repro_torch.models.attention.decode_attention_seq_sharded`).
+    ``param_hook`` is applied as in :func:`forward`: to each unit's slice
+    when that unit runs, and to the unscanned leaves at their use."""
+    ph = param_hook or (lambda p, path, unit=None: p)
+    emb = ph(params["embedding"], ("embedding",), None)
+    x = emb[token][:, None, :]                                  # (B, 1, d)
+
+    def run(p, c, kind):
+        nonlocal x
         x, new = B.decode_block(cfg, kind, p, x, c, pos, encoder_out=encoder_out,
                                 seq_axis=seq_axis)
         _write_back(c, new)
-    x = apply_norm(cfg, params["final_norm"], x)
-    head = params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
+
+    for u in range(cfg.num_units):
+        unit_params = ph(unit_slice(params["units"], u), ("units",), u)
+        unit_cache = unit_slice(cache["units"], u)
+        for i, kind in enumerate(cfg.layer_pattern):
+            run(unit_params[f"b{i}"], unit_cache[f"b{i}"], kind)
+    for i, kind in enumerate(cfg.remainder_pattern):
+        run(ph(params[f"rem{i}"], (f"rem{i}",), None), cache[f"rem{i}"], kind)
+    x = apply_norm(cfg, ph(params["final_norm"], ("final_norm",), None), x)
+    head = emb.T if cfg.tie_embeddings else ph(params["lm_head"], ("lm_head",), None)
     return (x @ head).to(cfg.logit_dtype)[:, 0, :], cache
 
 

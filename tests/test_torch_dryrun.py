@@ -185,9 +185,13 @@ class TestLowering:
         assert no_remat["kernel_calls"] == {"wkv6_bwd": 1, "wkv6_fwd": 1}
         assert accum["kernel_calls"] == {"wkv6_bwd": 4, "wkv6_fwd": 8}
         assert accum["memory"]["temp_bytes"] < base["memory"]["temp_bytes"]
-        for mode in ("fsdp", "fsdp2d", "zero3"):
-            with pytest.raises(NotImplementedError):
-                dryrun.dryrun_one("rwkv6-1.6b", "train_4k", mode=mode)
+        with pytest.raises(NotImplementedError, match="queue 1, item 15"):
+            dryrun.dryrun_one("rwkv6-1.6b", "train_4k", mode="fsdp")
+        with pytest.raises(NotImplementedError, match="queue 1, item 15"):
+            dryrun.dryrun_one("rwkv6-1.6b", "train_4k", mesh={"data": 16, "model": 16})
+        for mode in ("fsdp2d", "zero3"):     # on dp1 nothing is split: pure_dp's record
+            rec = dryrun.dryrun_one("rwkv6-1.6b", "train_4k", mode=mode, num_layers=1)
+            assert rec["status"] == "ok" and rec["memory"] == base["memory"]
 
     def test_cli_writes_the_record(self, tmp_path, capsys):
         assert dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "long_500k",
