@@ -204,11 +204,30 @@ Phases, in order; any failure ends the script with a non-zero code:
    the dry run's (``repro_torch.launch.dryrun.lower`` of the same config,
    mesh and mode) and rank 0's peak within ``DRYRUN_PEAK_RTOL`` of its
    arguments + temporaries; both archs' kernels launched;
-21. print the ``kernels`` line (launches: the six measurements', the
+21. the sharded step (fsdp): the same on 4 gloo ranks of this card on
+   ``{data: 2, model: 2}``, 2 x 1024 tokens a ``data`` rank, with tensor
+   and expert parallelism on ``model`` (``repro_torch.comm.
+   tensor_parallel``): recurrentgemma-2b at one ``RRL`` unit under
+   ``fsdp`` (flash on 5 of its 10 q heads a rank beside the one replicated
+   kv head, the RG-LRU at width 1280, the tied vocab-parallel embedding),
+   rwkv6-1.6b at one layer under ``fsdp`` (wkv6 on 16 of 32 heads, a
+   vocab-split head), qwen2-moe-a2.7b at one layer under ``pure_dp`` (30
+   of its 60 experts a rank, flash on 8 of 16 heads, ``at_end`` over
+   ``data``); each in float32 against ``pure_dp`` on the same rows from
+   the same parameters (``dp2``, repeated on the ``model`` ranks) within
+   ``F32_LIMIT`` of each leaf's scale, the control beyond it, the counts
+   the dry run's, rank 0's peak within ``DRYRUN_PEAK_RTOL``, every rank
+   launching its arch's kernels; then in bfloat16 (``sharded_step``'s
+   witness): the mode's and ``pure_dp``'s momentum each against the
+   float32 ``pure_dp``'s, the mode's distance at most ``WITNESS_RATIO``
+   times ``pure_dp``'s, since in bfloat16 the partial sums over ``model``
+   round unlike one product, and its counts and peak against the
+   bfloat16 dry run's;
+22. print the ``kernels`` line (launches: the six measurements', the
    validation's, the float32 decode's, the training launcher's, the
    encoder-decoder phase's, the dry-run phase's real steps, train_e2e's,
-   the sequence-sharded decode's and the sharded step's), then the ``ok``
-   line last.
+   the sequence-sharded decode's and both sharded steps'), then the
+   ``ok`` line last.
 
 A failing phase prints ``== <phase>: FAILED`` and its traceback on stdout
 before the script exits non-zero.
@@ -219,6 +238,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -369,11 +389,11 @@ _SLOWEST = [*_COMMON[:-1], "2"]
 #: arch -> (CLI arguments, the kernels its run must launch).  Every path
 #: but recurrentgemma-2b's and gemma3-1b's (one whole unit each) runs at one
 #: layer (segments at 1 and 2), and the two slowest at 2 timed steps, so
-#: that the whole script stays near 600 s: gloo's step times move by up to
-#: 2.2x between runs; on an NVIDIA H100 80GB HBM3 one run took 636.5 s with
-#: internlm2-20b and qwen2-moe-a2.7b at two layers, one 708.2 s with
-#: qwen1.5-4b and rwkv6-1.6b at two, and one 605.1 s with every path at one
-#: unit and 3 timed steps.
+#: that the whole script stays within its 1200 s: gloo's step times move by
+#: up to 2.2x between runs; on an NVIDIA H100 80GB HBM3 one run took 636.5 s
+#: with internlm2-20b and qwen2-moe-a2.7b at two layers, one 708.2 s with
+#: qwen1.5-4b and rwkv6-1.6b at two, one 605.1 s with every path at one unit
+#: and 3 timed steps, and with later phases added one 921.2 s.
 MAIN_PATHS = {
     "qwen1.5-4b": (["--arch", "qwen1.5-4b", "--num-layers", "1", *_COMMON],
                    ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
@@ -2577,33 +2597,36 @@ def seq_decode_on_card(card: str) -> dict:
 SHARDED_ARCHS = {"recurrentgemma-2b": (3, ("rglru_fwd", "rglru_bwd", "flash_fwd",
                                            "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkdv")),
                  "rwkv6-1.6b": (1, ("wkv6_fwd", "wkv6_bwd"))}
+#: the tensor-parallel phase's archs on {data: 2, model: 2}: (layers, mode, the
+#: kernels each must launch)
+TP_ARCHS = {"recurrentgemma-2b": (3, "fsdp", SHARDED_ARCHS["recurrentgemma-2b"][1]),
+            "rwkv6-1.6b": (1, "fsdp", SHARDED_ARCHS["rwkv6-1.6b"][1]),
+            "qwen2-moe-a2.7b": (1, "pure_dp", ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq",
+                                               "flash_bwd_dkdv"))}
 
 
-@phase("sharded step (zero3)")
-def sharded_step_on_card(card: str) -> dict:
-    """``repro_torch.launch.sharded_step`` on 2 gloo ranks of this card for
-    ``SHARDED_ARCHS`` (module docstring, item 20).  Returns both ranks'
-    launches of the zero3 steps."""
+def sharded_jobs_on_card(card: str, jobs: list[dict], world: int, must: dict) -> dict:
+    """``repro_torch.launch.sharded_step.run`` of ``jobs`` on ``world`` gloo
+    ranks of this card; prints each job's dry run and each rank's record,
+    fails on any finding of ``check`` or a kernel of ``must[arch]`` not
+    launched on a rank.  Returns the ranks' launches."""
     from repro_torch.launch import sharded_step
 
-    jobs = [{"arch": arch, "num_layers": layers, "sizes": {"data": 2}, "mode": "zero3",
-             "global_batch": 2 * DRYRUN_BATCH, "seq_len": DRYRUN_SEQ, "accum_steps": 1,
-             "remat": True} for arch, (layers, _) in SHARDED_ARCHS.items()]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        results = sharded_step.run(jobs, 2, "cuda", out)
-    print(f"  {card}; 2 gloo ranks in {time.perf_counter() - t0:.1f} s (spawn, three steps "
-          "an arch, gathers, the dry runs)", flush=True)
+        results = sharded_step.run(jobs, world, "cuda", out)
+    print(f"  {card}; {world} gloo ranks in {time.perf_counter() - t0:.1f} s (spawn, the "
+          "steps, gathers, the dry runs)", flush=True)
     launches: dict[str, int] = {}
     failed = []
     for job, (ranks, dry, bad) in zip(jobs, results):
         arch = job["arch"]
         mem = dry["memory"]
         predicted = mem["argument_bytes"] + mem["temp_bytes"]
-        print(f"  {arch:18s} dry run ({job['num_layers']} layers, dp2, zero3): "
-              f"{mem['argument_bytes']} B arguments + {mem['temp_bytes']} B temporaries = "
-              f"{predicted} B; collectives {dry['collectives']['count_by_op']} calls, "
-              f"{dry['collectives']['bytes_by_op']} B", flush=True)
+        print(f"  {arch:18s} dry run ({job['num_layers']} layers, {job['sizes']}, "
+              f"{job['mode']}): {mem['argument_bytes']} B arguments + {mem['temp_bytes']} B "
+              f"temporaries = {predicted} B; collectives {dry['collectives']['count_by_op']} "
+              f"calls, {dry['collectives']['bytes_by_op']} B", flush=True)
         for res in ranks:
             print(f"  {arch:18s} rank {res['rank']} ({res['dtype']}): loss "
                   f"{res['metrics']['loss']:.6f} (pure_dp {res['pure_dp_metrics']['loss']:.6f}), "
@@ -2614,8 +2637,20 @@ def sharded_step_on_card(card: str) -> dict:
                   f"{res['control_mom_err']:.3e}; momentum bit for bit pure_dp's: "
                   f"{res['bitwise']}; peak {res['peak']} B, ratio to the dry run "
                   f"{res['peak'] / predicted:.4f}; collectives {res['count_by_op']} calls, "
-                  f"{res['bytes_by_op']} B; launches {res['launches']}", flush=True)
-            missing = [k for k in SHARDED_ARCHS[arch][1] if not res["launches"].get(k)]
+                  f"{res['bytes_by_op']} B; launches {res['launches']}; seconds "
+                  f"{ {k: round(v, 1) for k, v in res['seconds'].items()} }", flush=True)
+            if "bf16" in res:
+                w, mem16 = res["bf16"], dry["bf16"]["memory"]
+                print(f"  {arch:18s} rank {res['rank']} bfloat16: momentum from float32 "
+                      f"pure_dp's: pure_dp {w['pure_dp_err']:.3e} ({w['pure_dp_where']}), the "
+                      f"mode {w['mode_err']:.3e} ({w['mode_where']}), ratio "
+                      f"{w['mode_err'] / w['pure_dp_err']:.3f}; the mode from bfloat16 "
+                      f"pure_dp's {w['mode_vs_pure_dp_err']:.3e} ({w['mode_vs_pure_dp_where']});"
+                      f" peak {w['peak']} B, ratio to the bfloat16 dry run "
+                      f"{w['peak'] / (mem16['argument_bytes'] + mem16['temp_bytes']):.4f}; "
+                      f"collectives {w['count_by_op']} calls, {w['bytes_by_op']} B",
+                      flush=True)
+            missing = [k for k in must[arch] if not res["launches"].get(k)]
             if missing:
                 bad.append(f"rank {res['rank']}: kernels not launched {missing}")
             for name, n in res["launches"].items():
@@ -2624,6 +2659,43 @@ def sharded_step_on_card(card: str) -> dict:
     if failed:
         raise SystemExit(f"sharded step: {failed}")
     return launches
+
+
+@phase("sharded step (zero3)")
+def sharded_step_on_card(card: str) -> dict:
+    """``repro_torch.launch.sharded_step`` on 2 gloo ranks of this card for
+    ``SHARDED_ARCHS`` (module docstring, item 20).  Returns both ranks'
+    launches of the zero3 steps."""
+    jobs = [{"arch": arch, "num_layers": layers, "sizes": {"data": 2}, "mode": "zero3",
+             "global_batch": 2 * DRYRUN_BATCH, "seq_len": DRYRUN_SEQ, "accum_steps": 1,
+             "remat": True} for arch, (layers, _) in SHARDED_ARCHS.items()]
+    return sharded_jobs_on_card(card, jobs, 2, {a: k for a, (_, k) in SHARDED_ARCHS.items()})
+
+
+@phase("sharded step (fsdp)")
+def tensor_parallel_step_on_card(card: str) -> dict:
+    """``repro_torch.launch.sharded_step`` on 4 gloo ranks of this card on
+    ``{data: 2, model: 2}`` for ``TP_ARCHS`` (module docstring, item 21).
+    Returns the four ranks' launches."""
+    sizes = {"data": 2, "model": 2}
+    jobs = [{"arch": arch, "num_layers": layers, "sizes": sizes, "mode": mode,
+             "global_batch": sizes["data"] * DRYRUN_BATCH, "seq_len": DRYRUN_SEQ,
+             "accum_steps": 1, "remat": True, "dtype": "float32", "bf16_witness": True}
+            for arch, (layers, mode, _) in TP_ARCHS.items()]
+    # four ranks of whole published-width embeddings share the card: this
+    # process gives back its cached blocks, and the ranks' allocators return
+    # what a step frees (they inherit the setting)
+    torch.cuda.empty_cache()
+    old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        return sharded_jobs_on_card(card, jobs, 4,
+                                    {a: k for a, (_, _, k) in TP_ARCHS.items()})
+    finally:
+        if old is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old
 
 
 def check_measurement(doc: dict, trace_text: str) -> None:
@@ -2717,7 +2789,7 @@ def main() -> int:
     remat_and_accumulation()
     for phase_launches in (encdec_on_card(card), dryrun_vs_card(card),
                            train_e2e_on_card(card), seq_decode_on_card(card),
-                           sharded_step_on_card(card)):
+                           sharded_step_on_card(card), tensor_parallel_step_on_card(card)):
         for name, n in phase_launches.items():
             launches[name] = launches.get(name, 0) + n
     line = [{"name": name, "route": "cuda", "source": str(mod.SOURCE.relative_to(ROOT)),

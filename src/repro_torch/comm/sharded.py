@@ -1,39 +1,53 @@
 """Parameters held as shards by the sharding rules, gathered per unit in
 the forward pass, their gradients reduce-scattered in the backward pass:
-the ``zero3`` and ``fsdp2d`` modes of :mod:`repro_torch.models.sharding`.
+the ``zero3``, ``fsdp2d`` and ``fsdp`` modes of :mod:`repro_torch.models.
+sharding`, and ``pure_dp`` on a mesh with a ``model`` axis.
 
 The port's counterpart of what XLA's SPMD partitioner makes of the
 reference's ``named_shardings`` in those modes (``repro.launch.dryrun``):
 
 * **The layout** is the rule table's (:func:`repro_torch.models.sharding.
-  param_specs`), never a flat split.  In ``zero3`` and ``fsdp2d`` the rules
-  map ``tensor`` and ``expert`` to nothing, so a leaf has at most one
-  sharded dim, its ``fsdp`` candidate: over ``(data, model)``, or
-  ``(data,)`` where the product does not divide it; the leading ``units``
-  axis never.  :func:`shard_params` cuts this rank's slice of every leaf
-  (the slice ``NamedSharding.devices_indices_map`` gives the device at the
-  same mesh coordinate); :func:`unshard` gathers them back.  The optimizer
+  param_specs`), never a flat split.  A leaf's spec splits some dims over
+  ``fsdp`` axes (``(data, model)`` or ``(data,)`` in ``zero3`` and
+  ``fsdp2d``; ``data`` in ``fsdp``) and, where the mode has tensor
+  parallelism (``fsdp``; ``pure_dp`` on a mesh with ``model``), a dim over
+  ``model`` through ``tensor`` or ``expert`` (the embedding: V on
+  ``model``, d on ``data``); the leading ``units`` axis never.
+  :func:`shard_params` cuts this rank's block of every split dim (the
+  slice ``NamedSharding.devices_indices_map`` gives the device at the same
+  mesh coordinate); :func:`unshard` gathers them back.  The optimizer
   state takes the parameters' specs, and the optimizers of
   :mod:`repro_torch.optim.sgd` update it elementwise on the shards.
-* **The gather** (:class:`GatherInForward`): an all-gather of the slice
-  along its sharded dim over that dim's process group, whose backward
-  reduce-scatters (sums) the cotangent over the same group.
+* **The gather** (:class:`repro_torch.comm.tensor_parallel.
+  GatherInForward`): an all-gather of the slice along an ``fsdp`` dim over
+  that dim's process group, whose backward reduce-scatters (sums) the
+  cotangent over the same group.  A dim on the
+  tensor axis is not gathered: the blocks compute on it as a slice and
+  call their own collectives (:mod:`repro_torch.comm.tensor_parallel`).
 * **The hook** (:class:`ShardedHook`), a ``param_hook`` of
   :mod:`repro_torch.models.transformer` and :mod:`repro_torch.models.
   encdec`: each unit's parameters are gathered when the unit runs (again
   in the backward pass under ``remat``, as FSDP does), the unscanned
   leaves at their use.  A tied embedding is gathered once and used twice
   (lookup and head), so its two cotangents sum before its one
-  reduce-scatter.  :meth:`ShardedHook.finish` all-reduces each sharded
-  leaf's gradient over the mesh axes its dim is not sharded over (``pod``;
-  ``model`` where the leaf fell back to ``(data,)``) and each replicated
-  leaf's over the whole mesh, then divides every gradient by the world
-  size.
-  Dividing by the whole world is right also where ranks hold the same
-  rows (``fsdp2d``, whose batch is split over ``data`` alone; a batch the
-  mesh does not divide): the sum over the world counts each distinct row
-  as often as it is held, the same number of times for every row, so the
-  copies average out.
+  reduce-scatter.  It carries the blocks' :class:`repro_torch.comm.
+  tensor_parallel.TensorParallel` (:attr:`ShardedHook.tp`).
+* **The division** (:meth:`ShardedHook.finish`).  Each leaf's gradient is
+  summed over every mesh axis but the tensor axis: its ``fsdp`` dims' axes
+  by the gather's reduce-scatter, the rest by an all-reduce (``pod``;
+  ``model`` where a ``zero3`` leaf fell back to ``(data,)``; the whole
+  mesh for a replicated leaf); then it is divided by the product of those
+  axes' sizes (the world size, less the tensor axis').  Never summed over
+  the tensor axis, because there every rank already holds the whole
+  gradient of its slice (the rule of :mod:`repro_torch.comm.
+  tensor_parallel`), the same on every rank for a replicated leaf.  The
+  division is right also where ranks of the summed axes hold the same rows
+  (``fsdp2d``, whose batch is split over ``data`` alone; a batch the mesh
+  does not divide): the sum counts each distinct row as often as it is
+  held, the same number of times for every row, so the copies average out.
+  Under ``pure_dp`` (``policy`` set) nothing is split over the batch axes,
+  and the sum is the gradient-sync policy's over them
+  (:func:`repro_torch.comm.sync.sync_gradients`).
 * **The norm** (:meth:`ShardedHook.global_norm`): the sum of squares of
   the shards over their groups, each replicated leaf counted once, so the
   ``grad_norm`` metric is the replicated step's.
@@ -48,23 +62,24 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.comm.sync import Comm
+from repro_torch.comm.sync import Comm, sync_gradients
+from repro_torch.comm.tensor_parallel import GatherInForward, TensorParallel
 from repro_torch.launch.mesh import MeshGroups
 from repro_torch.models.sharding import entry_axes
 from repro_torch.models.transformer import Params, get_path, leaf_order, map_leaves
 
 
-def sharded_dim(spec, sizes: dict[str, int]) -> tuple[int, tuple[str, ...]] | None:
-    """(dim, mesh axes) of the one dim of ``spec`` split more than one way;
-    None for a replicated leaf.  Raises on a spec that splits two dims
-    (tensor parallelism: ``fsdp``, ROADMAP queue 1, item 15)."""
-    split = [(d, entry_axes(e)) for d, e in enumerate(spec)
-             if math.prod(sizes[a] for a in entry_axes(e)) > 1]
-    if len(split) > 1:
-        raise NotImplementedError(
-            f"spec {spec} splits {len(split)} dims: tensor or expert parallelism, which "
-            "the port does not run yet (ROADMAP queue 1, item 15)")
-    return split[0] if split else None
+def split_dims(spec, sizes: dict[str, int]) -> tuple[tuple[int, tuple[str, ...]], ...]:
+    """(dim, mesh axes) of every dim of ``spec`` split more than one way;
+    empty for a replicated leaf."""
+    return tuple((d, entry_axes(e)) for d, e in enumerate(spec)
+                 if math.prod(sizes[a] for a in entry_axes(e)) > 1)
+
+
+def split_axes(spec, sizes: dict[str, int]) -> tuple[str, ...]:
+    """The mesh axes ``spec`` splits some dim over, in mesh order."""
+    used = {a for _, axes in split_dims(spec, sizes) for a in axes}
+    return tuple(a for a in sizes if a in used)
 
 
 def _block(t: torch.Tensor, dim: int, axes: tuple[str, ...], sizes: dict[str, int],
@@ -81,8 +96,9 @@ def shard_params(params: Params, specs: Params, sizes: dict[str, int],
     """The slice of every leaf of ``params`` (whole, on any device) that
     the rank at ``coords`` holds under ``specs``, as new tensors."""
     def piece(path, t):
-        found = sharded_dim(get_path(specs, path), sizes)
-        return (t if found is None else _block(t, *found, sizes, coords)).clone()
+        for dim, axes in split_dims(get_path(specs, path), sizes):
+            t = _block(t, dim, axes, sizes, coords)
+        return t.clone()
 
     return map_leaves(piece, params)
 
@@ -94,56 +110,60 @@ def unshard(shards: Params, specs: Params, mesh: MeshGroups,
     comm = comm or Comm()
 
     def whole(path, t):
-        found = sharded_dim(get_path(specs, path), mesh.sizes)
-        if found is None:
-            return t.clone()
-        dim, axes = found
-        return comm.on(mesh.group(axes)).all_gather(t, dim)
+        t = t.clone()
+        for dim, axes in split_dims(get_path(specs, path), mesh.sizes):
+            t = comm.on(mesh.group(axes)).all_gather(t, dim)
+        return t
 
     return map_leaves(whole, shards)
 
 
-class GatherInForward(torch.autograd.Function):
-    """All-gather of a slice along ``dim`` over ``comm``'s group; the
-    backward reduce-scatters (sums) the cotangent over the same group."""
-
-    @staticmethod
-    def forward(ctx, shard, comm, dim):
-        ctx.comm, ctx.dim = comm, dim
-        return comm.all_gather(shard, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.comm.reduce_scatter(g, ctx.dim), None, None
-
-
 @dataclass
 class ShardedHook:
-    """``param_hook`` gathering every sharded leaf of the tree it is given
+    """``param_hook`` gathering every ``fsdp`` dim of the tree it is given
     (module docstring).  ``specs``: the whole parameters' specs (a unit
     slice's spec drops the leading ``units`` entry).  ``batch_axes``: the
     mesh axes the batch is split over, whose ranks take the MoE aux loss's
     means together (:func:`repro_torch.models.moe.aux_over_batch`).
-    ``divide`` False skips the division by the world size: a control that
-    must fail any comparison with the replicated step."""
+    ``tensor_axis``: the mesh axis of tensor and expert parallelism
+    (:attr:`repro_torch.models.sharding.ShardingConfig.tensor_axis`), None
+    in ``zero3`` and ``fsdp2d``.  ``policy``: under ``pure_dp``, the
+    gradient-sync policy over the batch axes.  ``divide`` False skips the
+    division: a control that must fail any comparison with the replicated
+    step."""
 
     specs: Params
     mesh: MeshGroups
     batch_axes: tuple[str, ...] = ()
     comm: Comm = field(default_factory=Comm)
     divide: bool = True
+    tensor_axis: str | None = None
+    policy: str | None = None
+    _tp: TensorParallel | None = field(default=None, init=False, repr=False)
 
-    def _found(self, path: tuple, unit: int | None = None):
+    @property
+    def tp(self) -> TensorParallel | None:
+        """The blocks' tensor parallelism; None where the tensor axis is
+        absent or of one rank."""
+        axis = self.tensor_axis
+        if axis is None or self.mesh.sizes.get(axis, 1) == 1:
+            return None
+        if self._tp is None:
+            self._tp = TensorParallel(self.comm.on(self.mesh.group((axis,))),
+                                      self.mesh.sizes[axis], self.mesh.coords[axis])
+        return self._tp
+
+    def _spec(self, path: tuple, unit: int | None = None):
         spec = get_path(self.specs, path)
-        return sharded_dim(spec if unit is None else spec[1:], self.mesh.sizes)
+        return spec if unit is None else spec[1:]
 
     def __call__(self, tree: Params, path: tuple, unit: int | None = None) -> Params:
         def gather(sub, leaf):
-            found = self._found(path + sub, unit)
-            if found is None:
-                return leaf
-            dim, axes = found
-            return GatherInForward.apply(leaf, self.comm.on(self.mesh.group(axes)), dim)
+            for dim, axes in split_dims(self._spec(path + sub, unit), self.mesh.sizes):
+                if self.tensor_axis not in axes:
+                    leaf = GatherInForward.apply(leaf, self.comm.on(self.mesh.group(axes)),
+                                                 dim)
+            return leaf
 
         return map_leaves(gather, tree)
 
@@ -153,20 +173,32 @@ class ShardedHook:
             return None
         return self.comm.on(self.mesh.group(self.batch_axes))
 
+    def _summed(self) -> tuple[str, ...]:
+        """The mesh axes every gradient is summed over: all but the tensor
+        axis."""
+        return tuple(a for a in self.mesh.sizes if a != self.tensor_axis)
+
     def finish(self, grads: Params) -> Params:
         """The gradients of the whole step's mean loss, each rank's slice
         (module docstring), written in place."""
+        summed = self._summed()
+        if self.policy is not None:
+            if self.mesh.axes_size(summed) == 1:
+                return grads
+            return sync_gradients(grads, self.policy, self.comm.on(self.mesh.group(summed)),
+                                  mean=self.divide)
         works = []
         for path, g in leaf_order(grads):
-            found = self._found(path)
-            rest = tuple(a for a in self.mesh.sizes if found is None or a not in found[1])
+            split = split_axes(self._spec(path), self.mesh.sizes)
+            rest = tuple(a for a in summed if a not in split)
             if self.mesh.axes_size(rest) > 1:
                 works.append(self.comm.on(self.mesh.group(rest)).all_reduce(g, async_op=True))
         for work in works:
             work.wait()
         if self.divide:
+            n = self.mesh.axes_size(summed)
             for _, g in leaf_order(grads):
-                g.div_(self.mesh.world)
+                g.div_(n)
         return grads
 
     def global_norm(self, grads: Params) -> torch.Tensor:
@@ -174,12 +206,12 @@ class ShardedHook:
         group's sum of squares all-reduced over it once."""
         replicated, by_axes = 0.0, {}
         for path, g in leaf_order(grads):
-            found = self._found(path)
+            axes = split_axes(self._spec(path), self.mesh.sizes)
             sq = g.float().square().sum()
-            if found is None:
+            if not axes:
                 replicated = replicated + sq
             else:
-                by_axes[found[1]] = by_axes.get(found[1], 0.0) + sq
+                by_axes[axes] = by_axes.get(axes, 0.0) + sq
         for axes, sq in by_axes.items():
             self.comm.on(self.mesh.group(axes)).all_reduce(sq)
         return torch.sqrt(replicated + sum(by_axes.values()))

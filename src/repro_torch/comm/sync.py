@@ -18,6 +18,10 @@ Counterpart of :mod:`repro.comm.sync`:
 Every collective of the port goes through :class:`Comm`, which counts the
 bytes of each op's result — the port's counterpart of the reference's HLO
 collective-bytes harvest (``launch/hlo.py``, which counts the result type).
+A dry run of a step that gloo runs (``gloo_staging``) makes the one copy
+that gloo makes and a fake process group does not: gloo reduces a
+``reduce_scatter_tensor`` as an all-reduce of a copy of its whole input,
+of which it keeps this rank's block.
 """
 from __future__ import annotations
 
@@ -42,11 +46,14 @@ class Comm:
     ``all-gather``, ``reduce-scatter``), of the calls made through it and of
     their results' bytes: the reduced tensor, the gathered tensor, the
     rank's shard.  :meth:`on` gives a ``Comm`` on another group that adds
-    to the same counts."""
+    to the same counts.  ``gloo_staging``: on a fake process group, copy
+    a reduce-scatter's input as gloo does (module docstring); never set on
+    a real group, where gloo makes the copy itself."""
 
     group: object = None
     bytes_by_op: Counter = field(default_factory=Counter)
     count_by_op: Counter = field(default_factory=Counter)
+    gloo_staging: bool = False
 
     @property
     def bytes(self) -> int:
@@ -65,7 +72,7 @@ class Comm:
         return dist.get_rank(self.group)
 
     def on(self, group) -> "Comm":
-        return type(self)(group, self.bytes_by_op, self.count_by_op)
+        return type(self)(group, self.bytes_by_op, self.count_by_op, self.gloo_staging)
 
     def reset(self) -> None:
         self.bytes_by_op.clear()
@@ -108,7 +115,8 @@ class Comm:
                 n * shape[0], *shape[1:])
         out = full.new_empty(shape)
         self._count("reduce-scatter", out)
-        dist.reduce_scatter_tensor(out, full.contiguous(), group=self.group)
+        staged = full.clone() if self.gloo_staging else full
+        dist.reduce_scatter_tensor(out, staged.contiguous(), group=self.group)
         return out
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
@@ -169,11 +177,12 @@ class WfbpHook:
 # ----------------------------------------------------------------------
 # at_end and bucketed
 # ----------------------------------------------------------------------
-def pmean_at_end(grads: Params, comm: Comm) -> Params:
+def pmean_at_end(grads: Params, comm: Comm, mean: bool = True) -> Params:
     """Mean-reduce every gradient leaf after the backward pass: all
-    all-reduces started, then all waited for (one collective phase)."""
+    all-reduces started, then all waited for (one collective phase).
+    ``mean`` False leaves the sums."""
     works = [(leaf, comm.all_reduce(leaf, async_op=True)) for _, leaf in leaf_order(grads)]
-    world = comm.world
+    world = comm.world if mean else 1
     for leaf, work in works:
         work.wait()
         leaf.div_(world)
@@ -198,11 +207,11 @@ def bucket_partition(leaves: list[torch.Tensor],
 
 
 def bucketed_pmean(grads: Params, comm: Comm,
-                   bucket_bytes: float = DEFAULT_BUCKET_BYTES) -> Params:
+                   bucket_bytes: float = DEFAULT_BUCKET_BYTES, mean: bool = True) -> Params:
     """One f32 all-reduce per bucket, then scattered back in each leaf's
-    dtype."""
+    dtype.  ``mean`` False leaves the sums."""
     leaves = [leaf for _, leaf in leaf_order(grads)]
-    world = comm.world
+    world = comm.world if mean else 1
     for members in bucket_partition(leaves, bucket_bytes):
         flat = torch.cat([leaves[i].reshape(-1).float() for i in members])
         comm.all_reduce(flat)
@@ -216,13 +225,14 @@ def bucketed_pmean(grads: Params, comm: Comm,
 
 
 def sync_gradients(grads: Params, policy: str, comm: Comm | None,
-                   bucket_bytes: float = DEFAULT_BUCKET_BYTES) -> Params:
+                   bucket_bytes: float = DEFAULT_BUCKET_BYTES, mean: bool = True) -> Params:
     """Post-backward sync; ``wfbp`` gradients were reduced during the
-    backward pass (:class:`WfbpHook`) and pass through."""
+    backward pass (:class:`WfbpHook`) and pass through.  ``mean`` False
+    leaves the sums (a control)."""
     if policy in ("none", "wfbp") or comm is None:
         return grads
     if policy == "at_end":
-        return pmean_at_end(grads, comm)
+        return pmean_at_end(grads, comm, mean)
     if policy == "bucketed":
-        return bucketed_pmean(grads, comm, bucket_bytes)
+        return bucketed_pmean(grads, comm, bucket_bytes, mean)
     raise ValueError(f"unknown sync policy {policy!r}")

@@ -5,7 +5,7 @@ fake tensors and record its memory, FLOPs and collectives.
         --shape train_4k [--ranks N | --mesh {16x16,2x16x16}] [--mode pure_dp] \\
         [--policy at_end] [--no-remat] [--accum-steps K] [--out-dir results/dryrun_torch]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh production] \\
-        [--mode zero3] [--missing-only]
+        [--mode fsdp] [--missing-only]
 
 Counterpart of :mod:`repro.launch.dryrun`, which lowers and compiles on 512
 placeholder host devices.  Here the port's own step (``make_train_step``,
@@ -29,27 +29,31 @@ tensor.  Both take the kernel path
 the batch over the ranks where it divides (else it stays replicated:
 ``prefill_32k``'s 32 rows on 256 ranks); at N > 1 ranks a train step's
 gradients go through :func:`repro_torch.comm.sync.sync_gradients`.
-``zero3`` and ``fsdp2d`` run on ``dp<N>`` and on the reference's
-production meshes ``16x16`` and ``2x16x16`` (``--mesh``; ``--all --mesh
-production`` lowers every pair on both), with the sharded-parameter
-runtime of :mod:`repro_torch.comm.sharded`: the lowered rank, coordinate 0,
-holds its shards of the parameters and momentum by the rules, gathers each
-unit's when it runs and reduce-scatters the gradients.  A rank's batch is
-the global batch over the product of the mesh axes of the batch's spec
-(``zero3`` splits it over the whole mesh where it divides, ``fsdp2d`` over
-``pod`` and ``data``).  ``fsdp``, and ``pure_dp`` on a mesh with a ``model``
-axis, put tensor and expert parallelism on that axis, which the port does
-not run yet: they raise ``NotImplementedError`` (ROADMAP queue 1, item 15).
-Every collective goes to a ``"fake"`` process group of the mesh's ranks
+Every mode runs on ``dp<N>`` and on the reference's production meshes
+``16x16`` and ``2x16x16`` (``--mesh``; ``--all --mesh production`` lowers
+every pair on both), the sharded modes with the sharded-parameter runtime
+of :mod:`repro_torch.comm.sharded`: the lowered rank, coordinate 0, holds
+its shards of the parameters and momentum by the rules, gathers each
+unit's ``fsdp`` dims when it runs and reduce-scatters the gradients.
+``fsdp`` (the reference's default) and ``pure_dp`` on a mesh with a
+``model`` axis put tensor and expert parallelism on that axis
+(:mod:`repro_torch.comm.tensor_parallel`): the rank holds its block of
+the heads, hidden, vocabulary, RNN width and experts by the rules, and the
+blocks call their own collectives over ``model``; under ``pure_dp`` the
+gradients are then synchronized over ``pod`` x ``data`` by ``--policy``.
+A rank's batch is the global batch over the product of the mesh axes of
+the batch's spec (``zero3`` splits it over the whole mesh where it
+divides, the others over ``pod`` and ``data``).  Every collective goes to
+a ``"fake"`` process group of the mesh's ranks
 (:func:`repro_torch.launch.mesh.fake_process_group`, sub-groups from
-:func:`repro_torch.launch.mesh.mesh_groups`).  Where the rules shard a
-decode cache's sequence axis (``long_500k``, batch 1: over ``data``), a
-rank's ``G`` and ``L`` cache leaves are its local slices and the serve step
-runs the sequence-sharded decode
-(:func:`repro_torch.models.attention.decode_attention_seq_sharded`) with a
-:class:`repro_torch.comm.sync.Comm` on the group of that axis, so the
-record's ``collectives`` count its combine: three all-reduces a sharded
-layer.
+:func:`repro_torch.launch.mesh.mesh_groups`).  A decode cache is the
+rank's slice by the rules.  Where they shard its sequence axis
+(``long_500k``, batch 1: over ``data``; ``decode_32k`` under tensor
+parallelism: over ``model``), the serve step runs the sequence-sharded
+decode (:func:`repro_torch.models.attention.decode_attention_seq_sharded`)
+with a :class:`repro_torch.comm.sync.Comm` on the group of that axis, so
+the record's ``collectives`` count its combine: three all-reduces a
+sharded layer.
 
 **The record** keeps the reference's keys: ``memory`` (``argument_bytes``:
 the rank's parameters, optimizer state, batch and cache, from the
@@ -184,9 +188,10 @@ def _spec_bytes(tree, specs, sizes) -> int:
 
 def _seq_axes(cache_specs, sizes) -> tuple[str, ...]:
     """The mesh axes the k / v cache leaves' sequence dim is split over
-    (``()`` where it is not).  Raises where some leaves are split and
-    others not, or over different axes: the sequence-sharded decode takes
-    every ``G`` and ``L`` cache split over one group."""
+    (``()`` where it is not): ``data`` or, under tensor parallelism,
+    ``model``.  Raises where some leaves are split and others not, or over
+    different axes: the sequence-sharded decode takes every ``G``, ``L``
+    and ``C`` cache split over one group."""
     found = {path: shd.entry_axes(spec[-3]) for path, spec in T.leaf_order(cache_specs)
              if path[-1] in ("k", "v")}
     split = {a for a in found.values() if math.prod(sizes[x] for x in a) > 1}
@@ -196,7 +201,7 @@ def _seq_axes(cache_specs, sizes) -> tuple[str, ...]:
         raise NotImplementedError(
             "the rules split the sequence axis of some decode cache leaves and not of "
             f"others, or over different axes ({found}): the sequence-sharded decode "
-            "takes every G and L cache split over one group")
+            "takes every G, L and C cache split over one group")
     return split.pop()
 
 
@@ -207,11 +212,11 @@ def dryrun_one(arch: str, shape_name: str, *, ranks: int = 1,
     """The record of one lowering (module docstring) on ``mesh`` (``{axis:
     size}``; default the ``dp<ranks>`` mesh).  ``num_layers`` cuts the depth
     (the tests lower one unit); ``device`` defaults to
-    :func:`lowering_device`.  Raises ``NotImplementedError`` for a mode the
-    port does not run on that mesh (:func:`check_mode`)."""
+    :func:`lowering_device`.  Raises ``ValueError`` for an unknown mode
+    (:func:`check_mode`)."""
     t_start = time.time()
     sizes = dict(mesh) if mesh is not None else dp_mesh_sizes(ranks)
-    check_mode(mode, sizes)
+    check_mode(mode)
     cfg = get_config(arch)
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers).validate()
@@ -242,39 +247,34 @@ def dryrun_one(arch: str, shape_name: str, *, ranks: int = 1,
     return record
 
 
-def check_mode(mode: str, sizes: dict[str, int] | None = None) -> None:
-    """Raise ``NotImplementedError`` for ``fsdp``, and for ``pure_dp`` on a
-    mesh with a ``model`` axis: both put tensor and expert parallelism on
-    that axis.  ``zero3`` and ``fsdp2d`` run on every mesh, ``pure_dp`` on
-    ``dp<N>``."""
+def check_mode(mode: str) -> None:
+    """Raise ``ValueError`` for a mode the rules do not know; every mode
+    runs on every mesh."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-    if mode == "fsdp" or (mode == "pure_dp" and "model" in (sizes or {})):
-        where = f" on the {mesh_label(sizes)} mesh" if mode == "pure_dp" else ""
-        raise NotImplementedError(
-            f"mode {mode!r}{where} puts tensor and expert parallelism on the model axis, "
-            "which the port does not run yet (ROADMAP queue 1, item 15): use zero3 or "
-            "fsdp2d, or pure_dp on dp<N>")
 
 
 def lower(cfg, shape: InputShape, *, ranks: int = 1, mesh: dict[str, int] | None = None,
           mode: str = "pure_dp", policy: str = "at_end", remat: bool = True,
-          accum_steps: int = 1, device: str | None = None) -> dict:
+          accum_steps: int = 1, device: str | None = None, gloo: bool = False) -> dict:
     """One rank's step for ``cfg`` at ``shape`` on ``mesh`` (default
     ``dp<ranks>``) under ``mode``, lowered at coordinate 0 on fake tensors
     of ``device`` holding that rank's shards: the record's ``lower_s``,
     ``compile_s``, ``memory``, ``cost_analysis``, ``collectives`` and
     ``kernel_calls``.  The step is the train step with SGD (lr 1e-2,
     momentum 0.9), the prefill step or the serve step, by ``shape.kind``;
-    under ``zero3`` and ``fsdp2d`` it runs with the sharded-parameter
-    runtime (:class:`repro_torch.comm.sharded.ShardedHook`).  A rank's
+    it runs with the sharded-parameter runtime
+    (:class:`repro_torch.comm.sharded.ShardedHook`) wherever the rules
+    split a parameter: every mode but ``pure_dp`` on ``dp<N>``.  A rank's
     batch is the global batch over the product of the mesh axes of the
-    batch's spec."""
+    batch's spec.  ``gloo``: the step as gloo ranks run it, each
+    reduce-scatter's input copied first (:class:`repro_torch.comm.sync.
+    Comm`'s ``gloo_staging``); the collectives are the same."""
     if policy not in POLICIES:
         raise ValueError(f"unknown gradient-sync policy {policy!r}; one of {POLICIES}")
     device = device or lowering_device()
     sizes = dict(mesh) if mesh is not None else dp_mesh_sizes(ranks)
-    check_mode(mode, sizes)
+    check_mode(mode)
     world = math.prod(sizes.values())
     sc = shd.ShardingConfig(mesh_axes=tuple(sizes), mode=mode)
     # global shapes (meta, no storage) -> specs -> one rank's bytes
@@ -301,7 +301,7 @@ def lower(cfg, shape: InputShape, *, ranks: int = 1, mesh: dict[str, int] | None
 
     params = local(gparams, pspecs)
     data = steps_mod.input_specs(cfg, shape, device, fake, batch=batch)
-    if seq_axes:
+    if shape.kind == "decode":
         data["cache"] = local(gbatch["cache"], bspecs["cache"])
     with fake:
         opt = sgd(lr=1e-2, momentum=0.9)
@@ -312,9 +312,12 @@ def lower(cfg, shape: InputShape, *, ranks: int = 1, mesh: dict[str, int] | None
                              f"say {arg_bytes}")
     if shape.kind == "decode":
         data = {**data, "pos": shape.seq_len - 1}     # the step takes a Python int
-    comm = S.Comm()
+    comm = S.Comm(gloo_staging=gloo)
     groups = mesh_groups(sizes, 0)
-    hook = None if mode == "pure_dp" else ShardedHook(pspecs, groups, batch_axes, comm)
+    hook = None
+    if mode != "pure_dp" or sizes.get(sc.tensor_axis, 1) > 1:
+        hook = ShardedHook(pspecs, groups, batch_axes, comm, tensor_axis=sc.tensor_axis,
+                           policy=policy if mode == "pure_dp" else None)
     lowering = Lowering()
     with fake_process_group(world) if world > 1 else contextlib.nullcontext(), fake:
         lowering.own(args)
@@ -384,11 +387,6 @@ def main(argv=None) -> int:
               [args.mesh] if args.mesh else [mesh_label(dp_mesh_sizes(args.ranks))])
     sizes_of = {label: PRODUCTION_MESHES.get(label) or dp_mesh_sizes(args.ranks)
                 for label in meshes}
-    try:
-        for label in meshes:
-            check_mode(args.mode, sizes_of[label])
-    except NotImplementedError as e:
-        ap.error(f"--mode {args.mode}: {e}")
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 

@@ -12,12 +12,16 @@ direction).  These are the card's published peaks, not measurements, so a
 term is the least time the card could take for that part of the step, and
 the tables are bounds, never measured times.  The records are the port's
 data-parallel ``dp<N>`` meshes and the reference's ``16x16`` /
-``2x16x16`` (under ``zero3`` and ``fsdp2d``); one roofline table is made
-for each (mesh, mode).  The compute term is the reference's: analytic
-FLOPs over the chips.  Beside it stands the record's lowered FLOPs of one
-rank: under ``fsdp2d`` the ``model`` ranks of a data shard repeat its
-compute, so the analytic FLOPs over the chips count a rank's work short
-by the ``model`` axis' size.
+``2x16x16`` (under ``zero3``, ``fsdp2d``, ``fsdp`` and ``pure_dp``); one
+roofline table is made for each (mesh, mode), and :func:`modes_table`
+sets ``train_4k``'s side by side.  The compute term is the reference's:
+analytic FLOPs over the chips.  Beside it stands the record's lowered
+FLOPs of one rank: under ``fsdp2d`` the ``model`` ranks of a data shard
+repeat its compute, so the analytic FLOPs over the chips count a rank's
+work short by the ``model`` axis' size; under ``fsdp`` and ``pure_dp`` on
+a mesh with ``model`` they split it (tensor parallelism), but for the
+parts the rules leave whole there (attention whose heads do not divide
+``model``, the MoE router).
 """
 from __future__ import annotations
 

@@ -103,19 +103,20 @@ def encoder_input(cfg: ModelConfig, batch: dict):
 
 
 def model_loss(cfg: ModelConfig, params, tokens, labels, remat: bool = False,
-               param_hook: T.ParamHook | None = None, encoder_in=None):
+               param_hook: T.ParamHook | None = None, encoder_in=None, tp=None):
     """(total loss, metrics) of the arch's model: the encoder-decoder's
     ``loss_fn`` for an ``audio`` arch (``encoder_in`` the frames), else the
-    LM's (``encoder_in`` the images of a ``vlm`` arch, or None)."""
+    LM's (``encoder_in`` the images of a ``vlm`` arch, or None).  ``tp``:
+    tensor parallelism (:mod:`repro_torch.comm.tensor_parallel`)."""
     if cfg.arch_type == "audio":
         return ED.loss_fn(cfg, params, encoder_in, tokens, labels, remat=remat,
-                          param_hook=param_hook)
+                          param_hook=param_hook, tp=tp)
     return T.loss_fn(cfg, params, tokens, labels, encoder_out=encoder_in, remat=remat,
-                     param_hook=param_hook)
+                     param_hook=param_hook, tp=tp)
 
 
 def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = False,
-                   param_hook: T.ParamHook | None = None, encoder_in=None):
+                   param_hook: T.ParamHook | None = None, encoder_in=None, tp=None):
     """(total loss, metrics, gradients keyed like ``params``): the port's
     ``loss_fn``, then ``torch.autograd.grad`` over every leaf.
     ``encoder_in``: the frames of an ``audio`` arch or the images of a
@@ -125,7 +126,7 @@ def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = False
         leaf.requires_grad_(True)
     try:
         total, metrics = model_loss(cfg, params, tokens.long(), labels.long(), remat,
-                                    param_hook, encoder_in)
+                                    param_hook, encoder_in, tp)
         grad_list = torch.autograd.grad(total, leaves)
     finally:
         for leaf in leaves:
@@ -153,7 +154,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
     :func:`repro_torch.comm.sync.sync_gradients` over a process group).
     ``sharded`` (:class:`repro_torch.comm.sharded.ShardedHook`): the
     parameters and optimizer state are this rank's shards, gathered per
-    unit; each microbatch's gradients are finished by it
+    unit, and the blocks run its tensor parallelism
+    (:attr:`~repro_torch.comm.sharded.ShardedHook.tp`); each microbatch's
+    gradients are finished by it
     (:meth:`~repro_torch.comm.sharded.ShardedHook.finish`) and the MoE aux
     loss is taken over the batch of the ranks that split it; ``grad_norm``
     is the whole gradient's."""
@@ -167,7 +170,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
             return loss_and_grads(cfg, params, tokens, labels, remat, encoder_in=enc_in)
         with aux_over_batch(sharded.batch_comm()):
             total, metrics, grads = loss_and_grads(cfg, params, tokens, labels, remat,
-                                                   sharded, enc_in)
+                                                   sharded, enc_in, sharded.tp)
         return total, metrics, sharded.finish(grads)
 
     def train_step(params, opt_state, batch):
@@ -211,15 +214,17 @@ def make_prefill_step(cfg: ModelConfig, *, sharded: ShardedHook | None = None):
     """``prefill_step(params, batch) -> logits (B, S, V)``, no gradient;
     ``batch`` holds ``tokens``, and ``frames`` or ``images`` as in
     training.  ``sharded``: the parameters are this rank's shards, gathered
-    per unit."""
+    per unit, and the logits this rank's block of the vocabulary where its
+    tensor parallelism splits it."""
+    tp = sharded.tp if sharded is not None else None
 
     @torch.no_grad()
     def prefill_step(params, batch):
         if cfg.arch_type == "audio":
             return ED.forward(cfg, params, batch["frames"], batch["tokens"],
-                              param_hook=sharded)
+                              param_hook=sharded, tp=tp)
         return T.forward(cfg, params, batch["tokens"], encoder_out=encoder_input(cfg, batch),
-                         param_hook=sharded)
+                         param_hook=sharded, tp=tp)
 
     return prefill_step
 
@@ -234,15 +239,18 @@ def make_serve_step(cfg: ModelConfig, *, seq_axis=None, sharded: ShardedHook | N
     :class:`repro_torch.comm.sync.Comm` whose group shards the ``G`` and
     ``L`` caches' sequence axis (:func:`repro_torch.models.transformer.
     decode_step`).  ``sharded``: the parameters are this rank's shards,
-    gathered per unit at each token."""
+    gathered per unit at each token; under its tensor parallelism the cache
+    is this rank's slice by the rules and the logits its block of the
+    vocabulary where that is split."""
+    tp = sharded.tp if sharded is not None else None
 
     def serve_step(params, batch):
         cache, token, pos = batch["cache"], batch["token"], batch["pos"]
         if cfg.arch_type == "audio":
             return ED.decode_step(cfg, params, cache, batch["encoder_states"], token, pos,
-                                  param_hook=sharded)
+                                  param_hook=sharded, seq_axis=seq_axis, tp=tp)
         return T.decode_step(cfg, params, cache, token, pos,
                              encoder_out=encoder_input(cfg, batch), seq_axis=seq_axis,
-                             param_hook=sharded)
+                             param_hook=sharded, tp=tp)
 
     return serve_step

@@ -111,11 +111,13 @@ def _rank_entry(rank: int, world: int, init_file: str, device: str, fn, args: tu
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world: int, device: str | None, *args) -> None:
+def spawn_ranks(fn, world: int, device: str | None, *args, meanwhile=None):
     """Run ``fn(rank, device, *args)`` in ``world`` spawned processes that
     form the default process group (gloo, a ``file://`` rendezvous in a
     temporary directory), all on one ``device`` (default CUDA, which raises
-    without a GPU).  ``fn`` must be a module-level function."""
+    without a GPU).  ``fn`` must be a module-level function.  ``meanwhile``,
+    if given, is called here while the ranks run; its result is returned
+    once they have ended."""
     import torch.multiprocessing as mp
 
     dev = resolve_device(device)
@@ -124,8 +126,14 @@ def spawn_ranks(fn, world: int, device: str | None, *args) -> None:
         from repro_torch.kernels import load_libraries
         load_libraries()
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank_entry, nprocs=world, join=True,
-                 args=(world, os.path.join(tmp, "rendezvous"), str(dev), fn, args))
+        ctx = mp.spawn(_rank_entry, nprocs=world, join=False,
+                       args=(world, os.path.join(tmp, "rendezvous"), str(dev), fn, args))
+        try:
+            result = meanwhile() if meanwhile is not None else None
+        finally:
+            while not ctx.join():
+                pass
+    return result
 
 
 def _measure_rank(rank: int, dev: torch.device, arch: str, out_dir: str, geometry: Geometry,

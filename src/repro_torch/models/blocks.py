@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm.tensor_parallel import TensorParallel, copy_to_model, row_parallel
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
@@ -46,14 +47,20 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, device,
     return p
 
 
-def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              tp: TensorParallel | None = None) -> torch.Tensor:
+    """The MLP; under tensor parallelism (``tp``, the hidden split over
+    ``model``) a column-parallel ``wi`` / ``wg`` and a row-parallel ``wo``,
+    whose product is all-reduced."""
+    tp = tp if tp is not None and p["wi"].shape[-1] < cfg.d_ff else None
+    x = copy_to_model(tp, x)
     h = x @ p["wi"]
     if cfg.mlp_gated:
         g = x @ p["wg"]
         h = h * F.silu(g.float()).to(h.dtype)
     else:
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return h @ p["wo"]
+    return row_parallel(tp, h, p["wo"])
 
 
 def _ffn_init(cfg: ModelConfig, gen: torch.Generator, device,
@@ -63,11 +70,11 @@ def _ffn_init(cfg: ModelConfig, gen: torch.Generator, device,
     return {"mlp": init_mlp(cfg, gen, device, lead)}
 
 
-def _ffn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+def _ffn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, tp: TensorParallel | None,
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     if "moe" in p:
-        return moe_mod.moe_mlp(cfg, p["moe"], x)
-    return mlp_apply(cfg, p["mlp"], x), None
+        return moe_mod.moe_mlp(cfg, p["moe"], x, tp)
+    return mlp_apply(cfg, p["mlp"], x, tp), None
 
 
 # ----------------------------------------------------------------------
@@ -94,34 +101,39 @@ def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
             **_ffn_init(cfg, gen, device, lead)}
 
 
-def _cross(cfg: ModelConfig, p: Params, x: torch.Tensor, encoder_out: torch.Tensor):
+def _cross(cfg: ModelConfig, p: Params, x: torch.Tensor, encoder_out: torch.Tensor,
+           tp: TensorParallel | None = None):
     """A ``C`` block's cross-attention sub-layer, pre-norm residual."""
     h = apply_norm(cfg, p["norm_x"], x)
-    return x + attn.attention_fwd(cfg, p["xattn"], h, kv_src=encoder_out, use_rope=False)
+    return x + attn.attention_fwd(cfg, p["xattn"], h, kv_src=encoder_out, use_rope=False,
+                                  tp=tp)
 
 
 def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                encoder_out: torch.Tensor | None = None,
+                encoder_out: torch.Tensor | None = None, tp: TensorParallel | None = None,
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(the block's output, its MoE aux loss in float32; None without
     experts, where the reference's is 0).  ``encoder_out`` (B, S_enc, d):
-    the states a ``C`` block attends to."""
+    the states a ``C`` block attends to.  ``tp``: tensor and expert
+    parallelism on ``model`` (:mod:`repro_torch.comm.tensor_parallel`); the
+    residual stream ``x`` is whole on every ``model`` rank, as the
+    reference's ``constrain(x, "batch", None, None)`` keeps it."""
     _check_kind(cfg, kind)
     _check_encoder(kind, encoder_out)
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "W":
-        x = x + rec.rwkv_time_mix(cfg, p["time_mix"], h)[0]
+        x = x + rec.rwkv_time_mix(cfg, p["time_mix"], h, tp=tp)[0]
         h = apply_norm(cfg, p["norm2"], x)
-        return x + rec.rwkv_channel_mix(cfg, p["channel_mix"], h)[0], None
+        return x + rec.rwkv_channel_mix(cfg, p["channel_mix"], h, tp=tp)[0], None
     if kind == "R":
-        x = x + rec.rglru_block(cfg, p["rglru"], h)[0]
+        x = x + rec.rglru_block(cfg, p["rglru"], h, tp=tp)[0]
     else:
         window = cfg.sliding_window if kind == "L" else None
-        x = x + attn.attention_fwd(cfg, p["attn"], h, causal=True, window=window)
+        x = x + attn.attention_fwd(cfg, p["attn"], h, causal=True, window=window, tp=tp)
         if kind == "C":
-            x = _cross(cfg, p, x, encoder_out)
+            x = _cross(cfg, p, x, encoder_out, tp)
     h = apply_norm(cfg, p["norm2"], x)
-    y, aux = _ffn_apply(cfg, p, h)
+    y, aux = _ffn_apply(cfg, p, h, tp)
     return x + y, aux
 
 
@@ -152,34 +164,37 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int, devi
 
 def decode_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, cache: Params,
                  pos: int, encoder_out: torch.Tensor | None = None,
-                 seq_axis=None) -> tuple[torch.Tensor, Params]:
+                 seq_axis=None, tp: TensorParallel | None = None,
+                 ) -> tuple[torch.Tensor, Params]:
     """x: (B, 1, d) at position ``pos`` -> (x, new cache).  ``seq_axis``
-    (a :class:`repro_torch.comm.sync.Comm`) makes the ``G`` and ``L``
-    caches this rank's slices of sequence-sharded ones (the reference
+    (a :class:`repro_torch.comm.sync.Comm`) makes the ``G``, ``L`` and
+    ``C`` caches this rank's slices of sequence-sharded ones (the reference
     shards ``G`` only; :func:`repro_torch.models.attention.
-    decode_attention_seq_sharded` says why ``L`` too).  An attention
+    decode_attention_seq_sharded` says why the others too).  An attention
     block's new cache is ``cache`` itself, written in place; a recurrent
     block's holds new tensors.  A ``C`` block attends from the token to all
-    of ``encoder_out``, recomputing that attention's k and v each call."""
+    of ``encoder_out``, recomputing that attention's k and v each call.
+    ``tp``: as in :func:`apply_block`; the cache is this rank's slice by
+    the rules (:func:`repro_torch.models.sharding.cache_specs`)."""
     _check_kind(cfg, kind)
     _check_encoder(kind, encoder_out)
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "W":
         y, tm = rec.rwkv_time_mix(cfg, p["time_mix"], h,
-                                  state={"S": cache["S"], "x_prev": cache["x_prev_tm"]})
+                                  state={"S": cache["S"], "x_prev": cache["x_prev_tm"]}, tp=tp)
         x = x + y
         h = apply_norm(cfg, p["norm2"], x)
         y, x_prev_cm = rec.rwkv_channel_mix(cfg, p["channel_mix"], h,
-                                            x_prev=cache["x_prev_cm"])
+                                            x_prev=cache["x_prev_cm"], tp=tp)
         return x + y, {"S": tm["S"], "x_prev_tm": tm["x_prev"], "x_prev_cm": x_prev_cm}
     if kind == "R":
-        y, new_cache = rec.rglru_block(cfg, p["rglru"], h, state=cache)
+        y, new_cache = rec.rglru_block(cfg, p["rglru"], h, state=cache, tp=tp)
     else:
         y, new_cache = attn.decode_attention(
             cfg, p["attn"], h, cache, pos, window=cfg.sliding_window if kind == "L" else None,
-            seq_axis=seq_axis if kind in ("G", "L") else None)
+            seq_axis=seq_axis, tp=tp)
     x = x + y
     if kind == "C":
-        x = _cross(cfg, p, x, encoder_out)
+        x = _cross(cfg, p, x, encoder_out, tp)
     h = apply_norm(cfg, p["norm2"], x)
-    return x + _ffn_apply(cfg, p, h)[0], new_cache
+    return x + _ffn_apply(cfg, p, h, tp)[0], new_cache

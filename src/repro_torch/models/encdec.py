@@ -13,12 +13,16 @@ encoder, ``Sq != Skv`` in the decoder's cross-attention), the plain
 oracle on the CPU.  ``param_hook`` (:data:`repro_torch.models.transformer.
 ParamHook`) is applied to each encoder layer when it runs, with its path
 ``("encoder", "layers", i)``, and to the decoder's leaves under
-``("decoder", ...)``.
+``("decoder", ...)``.  ``tp`` (tensor parallelism, :mod:`repro_torch.comm.
+tensor_parallel`) splits the encoder's attention heads and MLP as it does
+the decoder's blocks; the encoder's states are whole on every ``model``
+rank.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.comm.tensor_parallel import TensorParallel
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as B
 from repro_torch.models import transformer as T
@@ -41,7 +45,8 @@ def _no_hook(p, path, unit=None):
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
-           param_hook: T.ParamHook | None = None) -> torch.Tensor:
+           param_hook: T.ParamHook | None = None,
+           tp: TensorParallel | None = None) -> torch.Tensor:
     """frames: (B, S_enc, d) stub embeddings -> encoder states (B, S_enc, d).
     Each layer's attention is bidirectional, with RoPE at ``arange(S_enc)``
     as in the reference.  ``params`` is the tree's ``encoder``."""
@@ -50,9 +55,9 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
     for i, layer in enumerate(params["layers"]):
         lp = ph(layer, ("encoder", "layers", i), None)
         h = apply_norm(cfg, lp["norm1"], x)
-        x = x + attn.attention_fwd(cfg, lp["attn"], h, causal=False)
+        x = x + attn.attention_fwd(cfg, lp["attn"], h, causal=False, tp=tp)
         h = apply_norm(cfg, lp["norm2"], x)
-        x = x + B.mlp_apply(cfg, lp["mlp"], h)
+        x = x + B.mlp_apply(cfg, lp["mlp"], h, tp)
     return apply_norm(cfg, ph(params["final_norm"], ("encoder", "final_norm"), None), x)
 
 
@@ -73,26 +78,29 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
 
 
 def forward(cfg: ModelConfig, params: Params, frames: torch.Tensor, tokens: torch.Tensor, *,
-            remat: bool = False, param_hook: T.ParamHook | None = None) -> torch.Tensor:
+            remat: bool = False, param_hook: T.ParamHook | None = None,
+            tp: TensorParallel | None = None) -> torch.Tensor:
     """(frames, decoder tokens) -> logits (B, S, V)."""
-    enc = encode(cfg, params["encoder"], frames, param_hook=param_hook)
+    enc = encode(cfg, params["encoder"], frames, param_hook=param_hook, tp=tp)
     return T.forward(cfg, params["decoder"], tokens, encoder_out=enc, remat=remat,
-                     param_hook=_decoder_hook(param_hook))
+                     param_hook=_decoder_hook(param_hook), tp=tp)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, frames: torch.Tensor, tokens: torch.Tensor,
             labels: torch.Tensor, *, remat: bool = False,
-            param_hook: T.ParamHook | None = None) -> tuple[torch.Tensor, dict]:
-    enc = encode(cfg, params["encoder"], frames, param_hook=param_hook)
+            param_hook: T.ParamHook | None = None,
+            tp: TensorParallel | None = None) -> tuple[torch.Tensor, dict]:
+    enc = encode(cfg, params["encoder"], frames, param_hook=param_hook, tp=tp)
     return T.loss_fn(cfg, params["decoder"], tokens, labels, encoder_out=enc, remat=remat,
-                     param_hook=_decoder_hook(param_hook))
+                     param_hook=_decoder_hook(param_hook), tp=tp)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 encoder_states: torch.Tensor, token: torch.Tensor,
-                pos: int, *, param_hook: T.ParamHook | None = None,
-                ) -> tuple[torch.Tensor, Params]:
+                pos: int, *, param_hook: T.ParamHook | None = None, seq_axis=None,
+                tp: TensorParallel | None = None) -> tuple[torch.Tensor, Params]:
     """Serve step: the encoder states are computed once, when the request
     is admitted (:func:`encode`), and passed to every decode step."""
     return T.decode_step(cfg, params["decoder"], cache, token, pos,
-                         encoder_out=encoder_states, param_hook=_decoder_hook(param_hook))
+                         encoder_out=encoder_states, seq_axis=seq_axis,
+                         param_hook=_decoder_hook(param_hook), tp=tp)

@@ -5,10 +5,22 @@ logsumexp and label-logit gather over vocab chunks, and the backward
 recomputes each chunk's logits, so no (B, S, V) logits live at once.
 Same chunk rule (:func:`_num_chunks`); qwen1.5-4b's 151 936 vocabulary
 splits into 32 chunks of 4748.
+
+**A vocabulary split over ``model``** (``tp``, :mod:`repro_torch.comm.
+tensor_parallel`; the reference's logits are ``constrain``-ed to
+``("batch", None, "tensor")``): each rank holds the logits of its block of
+the vocabulary (the chunks are of that block), and the loss takes two
+all-reduces over ``model``: the max of each row's logits, then the sums
+of the rows' shifted exponentials and of the target logits (each target
+lies in one rank's block; the others add 0).  The backward needs none:
+each rank's block of ``softmax - onehot`` is its own.
+:func:`vocab_parallel_cross_entropy` is the plain (unchunked) path's.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.comm.tensor_parallel import TensorParallel, max_over_model, reduce_from_model
 
 DEFAULT_CHUNK = 8192
 
@@ -23,7 +35,9 @@ def _num_chunks(V: int, chunk: int) -> int:
 
 
 def _lse_scan(x, head, labels, nc):
-    """(logsumexp, label logit), each (B, S) f32, over ``nc`` chunks."""
+    """(running max, sum of exponentials shifted by it, label logit), each
+    (B, S) f32, over ``nc`` chunks; a label outside ``head``'s columns
+    gives 0."""
     B, S, _ = x.shape
     c = head.shape[1] // nc
     m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
@@ -38,14 +52,26 @@ def _lse_scan(x, head, labels, nc):
         inside = (loc >= 0) & (loc < c)
         picked = torch.gather(logits, -1, loc.clamp(0, c - 1)[..., None])[..., 0]
         lab = torch.where(inside, picked, lab)
+    return m, l, lab
+
+
+def _combine(m, l, lab, tp: TensorParallel | None):
+    """(logsumexp, label logit) of the whole vocabulary from each rank's
+    (max, shifted sum, label logit) of its block."""
+    if tp is not None:
+        m_all = max_over_model(tp, m)
+        l, lab = reduce_from_model(tp, torch.stack([l * torch.exp(m - m_all), lab]))
+        m = m_all
     return m + torch.log(l.clamp_min(1e-30)), lab
 
 
 class ChunkedCrossEntropy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, head, labels, chunk):
+    def forward(ctx, x, head, labels, chunk, tp):
         nc = _num_chunks(head.shape[1], min(chunk, head.shape[1]))
-        lse, lab = _lse_scan(x, head, labels, nc)
+        if tp is not None:      # this rank's block of the vocabulary
+            labels = labels - tp.block(head.shape[1] * tp.size)[0]
+        lse, lab = _combine(*_lse_scan(x, head, labels, nc), tp)
         ctx.save_for_backward(x, head, labels, lse)
         ctx.nc = nc
         return (lse - lab).mean()
@@ -70,10 +96,42 @@ class ChunkedCrossEntropy(torch.autograd.Function):
             dx += dlogits @ hc.float().T
             dhead[:, ic * c:(ic + 1) * c] = \
                 (xf.reshape(B * S, d).T @ dlogits.reshape(B * S, c)).to(head.dtype)
-        return dx.to(x.dtype), dhead, None, None
+        return dx.to(x.dtype), dhead, None, None, None
 
 
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                          chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
-    """Mean token NLL.  x: (B, S, d); head: (d, V); labels: (B, S) int."""
-    return ChunkedCrossEntropy.apply(x, head, labels, chunk)
+                          chunk: int = DEFAULT_CHUNK,
+                          tp: TensorParallel | None = None) -> torch.Tensor:
+    """Mean token NLL.  x: (B, S, d); head: (d, V), or this rank's (d, V /
+    m) block of a vocabulary split over ``tp``'s ranks; labels: (B, S) int.
+    x's cotangent is this rank's part (the caller sums it over ``model``)."""
+    return ChunkedCrossEntropy.apply(x, head, labels, chunk, tp)
+
+
+class VocabParallelCrossEntropy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        V = logits.shape[-1]
+        labels = labels - tp.block(V * tp.size)[0]
+        m = logits.amax(dim=-1)
+        inside = (labels >= 0) & (labels < V)
+        picked = torch.gather(logits, -1, labels.clamp(0, V - 1)[..., None])[..., 0]
+        l = torch.exp(logits - m[..., None]).sum(dim=-1)
+        lse, lab = _combine(m, l, torch.where(inside, picked, torch.zeros_like(picked)), tp)
+        ctx.save_for_backward(logits, labels, lse)
+        return (lse - lab).mean()
+
+    @staticmethod
+    def backward(ctx, dloss):
+        logits, labels, lse = ctx.saved_tensors
+        V = logits.shape[-1]
+        p = torch.exp(logits - lse[..., None])
+        onehot = torch.arange(V, device=logits.device) == labels[..., None]
+        return (p - onehot.to(p.dtype)) * (dloss / labels.numel()), None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 tp: TensorParallel) -> torch.Tensor:
+    """Mean token NLL from this rank's block (B, S, V / m) of the float32
+    logits (module docstring)."""
+    return VocabParallelCrossEntropy.apply(logits, labels, tp)

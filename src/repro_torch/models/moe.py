@@ -27,6 +27,20 @@ the reference's only where every rank's tokens fill whole groups: it
 raises otherwise.  Without it (one rank; the paper's S-SGD of
 :mod:`repro_torch.comm.sync`, as the reference's ``comm.ddp``) each rank's
 aux is its own batch's.
+
+**Expert and tensor parallelism** (``tp``, :mod:`repro_torch.comm.
+tensor_parallel`).  The router (d, E) and the aux loss stay replicated on
+the ``model`` ranks, on the whole tokens.  Where E divides ``model`` the
+rules split the experts (``wi``, ``wg``, ``wo`` on E): a rank runs its E / m
+experts on the tokens dispatched to them (the tokens are whole on every
+``model`` rank, so nothing is exchanged) and its partial combine is
+all-reduced.  Elsewhere (qwen2-moe-a2.7b's 60 and grok-1-314b's 8 experts
+on 16) ``wi`` / ``wg`` split their hidden dim and ``wo`` stays whole: a
+rank takes its rows of ``wo``, and its partial output is all-reduced in
+the activations' dtype (:func:`~repro_torch.comm.tensor_parallel.
+row_parallel`'s rule).  The combine weights, and a whole ``wo``, go through
+:func:`~repro_torch.comm.tensor_parallel.copy_to_model`, since a rank uses
+them in part; the shared experts are a column / row pair.
 """
 from __future__ import annotations
 
@@ -36,6 +50,8 @@ import contextvars
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm.tensor_parallel import (TensorParallel, copy_to_model,
+                                              reduce_from_model, row_parallel)
 from repro_torch.models.common import ModelConfig, Params, dense_init
 
 
@@ -123,42 +139,35 @@ def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
     return probs, gate_vals, onehot, pos, pos < _capacity(cfg, g)
 
 
-def moe_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            tp: TensorParallel | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss): the Switch load-balancing loss, E
     times the sum over experts of the fraction of tokens routed to each
-    (not differentiated) by its mean router probability."""
+    (not differentiated) by its mean router probability.  ``tp``: expert
+    and tensor parallelism on ``model`` (module docstring)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    tokens = x.reshape(-1, d)
-    T = tokens.shape[0]
+    T = B * S
     comm = _BATCH_COMM.get()
     g = min(cfg.moe_group_size, T * (comm.world if comm is not None else 1))
     if comm is not None and T % g:
         raise ValueError(f"{T} tokens a rank do not fill groups of {g}: the groups would "
                          "differ from those of the whole batch")
-    pad = (-T) % g
-    if pad:
-        tokens = torch.cat([tokens, tokens.new_zeros(pad, d)])
-    G = tokens.shape[0] // g
-    xg = tokens.reshape(G, g, d)
+    expert_split = tp is not None and p["wi"].shape[-3] < E
+    ff_split = tp is not None and not expert_split and p["wi"].shape[-1] < cfg.moe_d_ff
+    tp_e = tp if expert_split or ff_split else None
+    tp_s = tp if "shared" in p and p["shared"]["wi"].shape[-1] < cfg.shared_expert_d_ff \
+        else None
+    if tp_e is not None and tp_s is not None:     # one all-reduce of the cotangent
+        x_e = x_s = copy_to_model(tp, x)
+    else:
+        x_e, x_s = copy_to_model(tp_e, x), copy_to_model(tp_s, x)
+    xg = _groups(x, g)
+    G = xg.shape[0]
     C = _capacity(cfg, g)
 
+    # the router and the aux loss on the whole tokens, replicated over model
     probs, gate_vals, onehot, pos, keep = route(cfg, p["router"], xg)
-    dt = xg.dtype
-    slot = torch.where(keep, pos, C)          # C, a dropped choice: an all-zero row
-    pos_oh = (slot[..., None] == torch.arange(C, device=x.device)).to(dt)  # (G,g,k,C)
-    kept = onehot.to(dt) * keep[..., None]
-    disp = torch.einsum("GgkE,Ggkc->GgEc", kept, pos_oh)
-    comb = torch.einsum("GgkE,Ggkc->GgEc", gate_vals.to(dt)[..., None] * kept, pos_oh)
-
-    expert_in = torch.einsum("GgEc,Ggd->EGcd", disp, xg)                  # (E,G,C,d)
-    h = torch.einsum("EGcd,Edf->EGcf", expert_in, p["wi"])
-    gates = torch.einsum("EGcd,Edf->EGcf", expert_in, p["wg"])
-    h = h * F.silu(gates.float()).to(h.dtype)
-    expert_out = torch.einsum("EGcf,Efd->EGcd", h, p["wo"])
-    out = torch.einsum("GgEc,EGcd->Ggd", comb, expert_out)
-    out = out.reshape(-1, d)[:T].reshape(B, S, d)
-
     chosen = onehot[..., 0, :] if k == 1 else onehot.amax(dim=2)      # (G,g,E)
     frac = (chosen.sum(dim=1) / g).mean(dim=0)
     mean_prob = probs.mean(dim=(0, 1))
@@ -167,10 +176,43 @@ def moe_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor,
             torch.cat([frac.to(mean_prob.dtype), mean_prob]), comm).split(E)
     aux = E * (frac * mean_prob).sum()
 
+    dt = xg.dtype
+    slot = torch.where(keep, pos, C)          # C, a dropped choice: an all-zero row
+    pos_oh = (slot[..., None] == torch.arange(C, device=x.device)).to(dt)  # (G,g,k,C)
+    kept = onehot.to(dt) * keep[..., None]
+    if expert_split:                          # this rank's experts
+        kept = tp_e.take(kept, -1)
+    gate_vals = copy_to_model(tp_e, gate_vals)
+    disp = torch.einsum("GgkE,Ggkc->GgEc", kept, pos_oh)
+    comb = torch.einsum("GgkE,Ggkc->GgEc", gate_vals.to(dt)[..., None] * kept, pos_oh)
+
+    wo = p["wo"]
+    if ff_split:                              # this rank's rows of the whole wo
+        wo = tp_e.take(copy_to_model(tp_e, wo), -2)
+    xg_e = xg if x_e is x else _groups(x_e, g)
+    expert_in = torch.einsum("GgEc,Ggd->EGcd", disp, xg_e)              # (E,G,C,d)
+    h = torch.einsum("EGcd,Edf->EGcf", expert_in, p["wi"])
+    gates = torch.einsum("EGcd,Edf->EGcf", expert_in, p["wg"])
+    h = h * F.silu(gates.float()).to(h.dtype)
+    expert_out = torch.einsum("EGcf,Efd->EGcd", h, wo)
+    out = torch.einsum("GgEc,EGcd->Ggd", comb, expert_out).reshape(-1, d)[:T]
+    out = reduce_from_model(tp_e, out).reshape(B, S, d)   # a partial sum over model
+
     if "shared" in p:
         sp = p["shared"]
-        hs = x @ sp["wi"]
-        gs = x @ sp["wg"]
+        hs = x_s @ sp["wi"]
+        gs = x_s @ sp["wg"]
         hs = hs * F.silu(gs.float()).to(hs.dtype)
-        out = out + hs @ sp["wo"]
+        out = out + row_parallel(tp_s, hs, sp["wo"])
     return out, aux
+
+
+def _groups(x: torch.Tensor, g: int) -> torch.Tensor:
+    """The tokens of x (B, S, d) in groups of g, (G, g, d), the last padded
+    with zero tokens."""
+    d = x.shape[-1]
+    tokens = x.reshape(-1, d)
+    pad = (-tokens.shape[0]) % g
+    if pad:
+        tokens = torch.cat([tokens, tokens.new_zeros(pad, d)])
+    return tokens.reshape(-1, g, d)

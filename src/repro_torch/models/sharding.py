@@ -20,9 +20,10 @@ single pod, ``("pod", "data", "model")`` multi-pod.  Logical roles:
 
 The reference's ``constrain`` (``with_sharding_constraint``) and
 ``named_shardings`` have no counterpart: no tensor is placed by a spec.
-Under ``zero3`` and ``fsdp2d`` :mod:`repro_torch.comm.sharded` cuts each
-rank's slice of the parameters by these specs and gathers it per unit;
-``fsdp``'s tensor and expert parallelism is not run yet.
+:mod:`repro_torch.comm.sharded` cuts each rank's slice of the parameters
+by these specs and gathers its ``fsdp`` dims per unit; the dims on
+``model`` (``tensor``, ``expert``) stay split, and the blocks compute on
+them with the collectives of :mod:`repro_torch.comm.tensor_parallel`.
 """
 from __future__ import annotations
 
@@ -67,6 +68,12 @@ class ShardingConfig:
 
     def spec(self, *logical) -> Spec:
         return tuple(self._axis(lg) for lg in logical)
+
+    @property
+    def tensor_axis(self) -> str | None:
+        """The mesh axis of tensor and expert parallelism: ``model`` in
+        ``fsdp`` and ``pure_dp`` where the mesh has one, else None."""
+        return self._axis("tensor")
 
     @property
     def dp_axes(self) -> tuple[str, ...]:

@@ -18,15 +18,26 @@ llama-vision's stub image embeddings.
 Decode (:func:`decode_step`) runs under ``torch.no_grad`` and writes the
 cache in place (the reference returns a new one); ``pos`` is a Python int,
 so that no cache slot or mask waits on the device.
+
+**Tensor parallelism** (``tp``, :mod:`repro_torch.comm.tensor_parallel`;
+the ``fsdp`` mode and ``pure_dp`` on a mesh with ``model``): the blocks
+run on this rank's slices, and where the rules split the vocabulary over
+``model`` the embedding is vocab-parallel (a lookup of the rank's rows,
+zero elsewhere, all-reduced) and the head column-parallel, tied or not, so
+:func:`forward` and :func:`decode_step` return this rank's block of the
+vocabulary's logits and :func:`loss_fn` takes the vocab-parallel
+cross-entropy of :mod:`repro_torch.models.loss`.
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.comm.tensor_parallel import TensorParallel, copy_to_model, reduce_from_model
 from repro_torch.models import blocks as B
 from repro_torch.models.common import ModelConfig, Params, apply_norm, dense_init, init_norm
 
@@ -114,33 +125,67 @@ def _sum_aux(auxes: list) -> torch.Tensor | None:
     return sum(auxes) if auxes else None
 
 
+def vocab_split(cfg: ModelConfig, emb: torch.Tensor,
+                tp: TensorParallel | None) -> TensorParallel | None:
+    """``tp`` where the embedding ``emb`` holds a block of the vocabulary,
+    else None."""
+    return tp if tp is not None and emb.shape[0] < cfg.vocab_size else None
+
+
+def embed(cfg: ModelConfig, emb: torch.Tensor, tokens: torch.Tensor,
+          tp: TensorParallel | None = None) -> torch.Tensor:
+    """The embeddings of ``tokens``; vocab-parallel under ``tp`` (module
+    docstring)."""
+    tp = vocab_split(cfg, emb, tp)
+    if tp is None:
+        return emb[tokens]
+    start, stop = tp.block(cfg.vocab_size)
+    local = tokens - start
+    inside = (local >= 0) & (local < stop - start)
+    rows = emb[local.clamp(0, stop - start - 1)]
+    return reduce_from_model(tp, torch.where(inside[..., None], rows, torch.zeros_like(rows)))
+
+
+def _head_input(cfg: ModelConfig, head: torch.Tensor, x: torch.Tensor,
+                tp: TensorParallel | None) -> tuple[torch.Tensor, TensorParallel | None]:
+    """(x, ``tp`` if the head is column-parallel over the vocabulary, else
+    None); x through :func:`~repro_torch.comm.tensor_parallel.copy_to_model`
+    in the first case."""
+    tp = tp if tp is not None and head.shape[-1] < cfg.vocab_size else None
+    return copy_to_model(tp, x), tp
+
+
 def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                   encoder_out: torch.Tensor | None = None, remat: bool = False,
-                  param_hook: ParamHook | None = None):
+                  param_hook: ParamHook | None = None, tp: TensorParallel | None = None):
     """(final hidden states, head, the MoE aux loss summed over every
     block; None without experts)."""
     ph = param_hook or (lambda p, path, unit=None: p)
     emb = ph(params["embedding"], ("embedding",), None)
-    x = emb[tokens]
+    x = embed(cfg, emb, tokens, tp)
 
     def unit_body(x, u):
         unit_params = ph(unit_slice(params["units"], u), ("units",), u)
         auxes = []
         for i, kind in enumerate(cfg.layer_pattern):
-            x, a = B.apply_block(cfg, kind, unit_params[f"b{i}"], x, encoder_out)
+            x, a = B.apply_block(cfg, kind, unit_params[f"b{i}"], x, encoder_out, tp)
             auxes.append(a)
         return x, _sum_aux(auxes)
 
     auxes = []
     for u in range(cfg.num_units):
         if remat:
-            x, a = torch.utils.checkpoint.checkpoint(unit_body, x, u, use_reentrant=False)
+            # the recompute runs on the autograd engine's device thread on
+            # CUDA: it sees this call's context variables through a copy of
+            # them (the MoE aux loss's batch, moe.aux_over_batch)
+            x, a = torch.utils.checkpoint.checkpoint(contextvars.copy_context().run, unit_body,
+                                                     x, u, use_reentrant=False)
         else:
             x, a = unit_body(x, u)
         auxes.append(a)
     for i, kind in enumerate(cfg.remainder_pattern):
         x, a = B.apply_block(cfg, kind, ph(params[f"rem{i}"], (f"rem{i}",), None), x,
-                             encoder_out)
+                             encoder_out, tp)
         auxes.append(a)
     aux = _sum_aux(auxes)
     x = apply_norm(cfg, ph(params["final_norm"], ("final_norm",), None), x)
@@ -150,12 +195,14 @@ def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             encoder_out: torch.Tensor | None = None, remat: bool = False,
-            param_hook: ParamHook | None = None) -> torch.Tensor:
-    """tokens: (B, S) int -> logits (B, S, V) in logit_dtype.  The
-    reference also returns the MoE aux loss; :func:`loss_fn` returns it
-    here."""
+            param_hook: ParamHook | None = None,
+            tp: TensorParallel | None = None) -> torch.Tensor:
+    """tokens: (B, S) int -> logits (B, S, V) in logit_dtype (this rank's
+    block of V where ``tp`` splits the vocabulary).  The reference also
+    returns the MoE aux loss; :func:`loss_fn` returns it here."""
     x, head, _ = _final_hidden(cfg, params, tokens, encoder_out=encoder_out, remat=remat,
-                               param_hook=param_hook)
+                               param_hook=param_hook, tp=tp)
+    x, _ = _head_input(cfg, head, x, tp)
     return (x @ head).to(cfg.logit_dtype)
 
 
@@ -168,17 +215,21 @@ MOE_AUX_WEIGHT = 0.01
 
 def loss_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             labels: torch.Tensor, *, encoder_out: torch.Tensor | None = None,
-            remat: bool = False,
-            param_hook: ParamHook | None = None) -> tuple[torch.Tensor, dict]:
+            remat: bool = False, param_hook: ParamHook | None = None,
+            tp: TensorParallel | None = None) -> tuple[torch.Tensor, dict]:
     """(cross-entropy + ``MOE_AUX_WEIGHT`` x the MoE aux loss, {"loss": the
     cross-entropy, "moe_aux": the aux loss}).  Without experts the
     reference's aux is 0: the total is the cross-entropy itself and
     ``moe_aux`` is left out, so dense blocks launch nothing for it."""
+    from repro_torch.models.loss import chunked_cross_entropy, vocab_parallel_cross_entropy
+
     x, head, aux = _final_hidden(cfg, params, tokens, encoder_out=encoder_out, remat=remat,
-                                 param_hook=param_hook)
+                                 param_hook=param_hook, tp=tp)
+    x, tp_v = _head_input(cfg, head, x, tp)
     if cfg.vocab_size >= CHUNKED_XENT_MIN_VOCAB:
-        from repro_torch.models.loss import chunked_cross_entropy
-        loss = chunked_cross_entropy(x, head, labels)
+        loss = chunked_cross_entropy(x, head, labels, tp=tp_v)
+    elif tp_v is not None:
+        loss = vocab_parallel_cross_entropy((x @ head).to(cfg.logit_dtype), labels, tp_v)
     else:
         logits = (x @ head).to(cfg.logit_dtype)
         logp = torch.log_softmax(logits, dim=-1)
@@ -216,22 +267,25 @@ def _write_back(cache: Params, new: Params) -> None:
 def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Tensor,
                 pos: int, *, encoder_out: torch.Tensor | None = None,
                 seq_axis=None, param_hook: ParamHook | None = None,
-                ) -> tuple[torch.Tensor, Params]:
+                tp: TensorParallel | None = None) -> tuple[torch.Tensor, Params]:
     """One-token decode: token (B,) int at position ``pos`` (a Python int).
     Returns (logits (B, V) in logit_dtype, cache), the cache updated in
     place.  ``seq_axis``, a :class:`repro_torch.comm.sync.Comm`, makes the
     ``G`` and ``L`` caches this rank's slices of sequence-sharded ones
     (:func:`repro_torch.models.attention.decode_attention_seq_sharded`).
     ``param_hook`` is applied as in :func:`forward`: to each unit's slice
-    when that unit runs, and to the unscanned leaves at their use."""
+    when that unit runs, and to the unscanned leaves at their use.  ``tp``:
+    tensor parallelism (module docstring), the cache this rank's slice by
+    the rules; the logits are this rank's block of V where ``tp`` splits
+    the vocabulary."""
     ph = param_hook or (lambda p, path, unit=None: p)
     emb = ph(params["embedding"], ("embedding",), None)
-    x = emb[token][:, None, :]                                  # (B, 1, d)
+    x = embed(cfg, emb, token, tp)[:, None, :]                 # (B, 1, d)
 
     def run(p, c, kind):
         nonlocal x
         x, new = B.decode_block(cfg, kind, p, x, c, pos, encoder_out=encoder_out,
-                                seq_axis=seq_axis)
+                                seq_axis=seq_axis, tp=tp)
         _write_back(c, new)
 
     for u in range(cfg.num_units):
@@ -243,6 +297,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
         run(ph(params[f"rem{i}"], (f"rem{i}",), None), cache[f"rem{i}"], kind)
     x = apply_norm(cfg, ph(params["final_norm"], ("final_norm",), None), x)
     head = emb.T if cfg.tie_embeddings else ph(params["lm_head"], ("lm_head",), None)
+    x, _ = _head_input(cfg, head, x, tp)
     return (x @ head).to(cfg.logit_dtype)[:, 0, :], cache
 
 

@@ -43,7 +43,10 @@ def sgd(lr: float, momentum: float = 0.9, weight_decay: float = 0.0) -> Optimize
                 m = get_path(state["mom"], path)
                 m.mul_(momentum).add_(g)
                 g = m
-            p.copy_((p.float() - lr * g).to(p.dtype))
+            if p.dtype == torch.float32:    # the same bits, one temporary fewer
+                p.sub_(lr * g)
+            else:
+                p.copy_((p.float() - lr * g).to(p.dtype))
         return params, state
 
     return Optimizer(init, update)

@@ -4,9 +4,10 @@ on 4 forced host devices (``XLA_FLAGS=--xla_force_host_platform_device_count=4``
     python tests/_sharded_reference.py <dir>
 
 ``<dir>/cases.json`` lists the cases (``name``, ``arch``, ``reduced``,
-``mode``, ``accum_steps``, ``remat``, ``serve``) and ``<dir>/batch_<arch>.npz``
-their batches.  For each arch it first writes the ``PRNGKey(0)``
-parameters (``params_<arch>.pkl``, nested dicts and lists of numpy arrays)
+``mode``, ``accum_steps``, ``remat``, ``serve``; ``key``, which defaults to
+the arch) and ``<dir>/batch_<key>.npz`` their batches.  For each key it
+first writes the ``PRNGKey(0)`` parameters of its case's config
+(``params_<key>.pkl``, nested dicts and lists of numpy arrays)
 and then ``params.done``, so that the port's ranks can start; then for
 each case the reference's own sharded step — ``repro.launch.steps.
 make_train_step`` under ``jax.jit`` with ``in_shardings`` from
@@ -113,22 +114,24 @@ def main(out: Path) -> None:
     cases = json.loads((out / "cases.json").read_text())
     params = {}
     for case in cases:
-        if case["arch"] not in params:
-            params[case["arch"]] = jax.jit(lambda key, cfg=_cfg(case): steps.init_params(
-                cfg, key))(jax.random.PRNGKey(0))
-            with open(out / f"params_{case['arch']}.pkl", "wb") as f:
-                pickle.dump(_np(params[case["arch"]]), f)
+        key = case.get("key", case["arch"])
+        if key not in params:
+            params[key] = jax.jit(lambda k, cfg=_cfg(case): steps.init_params(
+                cfg, k))(jax.random.PRNGKey(0))
+            with open(out / f"params_{key}.pkl", "wb") as f:
+                pickle.dump(_np(params[key]), f)
     (out / "params.done").write_text("")
     mesh = make_cpu_mesh(2, 2)
     for case in cases:
-        with np.load(out / f"batch_{case['arch']}.npz") as z:
+        key = case.get("key", case["arch"])
+        with np.load(out / f"batch_{key}.npz") as z:
             batch = {k: jnp.asarray(z[k]) for k in z.files}
-        result = train(case, params[case["arch"]], batch, mesh)
+        result = train(case, params[key], batch, mesh)
         with open(out / f"ref_{case['name']}.pkl", "wb") as f:
             pickle.dump(result, f)
         if case.get("serve"):
             with open(out / f"serve_{case['name']}.pkl", "wb") as f:
-                pickle.dump(serve(case, params[case["arch"]], batch), f)
+                pickle.dump(serve(case, params[key], batch), f)
 
 
 if __name__ == "__main__":

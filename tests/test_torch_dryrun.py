@@ -185,10 +185,12 @@ class TestLowering:
         assert no_remat["kernel_calls"] == {"wkv6_bwd": 1, "wkv6_fwd": 1}
         assert accum["kernel_calls"] == {"wkv6_bwd": 4, "wkv6_fwd": 8}
         assert accum["memory"]["temp_bytes"] < base["memory"]["temp_bytes"]
-        with pytest.raises(NotImplementedError, match="queue 1, item 15"):
-            dryrun.dryrun_one("rwkv6-1.6b", "train_4k", mode="fsdp")
-        with pytest.raises(NotImplementedError, match="queue 1, item 15"):
-            dryrun.dryrun_one("rwkv6-1.6b", "train_4k", mesh={"data": 16, "model": 16})
+        # fsdp, and pure_dp on a mesh with a model axis: tensor parallelism
+        fsdp = dryrun.dryrun_one("rwkv6-1.6b", "train_4k", mode="fsdp")
+        assert fsdp["status"] == "ok", fsdp.get("traceback")
+        tp = dryrun.dryrun_one("rwkv6-1.6b", "train_4k", mesh={"data": 16, "model": 16})
+        assert tp["status"] == "ok" and tp["mesh"] == "16x16", tp.get("traceback")
+        assert tp["collectives"]["count_by_op"]["reduce-scatter"] > 0   # wv's, on model
         for mode in ("fsdp2d", "zero3"):     # on dp1 nothing is split: pure_dp's record
             rec = dryrun.dryrun_one("rwkv6-1.6b", "train_4k", mode=mode, num_layers=1)
             assert rec["status"] == "ok" and rec["memory"] == base["memory"]
@@ -206,6 +208,7 @@ class TestLowering:
             assert key in rec
         assert rec["compile_s"] is None and rec["memory"]["generated_code_bytes"] is None
         assert rec["cost_analysis"]["while_body_counted_once"] is False
-        with pytest.raises(SystemExit):
-            dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--mode", "fsdp",
-                         "--out-dir", str(tmp_path)])
+        assert dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--mode", "fsdp",
+                            "--out-dir", str(tmp_path)]) == 0
+        rec = json.loads((tmp_path / "rwkv6-1.6b__train_4k__dp1__fsdp.json").read_text())
+        assert rec["status"] == "ok" and rec["mode"] == "fsdp"

@@ -33,11 +33,7 @@ from seed 1), beyond the limit, while here it lies within 4.2e-6.
 round-off is held to the largest leaf's scale, as in
 ``tests/test_torch_encdec.py``.
 """
-import json
-import os
 import pickle
-import subprocess
-import sys
 from pathlib import Path
 
 import _sharded_jobs
@@ -48,9 +44,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.shapes import InputShape
 from repro_torch.launch import dryrun
 from repro_torch.launch import sharded_step as SS
-from repro_torch.measure.run import spawn_ranks
 
-ROOT = Path(__file__).resolve().parents[1]
 SIZES = _sharded_jobs.SIZES
 WORLD = 4
 TOL = 2e-4
@@ -123,24 +117,10 @@ def runs(tmp_path_factory):
     it has written the parameters; every case in one spawn."""
     tmp = tmp_path_factory.mktemp("sharded")
     cases = [_case(name) for name in CASES]
-    (tmp / "cases.json").write_text(json.dumps(cases))
-    for arch in ARCHS:
-        np.savez(tmp / f"batch_{arch}.npz", **_batch(arch))
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
-                                           *filter(None, [os.environ.get("PYTHONPATH")])]))
-    with open(tmp / "ref.log", "w") as log:
-        ref = subprocess.Popen([sys.executable, str(ROOT / "tests" / "_sharded_reference.py"),
-                                str(tmp)], env=env, stdout=log, stderr=subprocess.STDOUT)
-        try:
-            spawn_ranks(_sharded_jobs.run_rank, WORLD, "cpu", [*cases, RUNNER], str(tmp))
-        finally:
-            rc = ref.wait(timeout=600)
-    assert rc == 0, (tmp / "ref.log").read_text()[-4000:]
-    results = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(WORLD)]
-    return {"tmp": tmp, "ranks": {job["name"]: [results[r][i] for r in range(WORLD)]
-                                  for i, job in enumerate([*cases, RUNNER])}}
+    records = _sharded_jobs.run_against_reference(
+        tmp, cases, {arch: _batch(arch) for arch in ARCHS}, [RUNNER], WORLD)
+    return {"tmp": tmp, "ranks": {job["name"]: ranks
+                                  for job, ranks in zip([*cases, RUNNER], records)}}
 
 
 def _scaled(got, want) -> float:
@@ -244,3 +224,41 @@ def test_runner_against_pure_dp(runs):
     assert all(r["control_mom_err"] > SS.F32_LIMIT for r in ranks)
     broken = [dict(r, mom_err=1.0) for r in ranks]
     assert SS.check(RUNNER, broken, dry, on_cuda=False)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_gloo_staging_hands_the_backend_a_copy(dim, monkeypatch):
+    """``Comm(gloo_staging=True)`` (a dry run of a gloo step) hands the
+    reduce-scatter a copy of its input, as gloo copies it; without it the
+    input itself (dim 0) or the one copy that moves the blocks to dim 0."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comm.sync import Comm
+    from repro_torch.launch.mesh import fake_process_group
+
+    seen = []
+    monkeypatch.setattr(dist, "reduce_scatter_tensor",
+                        lambda out, full, group=None: seen.append(full))
+    with fake_process_group(2):
+        full = torch.zeros(4, 6)
+        for staged in (False, True):
+            out = Comm(gloo_staging=staged).reduce_scatter(full, dim)
+            assert out.shape == (4 // 2, 6) if dim == 0 else (4, 6 // 2)
+    plain, copied = seen
+    assert (plain is full) == (dim == 0)
+    assert copied is not full and copied.data_ptr() != plain.data_ptr()
+    assert torch.equal(copied, plain)
+
+
+def test_a_dry_run_of_a_gloo_step_holds_gloo_copy():
+    """``lower(gloo=True)``: the same collectives, and at a vocabulary large
+    enough that the embedding gradient's reduce-scatter sets the peak, the
+    temporaries grow by that whole gradient (the copy gloo makes)."""
+    cfg = get_config("rwkv6-1.6b").reduced(num_layers=1, vocab_size=65536)
+    shape = InputShape("sharded_step", 32, 8, "train")
+    plain, staged = (dryrun.lower(cfg, shape, mesh={"data": 2}, mode="zero3", gloo=gloo)
+                     for gloo in (False, True))
+    assert staged["collectives"] == plain["collectives"]
+    grow = staged["memory"]["temp_bytes"] - plain["memory"]["temp_bytes"]
+    assert grow == cfg.vocab_size * cfg.d_model * 4
