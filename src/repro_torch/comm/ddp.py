@@ -7,6 +7,7 @@ schedule of :mod:`repro_torch.comm.sync`.
 """
 from __future__ import annotations
 
+from repro_torch import tracing
 from repro_torch.comm import sync as S
 from repro_torch.launch.steps import loss_and_grads
 from repro_torch.models.common import ModelConfig
@@ -21,12 +22,15 @@ def make_ddp_train_step(cfg: ModelConfig, optimizer: Optimizer, comm: S.Comm | N
     ``comm`` is None for a single process (``sync_policy`` "none").  The
     parameters and optimizer state are updated in place (see
     :mod:`repro_torch.optim.sgd`).  Each of the two metric means is one
-    4-byte f32 all-reduce, as in the reference."""
+    4-byte f32 all-reduce, as in the reference.  Under
+    :func:`repro_torch.tracing.record` the step is a ``step`` span of
+    ``fwd``, ``bwd`` and ``update``."""
     if sync_policy not in S.SYNC_POLICIES:
         raise ValueError(f"unknown sync policy {sync_policy!r}")
     if comm is None and sync_policy != "none":
         raise ValueError(f"sync policy {sync_policy!r} needs a process group")
 
+    @tracing.spanned("step")
     def step(params, opt_state, batch):
         hook = S.WfbpHook(comm) if sync_policy == "wfbp" else None
         total, metrics, grads = loss_and_grads(cfg, params, batch["tokens"], batch["labels"],

@@ -3,9 +3,12 @@
 Counterpart of :mod:`repro.data.pipeline`: the paper's first optimization
 opportunity, *overlapping I/O with computing* (§IV-C, tasks T36–T43 of
 Fig. 1).  A producer thread fetches the next mini-batches and stages them
-onto the device while the current step computes.  The loader records per
-batch ``t_io`` (the fetch) and ``t_h2d`` (the host-to-device copy, timed
-to its completion, the reference's ``block_until_ready``).
+onto the device while the current step computes.  The loader sums over
+its batches ``t_io`` (the fetch) and ``t_h2d`` (the host-to-device copy,
+timed to its completion, the reference's ``block_until_ready``), so that
+its memory does not grow with the run; under
+:func:`repro_torch.tracing.record` the consumer's wait for each batch is
+the counter ``loader.wait``.
 
 On CUDA a batch is staged by ``pin_memory()`` and a non-blocking copy on
 the loader's own stream; the consumer's stream waits on that copy's event
@@ -24,6 +27,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 
 
@@ -50,12 +54,6 @@ class SyntheticLMDataset:
             yield {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 
-@dataclass
-class BatchTiming:
-    t_io: float
-    t_h2d: float
-
-
 class PrefetchLoader:
     """Producer-consumer loader with ``depth`` staged batches on ``device``
     (default CUDA, which raises without a GPU).
@@ -69,7 +67,8 @@ class PrefetchLoader:
         self.dataset = iter(dataset)
         self.depth = depth
         self.device = resolve_device(device)
-        self.timings: list[BatchTiming] = []
+        # (batches, t_io, t_h2d) sums, swapped whole by the one thread that fetches
+        self._sums = (0, 0.0, 0.0)
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self._stop = threading.Event()
@@ -96,7 +95,8 @@ class PrefetchLoader:
         t1 = time.perf_counter()
         staged = self._stage(batch)
         t2 = time.perf_counter()
-        self.timings.append(BatchTiming(t_io=t1 - t0, t_h2d=t2 - t1))
+        n, io, h2d = self._sums
+        self._sums = (n + 1, io + (t1 - t0), h2d + (t2 - t1))
         return staged
 
     def _producer(self):
@@ -112,7 +112,8 @@ class PrefetchLoader:
         return self
 
     def __next__(self) -> dict:
-        item = self._fetch_and_stage() if self.depth == 0 else self._q.get()
+        with tracing.timed("loader.wait"):
+            item = self._fetch_and_stage() if self.depth == 0 else self._q.get()
         if item is None:
             raise StopIteration
         batch, done = item
@@ -135,8 +136,15 @@ class PrefetchLoader:
                 pass
             self._thread.join(timeout=0.05)
 
+    @property
+    def batches(self) -> int:
+        """Batches fetched so far."""
+        return self._sums[0]
+
     def mean_t_io(self) -> float:
-        return float(np.mean([t.t_io for t in self.timings])) if self.timings else 0.0
+        n, io, _ = self._sums
+        return io / n if n else 0.0
 
     def mean_t_h2d(self) -> float:
-        return float(np.mean([t.t_h2d for t in self.timings])) if self.timings else 0.0
+        n, _, h2d = self._sums
+        return h2d / n if n else 0.0

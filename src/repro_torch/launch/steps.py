@@ -20,6 +20,7 @@ from typing import Any, Callable
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch import tracing
 from repro_torch.comm.sharded import ShardedHook
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import encdec as ED
@@ -120,14 +121,17 @@ def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = False
     """(total loss, metrics, gradients keyed like ``params``): the port's
     ``loss_fn``, then ``torch.autograd.grad`` over every leaf.
     ``encoder_in``: the frames of an ``audio`` arch or the images of a
-    ``vlm`` arch (:func:`encoder_input`)."""
+    ``vlm`` arch (:func:`encoder_input`).  Under :func:`repro_torch.tracing.
+    record` the two are the spans ``fwd`` and ``bwd``."""
     paths, leaves = zip(*T.leaf_order(params))
     for leaf in leaves:
         leaf.requires_grad_(True)
     try:
-        total, metrics = model_loss(cfg, params, tokens.long(), labels.long(), remat,
-                                    param_hook, encoder_in, tp)
-        grad_list = torch.autograd.grad(total, leaves)
+        with tracing.span("fwd"):
+            total, metrics = model_loss(cfg, params, tokens.long(), labels.long(), remat,
+                                        param_hook, encoder_in, tp)
+        with tracing.span("bwd"):
+            grad_list = torch.autograd.grad(total, leaves)
     finally:
         for leaf in leaves:
             leaf.requires_grad_(False)
@@ -159,7 +163,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
     gradients are finished by it
     (:meth:`~repro_torch.comm.sharded.ShardedHook.finish`) and the MoE aux
     loss is taken over the batch of the ranks that split it; ``grad_norm``
-    is the whole gradient's."""
+    is the whole gradient's.  Under :func:`repro_torch.tracing.record` the
+    step is a ``step`` span of ``fwd`` and ``bwd`` (a microbatch each) and
+    ``update``."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if sharded is not None and grad_sync is not None:
@@ -173,6 +179,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, remat: bool = Tru
                                                    sharded, enc_in, sharded.tp)
         return total, metrics, sharded.finish(grads)
 
+    @tracing.spanned("step")
     def train_step(params, opt_state, batch):
         tokens, labels, enc_in = batch["tokens"], batch["labels"], encoder_input(cfg, batch)
         if accum_steps == 1:

@@ -21,10 +21,19 @@ reference multiplies it by the world once more).  As in the reference, an
 ``audio`` or ``vlm`` arch (whisper-tiny, llama-3.2-vision-90b) trains as
 its dense ``G`` backbone alone (:func:`repro_torch.launch.steps.
 dense_backbone`).
+
+``--trace-out PATH`` (one process) records the run's spans
+(:mod:`repro_torch.tracing`) and writes the paper's layer-wise trace of its
+steps after the first two to ``PATH`` (:mod:`repro_torch.traces.recorded`,
+:func:`repro_torch.traces.format.write_trace`): the embedding, each unit
+and the head with the loss, forward and backward on the device's clock,
+each layer's gradient bytes, no communication.  ``python -m
+repro.launch.sweep --workloads trace:PATH`` and the port's sweep read it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import tempfile
@@ -34,8 +43,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
+
+#: steps the trace leaves out, as ``mean_step_s`` does
+WARM_STEPS = 2
 
 
 def build_argparser():
@@ -60,6 +73,9 @@ def build_argparser():
     ap.add_argument("--checkpoint")
     ap.add_argument("--summary-json")
     ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--trace-out",
+                    help="write the paper's layer-wise trace of the steps here "
+                         "(one process)")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default cuda; cpu must be asked for")
     return ap
@@ -72,6 +88,8 @@ def train_loop(args, device: torch.device, rank: int = 0, world: int = 1, comm=N
     from repro_torch.data.pipeline import PrefetchLoader, SyntheticLMDataset
     from repro_torch.launch.steps import dense_backbone, init_params, loss_and_grads
     from repro_torch.optim.sgd import adamw, sgd
+    from repro_torch.traces.format import write_trace
+    from repro_torch.traces.recorded import layer_times, paper_trace
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -85,6 +103,7 @@ def train_loop(args, device: torch.device, rank: int = 0, world: int = 1, comm=N
     loader = PrefetchLoader(dataset, depth=args.prefetch, device=device)
 
     if comm is None:
+        @tracing.spanned("step")
         def step(p, s, batch):
             total, metrics, grads = loss_and_grads(cfg, p, batch["tokens"], batch["labels"])
             p, s = opt.update(grads, s, p)
@@ -101,25 +120,37 @@ def train_loop(args, device: torch.device, rank: int = 0, world: int = 1, comm=N
             return ddp_step(p, s, {k: v[shard].long() for k, v in batch.items()})
 
     losses, step_times = [], []
+    layer_steps = []         # each recorded step's layer times, all the trace keeps
+    traced = (tracing.record(device, on_step=lambda _, spans: layer_steps.append(
+        layer_times(spans))) if args.trace_out else contextlib.nullcontext())
     t_prev = time.perf_counter()
     try:
-        for i, batch in zip(range(args.steps), loader):
-            params, opt_state, metrics = step(params, opt_state, batch)
-            losses.append(float(metrics["loss"]))       # waits for the step
-            now = time.perf_counter()
-            step_times.append(now - t_prev)
-            t_prev = now
-            if rank == 0 and (i % args.log_every == 0 or i == args.steps - 1):
-                print(f"step {i:4d} loss {losses[-1]:.4f} ({step_times[-1] * 1e3:.1f} ms)",
-                      flush=True)
+        with traced as rec:
+            for i, batch in zip(range(args.steps), loader):
+                params, opt_state, metrics = step(params, opt_state, batch)
+                losses.append(float(metrics["loss"]))       # waits for the step
+                now = time.perf_counter()
+                step_times.append(now - t_prev)
+                t_prev = now
+                if rank == 0 and (i % args.log_every == 0 or i == args.steps - 1):
+                    print(f"step {i:4d} loss {losses[-1]:.4f} "
+                          f"({step_times[-1] * 1e3:.1f} ms)", flush=True)
     finally:
         loader.close()
+
+    if rec is not None:
+        rec.summary()
+        trace = paper_trace(layer_steps[WARM_STEPS:] or layer_steps, params, cfg.name,
+                            f"torch-{device.type}-x{world}", batch_per_gpu=args.batch,
+                            bytes_per_sample=8.0 * args.seq)
+        write_trace(trace, args.trace_out)
+        print(f"trace -> {args.trace_out}", flush=True)
 
     if args.checkpoint and rank == 0:
         save_checkpoint(args.checkpoint, params, opt_state, step=args.steps)
         print(f"checkpoint -> {args.checkpoint}", flush=True)
 
-    warm = step_times[2:] or step_times
+    warm = step_times[WARM_STEPS:] or step_times
     summary = {
         "arch": cfg.name, "steps": args.steps, "world": world, "policy": args.policy,
         "loss_first": losses[0], "loss_last": losses[-1],
@@ -145,6 +176,9 @@ def run(args) -> dict:
     n_dp = args.data_parallel or (torch.cuda.device_count() if device.type == "cuda" else 1)
     if args.policy == "single" or n_dp == 1:
         summary = train_loop(args, device)[0]
+    elif args.trace_out:
+        raise SystemExit("--trace-out records one process: give --data-parallel 1 "
+                         "or --policy single")
     else:
         from repro_torch.measure.run import spawn_ranks
 

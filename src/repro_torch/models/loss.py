@@ -15,11 +15,17 @@ of the rows' shifted exponentials and of the target logits (each target
 lies in one rank's block; the others add 0).  The backward needs none:
 each rank's block of ``softmax - onehot`` is its own.
 :func:`vocab_parallel_cross_entropy` is the plain (unchunked) path's.
+
+Under :func:`repro_torch.tracing.record` both functions' forward and
+backward are the spans ``fwd.loss`` and ``bwd.loss``; the backward keeps
+the recorder of its forward, as it may run on the autograd engine's device
+thread.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.comm.tensor_parallel import TensorParallel, max_over_model, reduce_from_model
 
 DEFAULT_CHUNK = 8192
@@ -68,16 +74,23 @@ def _combine(m, l, lab, tp: TensorParallel | None):
 class ChunkedCrossEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, head, labels, chunk, tp):
-        nc = _num_chunks(head.shape[1], min(chunk, head.shape[1]))
-        if tp is not None:      # this rank's block of the vocabulary
-            labels = labels - tp.block(head.shape[1] * tp.size)[0]
-        lse, lab = _combine(*_lse_scan(x, head, labels, nc), tp)
-        ctx.save_for_backward(x, head, labels, lse)
-        ctx.nc = nc
-        return (lse - lab).mean()
+        ctx.rec = tracing.current()
+        with tracing.span_on(ctx.rec, "fwd.loss"):
+            nc = _num_chunks(head.shape[1], min(chunk, head.shape[1]))
+            if tp is not None:      # this rank's block of the vocabulary
+                labels = labels - tp.block(head.shape[1] * tp.size)[0]
+            lse, lab = _combine(*_lse_scan(x, head, labels, nc), tp)
+            ctx.save_for_backward(x, head, labels, lse)
+            ctx.nc = nc
+            return (lse - lab).mean()
 
     @staticmethod
     def backward(ctx, dloss):
+        with tracing.span_on(ctx.rec, "bwd.loss"):
+            return ChunkedCrossEntropy._backward(ctx, dloss)
+
+    @staticmethod
+    def _backward(ctx, dloss):
         x, head, labels, lse = ctx.saved_tensors
         B, S, d = x.shape
         c = head.shape[1] // ctx.nc
@@ -111,23 +124,27 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Ten
 class VocabParallelCrossEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, tp):
-        V = logits.shape[-1]
-        labels = labels - tp.block(V * tp.size)[0]
-        m = logits.amax(dim=-1)
-        inside = (labels >= 0) & (labels < V)
-        picked = torch.gather(logits, -1, labels.clamp(0, V - 1)[..., None])[..., 0]
-        l = torch.exp(logits - m[..., None]).sum(dim=-1)
-        lse, lab = _combine(m, l, torch.where(inside, picked, torch.zeros_like(picked)), tp)
-        ctx.save_for_backward(logits, labels, lse)
-        return (lse - lab).mean()
+        ctx.rec = tracing.current()
+        with tracing.span_on(ctx.rec, "fwd.loss"):
+            V = logits.shape[-1]
+            labels = labels - tp.block(V * tp.size)[0]
+            m = logits.amax(dim=-1)
+            inside = (labels >= 0) & (labels < V)
+            picked = torch.gather(logits, -1, labels.clamp(0, V - 1)[..., None])[..., 0]
+            l = torch.exp(logits - m[..., None]).sum(dim=-1)
+            lse, lab = _combine(m, l, torch.where(inside, picked, torch.zeros_like(picked)),
+                                tp)
+            ctx.save_for_backward(logits, labels, lse)
+            return (lse - lab).mean()
 
     @staticmethod
     def backward(ctx, dloss):
-        logits, labels, lse = ctx.saved_tensors
-        V = logits.shape[-1]
-        p = torch.exp(logits - lse[..., None])
-        onehot = torch.arange(V, device=logits.device) == labels[..., None]
-        return (p - onehot.to(p.dtype)) * (dloss / labels.numel()), None, None
+        with tracing.span_on(ctx.rec, "bwd.loss"):
+            logits, labels, lse = ctx.saved_tensors
+            V = logits.shape[-1]
+            p = torch.exp(logits - lse[..., None])
+            onehot = torch.arange(V, device=logits.device) == labels[..., None]
+            return (p - onehot.to(p.dtype)) * (dloss / labels.numel()), None, None
 
 
 def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tracing
 from repro_torch.comm.tensor_parallel import TensorParallel, copy_to_model, reduce_from_model
 from repro_torch.models import blocks as B
 from repro_torch.models.common import ModelConfig, Params, apply_norm, dense_init, init_norm
@@ -159,7 +160,9 @@ def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                   encoder_out: torch.Tensor | None = None, remat: bool = False,
                   param_hook: ParamHook | None = None, tp: TensorParallel | None = None):
     """(final hidden states, head, the MoE aux loss summed over every
-    block; None without experts)."""
+    block; None without experts).  The hidden states pass a
+    :func:`repro_torch.tracing.boundary` before each unit (before its
+    parameter slice, outside the recompute) and after the last."""
     ph = param_hook or (lambda p, path, unit=None: p)
     emb = ph(params["embedding"], ("embedding",), None)
     x = embed(cfg, emb, tokens, tp)
@@ -174,6 +177,7 @@ def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
     auxes = []
     for u in range(cfg.num_units):
+        x = tracing.boundary(x, "unit", u)
         if remat:
             # the recompute runs on the autograd engine's device thread on
             # CUDA: it sees this call's context variables through a copy of
@@ -183,6 +187,7 @@ def _final_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         else:
             x, a = unit_body(x, u)
         auxes.append(a)
+    x = tracing.boundary(x, "head")
     for i, kind in enumerate(cfg.remainder_pattern):
         x, a = B.apply_block(cfg, kind, ph(params[f"rem{i}"], (f"rem{i}",), None), x,
                              encoder_out, tp)

@@ -7,7 +7,8 @@ params) -> (params, state)``.  The state (momentum; AdamW's ``m``, ``v``)
 and the update math are float32 and the result is cast back to the
 parameter dtype, as in the reference.  Unlike the reference, ``update``
 writes the new parameters and state in place (at full width a functional
-copy would double the memory of both) and returns the same dicts.
+copy would double the memory of both) and returns the same dicts; under
+:func:`repro_torch.tracing.record` it is the span ``update``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.transformer import Params, get_path, leaf_order, map_leaves
 
 
@@ -33,6 +35,7 @@ def sgd(lr: float, momentum: float = 0.9, weight_decay: float = 0.0) -> Optimize
             lambda _, p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
             params)}
 
+    @tracing.spanned("update")
     @torch.no_grad()
     def update(grads, state, params):
         for path, p in leaf_order(params):
@@ -66,6 +69,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return {"m": map_leaves(zeros, params), "v": map_leaves(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
+    @tracing.spanned("update")
     @torch.no_grad()
     def update(grads, state, params):
         state["step"].add_(1)

@@ -151,7 +151,7 @@ class TestPipeline:
                                       device="cpu")
         b = next(loader)
         assert b["tokens"].shape == (2, 8)
-        assert loader.mean_t_io() >= 0.0 and len(loader.timings) == 1
+        assert loader.mean_t_io() >= 0.0 and loader.batches == 1
 
     def test_default_device_is_cuda(self):
         if torch.cuda.is_available():
