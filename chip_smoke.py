@@ -2408,11 +2408,10 @@ DRYRUN_PEAK_RTOL = 0.10
 def real_train_step(cfg, batch: int, seq: int) -> dict:
     """One bfloat16 ``make_train_step`` step (SGD, momentum 0.9, remat) on
     the card from seed 0: its peak above what was allocated before its
-    arguments were made, its FLOPs (``FlopCounterMode``), the port kernel
+    arguments were made, its FLOPs (``dryrun.flop_counter``), the port kernel
     launches (counted from 0) and the loss."""
-    from torch.utils.flop_counter import FlopCounterMode
-
     from repro_torch import kernels
+    from repro_torch.launch.dryrun import flop_counter
     from repro_torch.launch.steps import init_params, make_train_step
     from repro_torch.optim.sgd import sgd
 
@@ -2428,7 +2427,7 @@ def real_train_step(cfg, batch: int, seq: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    with FlopCounterMode(display=False) as fc:
+    with flop_counter() as fc:
         _, _, metrics = step(params, opt_state, data)
     torch.cuda.synchronize()
     out = {"peak": torch.cuda.max_memory_allocated() - base, "flops": fc.get_total_flops(),

@@ -61,7 +61,7 @@ sharding specs and :func:`repro_torch.models.sharding.shard_shape`;
 ``temp_bytes``: the lowering's peak live bytes less the arguments;
 ``output_bytes``: the returned tensors that alias no argument;
 ``generated_code_bytes`` null), ``cost_analysis`` (``flops`` from
-``FlopCounterMode`` over the whole step, the kernels by their FLOP
+:func:`flop_counter` over the whole step, the kernels by their FLOP
 formulas, every layer counted: ``while_body_counted_once`` false;
 ``bytes_accessed`` null), ``collectives`` (the calls and result bytes
 handed to :class:`repro_torch.comm.sync.Comm`, by op, in the layout of the
@@ -113,6 +113,19 @@ from repro_torch.optim.sgd import sgd
 ROOT = Path(__file__).resolve().parents[3]
 RESULTS_DIR = ROOT / "results" / "dryrun_torch"
 POLICIES = ("at_end", "bucketed")
+
+
+def _addmm_flops(self_shape, a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    (m, k), (_, n) = a_shape, b_shape
+    return 2 * m * k * n
+
+
+def flop_counter() -> FlopCounterMode:
+    """``FlopCounterMode`` that counts ``addmm`` with an ``out_dtype`` too
+    (the chunked loss's bfloat16 backward, :mod:`repro_torch.models.loss`):
+    torch's own ``addmm`` formula takes that positional argument for the
+    output's shape and raises."""
+    return FlopCounterMode(display=False, custom_mapping={torch.ops.aten.addmm: _addmm_flops})
 
 
 def lowering_device() -> str:
@@ -322,7 +335,7 @@ def lower(cfg, shape: InputShape, *, ranks: int = 1, mesh: dict[str, int] | None
     with fake_process_group(world) if world > 1 else contextlib.nullcontext(), fake:
         lowering.own(args)
         t0 = time.time()
-        with FlopCounterMode(display=False) as flops, lowering:
+        with flop_counter() as flops, lowering:
             if shape.kind == "train":
                 sync = (lambda g: S.sync_gradients(g, policy, comm)) \
                     if world > 1 and hook is None else None

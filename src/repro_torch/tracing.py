@@ -48,6 +48,10 @@ keeps neither its events nor its spans.
   (:mod:`repro_torch.models.loss`), inside ``fwd.head`` / ``bwd.head``.
 - Counter ``loader.wait``: seconds the consumer of
   :class:`repro_torch.data.pipeline.PrefetchLoader` waited for a batch.
+- Counter ``loss.split_chunks``: vocab chunks of the chunked
+  cross-entropy's backward whose two products ran through the exact
+  three-term split of ``dlogits``, on the tensor cores on CUDA (x and head
+  bfloat16; :mod:`repro_torch.models.loss`); 0 for f32 or fp16 inputs.
 
 No span is a ``torch.profiler`` range: a profiler mirrors those onto the
 device's track, where they would read as device work.

@@ -220,6 +220,137 @@ class TestNumerics:
             j = np.asarray(j)
             assert np.abs(_np(t) - j).max() <= 1e-5 * np.abs(j).max()
 
+    @pytest.mark.parametrize("values", ["wide", "dlogits"])
+    def test_split3_is_exact(self, values):
+        """hi + mid + lo == dlogits bit for bit (summed in float64, which
+        holds the three terms' sum exactly): over magnitudes 1e-30 to 1e4 of
+        both signs, and over (p - onehot) / N as the backward makes it."""
+        g = torch.Generator().manual_seed(4)
+        if values == "wide":
+            mag = 10.0 ** (torch.rand(200_000, generator=g, dtype=torch.float64) * 34 - 30)
+            sign = torch.randint(0, 2, mag.shape, generator=g) * 2 - 1
+            d = (mag * sign).float()
+        else:
+            N, V = 96, 4096
+            p = torch.softmax(3 * torch.randn(N, V, generator=g), dim=-1)
+            onehot = torch.zeros(N, V).scatter_(1, torch.randint(0, V, (N, 1), generator=g), 1)
+            d = ((p - onehot) * (1.0 / N)).reshape(-1)
+        hi, mid, lo = tloss.split3(d)
+        assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+        total = hi.double() + mid.double() + lo.double()
+        assert torch.equal(total, d.double())
+        assert int((mid != 0).sum()) > d.numel() // 2     # the split does work
+
+    @pytest.mark.parametrize("head_kind", ["plain", "tied"])
+    def test_split_products_match_the_f32_products(self, head_kind):
+        """:func:`split_products` on the CPU, whose products of the bf16
+        terms are f32 products, gives a chunk's dx and dhead within 1e-6 of
+        the f32 products (norm-relative), for a head and for a tied head
+        ``embedding.T``.  Both inner dimensions (c for dx, N for dhead)
+        exceed ``ACC_BLOCK``, with a ragged last block."""
+        g = torch.Generator().manual_seed(5)
+        N, d, V, c = 1100, 64, 5000, 2500
+        assert N % tloss.ACC_BLOCK and c % tloss.ACC_BLOCK and min(N, c) > tloss.ACC_BLOCK
+        x = torch.randn(N, d, generator=g).bfloat16()
+        if head_kind == "plain":
+            head = (torch.randn(d, V, generator=g) / d ** 0.5).bfloat16()
+        else:
+            head = (torch.randn(V, d, generator=g) / d ** 0.5).bfloat16().T
+            assert not head.is_contiguous()
+        hc = head[:, c:2 * c]
+        p = torch.softmax((x @ head).float(), dim=-1)[:, c:2 * c]
+        onehot = torch.zeros(N, c).scatter_(1, torch.randint(0, c, (N, 1), generator=g), 1)
+        dlogits = (p - onehot) * (1.0 / N)
+        base = 1e-3 * torch.randn(N, d, generator=g)      # earlier chunks' sum
+
+        dx = base.clone()
+        dhc = tloss.split_products(dlogits, x, hc, dx)
+        want_dx = base + dlogits @ hc.float().T
+        want_dhc = x.float().T @ dlogits
+        assert dhc.dtype == dx.dtype == torch.float32
+        for got, want in ((dx, want_dx), (dhc, want_dhc)):
+            assert float((got - want).norm() / want.norm()) <= 1e-6
+        one = dlogits.bfloat16().float()                  # the lower precision it avoids
+        assert float((x.float().T @ one - want_dhc).norm() / want_dhc.norm()) > 1e-4
+
+    def test_a_shape_only_lowering_counts_the_split_whole(self):
+        """On meta tensors, as a dry run lowers, the bf16 backward counts the
+        split's six products of 2·N·d·V FLOPs beside the forward's and the
+        recompute's logits, and takes each product whole: one dispatch a
+        product, however many ``ACC_BLOCK`` the tokens span."""
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from repro_torch.launch.dryrun import flop_counter
+
+        class Products(TorchDispatchMode):
+            calls = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                Products.calls += func.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm)
+                return func(*args, **(kwargs or {}))
+
+        N, d, V = 4 * tloss.ACC_BLOCK + 5, 64, 16_384
+        x = torch.empty(1, N, d, dtype=torch.bfloat16, device="meta", requires_grad=True)
+        head = torch.empty(d, V, dtype=torch.bfloat16, device="meta", requires_grad=True)
+        labels = torch.zeros(1, N, dtype=torch.long, device="meta")
+        with flop_counter() as fc, Products():
+            torch.autograd.grad(tloss.chunked_cross_entropy(x, head, labels), (x, head))
+        assert fc.get_total_flops() == 8 * 2 * N * d * V
+        assert Products.calls == 8 * tloss._num_chunks(V, tloss.DEFAULT_CHUNK)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_chunked_cross_entropy_takes_the_f32_products_on_the_cpu(self, dtype, monkeypatch):
+        """On the CPU every product of the backward is an f32 product.  f32
+        inputs take the f32 path, and ``loss.split_chunks`` stays absent.
+        bf16 inputs take the split (:func:`takes_split` is by dtype alone),
+        whose products are the f32 products of the bf16 terms: the counter
+        adds one a chunk, and the gradients lie within 2^-11 (norm-relative)
+        of the f32 path's, where one bf16 term of ``dlogits``, the lower
+        precision the split avoids, reads beyond it.  Both equal the f32
+        products' formula."""
+        from repro_torch import tracing
+
+        g = torch.Generator().manual_seed(6)
+        V, d = 16_384, 32
+        x = torch.randn(2, 6, d, generator=g).to(dtype)
+        head = (torch.randn(d, V, generator=g) / d ** 0.5).to(dtype)
+        labels = torch.randint(0, V, (2, 6), generator=g)
+        split = dtype == torch.bfloat16
+        assert tloss.takes_split(x, head) == split
+
+        def grads():
+            xs, hs = x.clone().requires_grad_(), head.clone().requires_grad_()
+            with tracing.record("cpu") as rec:
+                out = torch.autograd.grad(tloss.chunked_cross_entropy(xs, hs, labels), (xs, hs))
+            return out, rec.summary()["counters"].get("loss.split_chunks", 0)
+
+        (gx, gh), n = grads()
+        assert n == (tloss._num_chunks(V, tloss.DEFAULT_CHUNK) if split else 0)
+        xf, hf = x.float(), head.float()
+        dl = torch.softmax((x @ head).float(), dim=-1)
+        dl[torch.arange(2)[:, None], torch.arange(6)[None, :], labels] -= 1
+        dl /= 12
+        want_x, want_h = dl @ hf.T, xf.reshape(12, d).T @ dl.reshape(12, V)
+        torch.testing.assert_close(gx, want_x.to(dtype), rtol=1e-5 if dtype == torch.float32
+                                   else 1e-2, atol=1e-7)
+        torch.testing.assert_close(gh, want_h.to(dtype), rtol=1e-5 if dtype == torch.float32
+                                   else 1e-2, atol=1e-7)
+        if not split:
+            return
+
+        def rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm())
+
+        with monkeypatch.context() as m:
+            m.setattr(tloss, "takes_split", lambda x, head: False)
+            f32_path, _ = grads()
+        with monkeypatch.context() as m:
+            m.setattr(tloss, "split3", lambda t: (t.bfloat16(), *2 * [torch.zeros_like(
+                t, dtype=torch.bfloat16)]))
+            one_term, _ = grads()
+        for got, ctl, want in zip((gx, gh), one_term, f32_path):
+            assert rel(got, want) <= 2 ** -11 < rel(ctl, want)
+
 
 class TestModel:
     @pytest.mark.parametrize("arch", ARCHS)

@@ -659,3 +659,113 @@ class TestCNNOnCard:
         recs = trace.mean_iteration()
         assert len(recs) == 7 and all(r.forward_us > 0 for r in recs)
         assert [r.backward_us > 0 for r in recs] == [r.size_bytes > 0 for r in recs]
+
+
+class TestLossOnCard:
+    """The chunked cross-entropy's backward on the tensor cores: bf16 x and
+    head split ``dlogits`` into three bf16 terms
+    (``repro_torch.models.loss``).  "small": 3 x 256 tokens, d 512, vocab
+    16 384 (two chunks of 8192), "tied" the same with the head a transposed
+    embedding; "cell": internlm2-20b's 3 x 4096 tokens, d 6144, vocab 92 544
+    (chunks of 7712); gemma3-1b's and recurrentgemma-2b's tied heads at
+    their published widths, 2 x 4096 tokens."""
+
+    SHAPES = {"small": (3, 256, 512, 16_384), "tied": (3, 256, 512, 16_384),
+              "cell": (3, 4096, 6144, 92_544), "gemma3-1b": (2, 4096, 1152, 262_144),
+              "recurrentgemma-2b": (2, 4096, 2560, 256_000)}
+    TIED = ("tied", "gemma3-1b", "recurrentgemma-2b")
+    #: a chunk's products from float64, norm-relative: above the split's
+    #: readings and the f32 products', below the split's with the leading
+    #: term unblocked wherever the inner dimension is 4096 or more (PERF.md)
+    LIMIT = 4e-6
+    #: the whole backward's bf16 gradients from the f32 path's,
+    #: norm-relative: above the split's readings, below one bf16 term's
+    WHOLE_LIMIT = 2 ** -11
+
+    @staticmethod
+    def _inputs(B, S, D, V, tied=False):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn(B, S, D, generator=g, device="cuda").bfloat16()
+        head = (torch.randn(V, D, generator=g, device="cuda") / D ** 0.5).bfloat16().T \
+            if tied else (torch.randn(D, V, generator=g, device="cuda") / D ** 0.5).bfloat16()
+        labels = torch.randint(0, V, (B, S), generator=g, device="cuda")
+        return x, head, labels
+
+    @staticmethod
+    def _rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    @pytest.mark.parametrize("shape", list(SHAPES))
+    def test_split_products_keep_the_f32_precision(self, shape, monkeypatch):
+        """One chunk's dx and dhead through the split, and through the f32
+        products, lie within ``LIMIT`` of float64.  Two controls show the
+        check tells a lower precision apart: one bf16 term of dlogits reads
+        at least 10x the limit away, and the split with its leading term
+        summed whole, where the inner dimension is 4096 or more, beyond it
+        (the tensor cores' accumulator truncates)."""
+        from repro_torch.models import loss as L
+        from repro_torch.traces.generate import tf32
+
+        B, S, D, V = self.SHAPES[shape]
+        x, head, labels = self._inputs(B, S, D, V, tied=shape in self.TIED)
+        N, c = B * S, V // L._num_chunks(V, L.DEFAULT_CHUNK)
+        x2, hc = x.reshape(N, D), head[:, c:2 * c]
+        p = torch.softmax((x2 @ head).float(), dim=-1)[:, c:2 * c]
+        loc = labels.reshape(N) - c
+        onehot = (torch.arange(c, device="cuda") == loc[:, None]) & \
+            ((loc >= 0) & (loc < c))[:, None]
+        dlogits = (p - onehot.float()) / N
+        del p
+        want = (dlogits.double() @ hc.double().T, x2.double().T @ dlogits.double())
+
+        def split():
+            dx = torch.zeros(N, D, device="cuda")
+            return dx, L.split_products(dlogits, x2, hc, dx)
+
+        got = split()
+        with tf32(False):
+            f32 = (dlogits @ hc.float().T, x2.float().T @ dlogits)
+        one = dlogits.bfloat16()
+        ctl = (torch.mm(one, hc.T, out_dtype=torch.float32),
+               torch.mm(x2.T, one, out_dtype=torch.float32))
+        monkeypatch.setattr(L, "ACC_BLOCK", 1 << 30)
+        whole = split()
+        rel = self._rel
+        for i, (what, inner) in enumerate((("dx", c), ("dhead", N))):
+            assert rel(got[i], want[i]) <= self.LIMIT, (what, rel(got[i], want[i]))
+            assert rel(f32[i], want[i]) <= self.LIMIT, (what, rel(f32[i], want[i]))
+            assert rel(ctl[i], want[i]) >= 10 * self.LIMIT, (what, rel(ctl[i], want[i]))
+            if inner >= 4096:
+                assert rel(whole[i], want[i]) > self.LIMIT, (what, rel(whole[i], want[i]))
+
+    def test_backward_counts_its_split_chunks(self, monkeypatch):
+        """The whole backward at internlm2-20b's cell shape:
+        ``loss.split_chunks`` adds one a chunk and call, the gradients
+        repeat bit for bit, and they lie within ``WHOLE_LIMIT`` of the f32
+        path's, where one bf16 term of dlogits reads beyond it."""
+        from repro_torch import tracing
+        from repro_torch.models import loss as L
+        from repro_torch.traces.generate import tf32
+
+        x, head, labels = self._inputs(*self.SHAPES["cell"])
+
+        def grads():
+            xs, hs = x.clone().requires_grad_(), head.clone().requires_grad_()
+            return torch.autograd.grad(L.chunked_cross_entropy(xs, hs, labels), (xs, hs))
+
+        assert L.takes_split(x, head)
+        with tracing.record("cuda") as rec:
+            got = [grads() for _ in range(3)]
+        chunks = L._num_chunks(head.shape[1], L.DEFAULT_CHUNK)
+        assert rec.summary()["counters"]["loss.split_chunks"] == chunks * 3
+        assert all(torch.equal(a, b) for g in got[1:] for a, b in zip(g, got[0]))
+        with monkeypatch.context() as m, tf32(False):
+            m.setattr(L, "takes_split", lambda x, head: False)
+            want = grads()
+        with monkeypatch.context() as m:
+            m.setattr(L, "split3", lambda t: (t.bfloat16(), *2 * [torch.zeros_like(
+                t, dtype=torch.bfloat16)]))
+            one_term = grads()
+        for a, ctl, b in zip(got[0], one_term, want):
+            assert self._rel(a, b) <= self.WHOLE_LIMIT < self._rel(ctl, b), \
+                (self._rel(a, b), self._rel(ctl, b))
